@@ -1,0 +1,30 @@
+"""Box geometry, the port of ``sipmask_tpu/core/boxes.py`` (the parts the
+serving path uses). Boxes are xyxy."""
+
+from __future__ import annotations
+
+import torch
+
+
+def bbox_overlaps(bboxes1, bboxes2):
+    """Pairwise IoU with mmdet-v1's +1 pixel convention.
+
+    bboxes1 (..., M, 4), bboxes2 (..., N, 4) -> (..., M, N).
+    """
+    lt = torch.maximum(bboxes1[..., :, None, :2], bboxes2[..., None, :, :2])
+    rb = torch.minimum(bboxes1[..., :, None, 2:], bboxes2[..., None, :, 2:])
+    wh = (rb - lt + 1).clamp(min=0)
+    overlap = wh[..., 0] * wh[..., 1]
+    area1 = ((bboxes1[..., 2] - bboxes1[..., 0] + 1) *
+             (bboxes1[..., 3] - bboxes1[..., 1] + 1))
+    area2 = ((bboxes2[..., 2] - bboxes2[..., 0] + 1) *
+             (bboxes2[..., 3] - bboxes2[..., 1] + 1))
+    return overlap / (area1[..., :, None] + area2[..., None, :] - overlap)
+
+
+def distance2bbox(points, distance):
+    """(l, t, r, b) distances at ``points`` (..., 2) [x, y] -> xyxy."""
+    return torch.stack([points[..., 0] - distance[..., 0],
+                        points[..., 1] - distance[..., 1],
+                        points[..., 0] + distance[..., 2],
+                        points[..., 1] + distance[..., 3]], -1)

@@ -1,0 +1,89 @@
+"""Exact multiclass hard NMS, the port of
+``sipmask_tpu/ops/nms.py:multiclass_nms_idx`` (its hard path).
+
+Plain PyTorch: it is not a Pallas kernel in the JAX package either. The
+algorithm is the same wave-batched greedy over the full (N, C) score matrix
+(see the JAX source for why it is exact); ``jax.lax.top_k`` becomes a stable
+descending sort, which keeps its lower-index-first order among equal scores.
+The loop condition is read on the host once per wave.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.boxes import bbox_overlaps
+
+NEG = -1.0e4
+
+
+def _top(x, k: int):
+    """``lax.top_k`` on the last axis: descending, ties lower index first."""
+    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+def multiclass_nms_idx(boxes, scores, score_thr: float, iou_thr: float,
+                       max_per_img: int, score_factors=None):
+    """Per-class greedy hard NMS (+1 IoU), then the global top by score.
+
+    Args:
+      boxes: (N, 4) class-agnostic xyxy boxes.
+      scores: (N, C) per-class sigmoid scores.
+      score_factors: optional (N,), multiplied into the scores after the
+        threshold on the raw score.
+    Returns dict, each of length max_per_img: boxes (., 4), scores, labels
+    (0-based, -1 when empty), idxs (input row), valid.
+    """
+    n, c = scores.shape
+    dev = scores.device
+    eff = scores * score_factors[:, None] if score_factors is not None \
+        else scores
+    eff = torch.where(scores > score_thr, eff, torch.full_like(eff, NEG))
+    wave = max(1, min(8, max_per_img, n))
+    width = max_per_img + wave   # per-class accept buffer
+    live = eff.t().contiguous()                           # (C, N)
+    acc_s = torch.full((c, width), NEG, dtype=eff.dtype, device=dev)
+    acc_r = torch.zeros((c, width), dtype=torch.long, device=dev)
+    cnt = torch.zeros((c,), dtype=torch.long, device=dev)
+
+    for _ in range(max_per_img):
+        # JAX's while_loop condition: stop once nothing is live, or once
+        # max_per_img accepted picks score strictly above every live score
+        rem = live.max()
+        finalized = (acc_s > torch.clamp(rem, min=NEG / 2)).sum() \
+            >= max_per_img
+        if not bool((rem > NEG / 2) & ~finalized):
+            break
+        s_w, j_w = _top(live, wave)                       # (C, T)
+        bw = boxes[j_w]                                   # (C, T, 4)
+        iou_w = bbox_overlaps(bw, bw)                     # (C, T, T)
+        # exact greedy inside the window
+        acc = torch.zeros((c, wave), dtype=torch.bool, device=dev)
+        acc[:, 0] = s_w[:, 0] > NEG / 2
+        for t in range(1, wave):
+            conflict = (acc[:, :t] & (iou_w[:, :t, t] > iou_thr)).any(1)
+            acc[:, t] = (s_w[:, t] > NEG / 2) & ~conflict
+        # suppress same-class overlaps of every accepted pick, and the picks
+        # themselves (a degenerate box has zero +1-convention self-IoU)
+        sup = ((bbox_overlaps(bw, boxes) > iou_thr) & acc[:, :, None]).any(1)
+        live = live.masked_fill(sup, NEG)
+        rows, ts = acc.nonzero(as_tuple=True)
+        live[rows, j_w[rows, ts]] = live[rows, j_w[rows, ts]].clamp(max=NEG)
+        # append the accepted picks of each class after its earlier ones
+        pos = cnt[:, None] + torch.cumsum(acc, 1) - 1
+        rows, ts = (acc & (pos < width)).nonzero(as_tuple=True)
+        acc_s[rows, pos[rows, ts]] = s_w[rows, ts]
+        acc_r[rows, pos[rows, ts]] = j_w[rows, ts]
+        cnt = cnt + acc.sum(1)
+
+    ks, flat = _top(acc_s.reshape(-1), max_per_img)
+    kr = acc_r.reshape(-1)[flat]
+    valid = ks > NEG / 2
+    return dict(
+        boxes=boxes[kr] * valid[:, None],
+        scores=torch.where(valid, ks, torch.zeros_like(ks)),
+        labels=torch.where(valid, flat // width, torch.full_like(flat, -1)),
+        idxs=kr,
+        valid=valid,
+    )

@@ -1,0 +1,113 @@
+"""The weight bridge between the JAX package and the port, and the port's
+initialisation.
+
+``params_from_jax`` is the counterpart of
+``sipmask_tpu/utils/torch_convert.py:flax_to_torch_names`` without flax:
+the port's modules carry the reference's mmdet ``state_dict`` names, so the
+JAX trees map onto them with the same rules.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from collections import OrderedDict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.layers import FrozenBatchNorm2d, GroupNorm32, Scale
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _jax_path_to_torch(name: str) -> str:
+    """``torch_convert._flax_path_to_torch``'s rules for the image model."""
+    n = name
+    n = re.sub(r"^backbone/layer(\d)_(\d+)/", r"backbone.layer\1.\2.", n)
+    n = n.replace("downsample_conv/kernel", "downsample.0.weight")
+    n = n.replace("downsample_bn/", "downsample.1/")
+    n = re.sub(r"^neck/lateral_(\d)/", r"neck.lateral_convs.\1.conv.", n)
+    n = re.sub(r"^neck/fpn_(\d)/", r"neck.fpn_convs.\1.conv.", n)
+    n = re.sub(r"^head/(cls|reg)_convs_(\d)/(conv|gn)/",
+               r"bbox_head.\1_convs.\2.\3.", n)
+    n = re.sub(r"^head/scale_(\d)/scale", r"bbox_head.scales.\1.scale", n)
+    n = n.replace("head/feat_align/conv_offset/",
+                  "bbox_head.feat_align.conv_offset.")
+    n = n.replace("head/feat_align/norm/", "bbox_head.feat_align.norm.")
+    n = n.replace("head/feat_align/kernel",
+                  "bbox_head.feat_align.conv_adaption.weight")
+    n = re.sub(r"^head/", "bbox_head.", n)
+    n = re.sub(r"^backbone/", "backbone.", n)
+    n = n.replace("/", ".").replace(".kernel", ".weight")
+    n = n.replace("gn.scale", "gn.weight").replace("norm.scale",
+                                                   "norm.weight")
+    return (n.replace(".gamma", ".weight").replace(".beta", ".bias")
+            .replace(".mean", ".running_mean").replace(".var", ".running_var"))
+
+
+def params_from_jax(params, constants) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``params`` and frozen-BN ``constants`` trees (nested dicts of
+    arrays) -> a ``state_dict`` of the port's ``SipMask``. Conv kernels go
+    from HWIO to OIHW."""
+    sd = OrderedDict()
+    for tree in (params, constants):
+        for path, v in _flatten(tree):
+            v = np.asarray(v, dtype=np.float32)
+            if path[-1] == "kernel" and v.ndim == 4:
+                v = v.transpose(3, 2, 0, 1)
+            sd[_jax_path_to_torch("/".join(path))] = torch.from_numpy(
+                v.copy())
+    return sd
+
+
+def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator):
+    """The reference's init per conv (``layers.conv_init`` specs)."""
+    w = conv.weight
+    o, i, kh, kw = w.shape
+    with torch.no_grad():
+        if name.startswith("backbone."):
+            # kaiming, fan_out, as mmcv's kaiming_init
+            w.normal_(0.0, math.sqrt(2.0 / (o * kh * kw)), generator=gen)
+        elif name.startswith("neck."):
+            bound = math.sqrt(6.0 / ((i + o) * kh * kw))   # xavier uniform
+            w.uniform_(-bound, bound, generator=gen)
+        elif name.endswith("feat_align.conv_offset"):
+            w.zero_()
+        else:
+            std = 0.001 if name.endswith("sip_cof") else 0.01
+            w.normal_(0.0, std, generator=gen)
+        if conv.bias is not None:
+            conv.bias.zero_()
+            if name.endswith("fcos_cls"):   # focal prior, p = 0.01
+                conv.bias.fill_(-math.log((1 - 0.01) / 0.01))
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights with the reference's schemes: kaiming fan_out for the
+    backbone, xavier-uniform for the FPN, normal(0.01) for the head
+    (0.001 for ``sip_cof``), the focal prior bias on ``fcos_cls``, zero
+    ``conv_offset``, identity frozen BN and GroupNorm, unit scales.
+    Draws from ``generator`` in module order, so a seed fixes the weights
+    on any device."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, nn.Conv2d):
+                _conv_init(name, m, generator)
+            elif isinstance(m, GroupNorm32):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, Scale):
+                m.scale.fill_(1.0)
+            elif isinstance(m, FrozenBatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)

@@ -1,0 +1,409 @@
+"""Op parity of the PyTorch port (sipmask_tpu_torch) with the JAX package.
+
+Inputs come from numpy seeds and go through both, in f32 on the CPU, where
+each port wrapper runs its kernel's plain version. The JAX Pallas kernels run
+in interpret mode, as tests/test_ops.py runs them.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sipmask_tpu.core import boxes as jboxes
+from sipmask_tpu.core.points import all_points as j_all_points
+from sipmask_tpu.models.layers import group_norm_nhwc
+from sipmask_tpu.ops.crop_split import assemble_masks as j_assemble_masks
+from sipmask_tpu.ops.deform_conv import _sample_positions
+from sipmask_tpu.ops.deform_conv import deform_conv2d as j_deform_conv2d
+from sipmask_tpu.ops.nms import multiclass_nms_idx as j_multiclass_nms_idx
+from sipmask_tpu.ops.pallas.deform_gather import (_sample_pallas_sep_t,
+                                                  _sample_pallas_t,
+                                                  sample_ref)
+from sipmask_tpu.ops.pallas.group_norm import fused_gn_relu
+from sipmask_tpu_torch.core.boxes import bbox_overlaps, distance2bbox
+from sipmask_tpu_torch.core.points import all_points
+from sipmask_tpu_torch.models.layers import resize_bilinear, resize_nearest
+from sipmask_tpu_torch.ops import deform_sample, gn_relu, native
+from sipmask_tpu_torch.ops.crop_split import assemble_masks
+from sipmask_tpu_torch.ops.deform_conv import deform_conv2d
+from sipmask_tpu_torch.ops.nms import multiclass_nms_idx
+
+T = torch.from_numpy
+
+
+def _nchw(a):
+    return T(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+
+
+# ------------------------------------------------------------------- K1
+
+def _offsets(rng, b, g, h, w, regime):
+    """(B, H, W, G*18) offsets in the CUDA layout. 'moderate': sigma 0.7 px;
+    'extreme': thirds of +-300 px, sigma 2 px and integer far-out offsets
+    (where a gather that forms the address before the bounds test reads
+    out of bounds)."""
+    off = rng.randn(b, h, w, g * 18).astype(np.float32)
+    if regime == "moderate":
+        return off * 0.7
+    flat = off.reshape(b, h * w, g * 18)
+    p = h * w
+    flat[:, :p // 3] *= 300.0
+    flat[:, p // 3:2 * p // 3] *= 2.0
+    flat[:, 2 * p // 3:] = np.round(flat[:, 2 * p // 3:] * 100.0)
+    return flat.reshape(b, h, w, g * 18)
+
+
+def _k1_case(seed, regime, b=2, g=2, cg=8, h=24, w=20):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, h, w, g * cg).astype(np.float32)
+    off = _offsets(rng, b, g, h, w, regime)
+    # the JAX kernels' operands, batch-major rows: N = b*G + g
+    x_rows = jnp.asarray(x.reshape(b, h * w, g, cg).transpose(0, 2, 1, 3)
+                         .reshape(b * g, h * w, cg))
+    pyx = _sample_positions(jnp.asarray(off), 3, 3, 1, 1, 1, g)
+    return x, off, x_rows, pyx, (b, g, cg, h, w)
+
+
+@pytest.mark.parametrize("regime", ["moderate", "extreme"])
+@pytest.mark.parametrize("ref", ["sep_t", "banded_t", "sample_ref"])
+def test_deform_im2col_plain_matches_jax(ref, regime):
+    x, off, x_rows, pyx, (b, g, cg, h, w) = _k1_case(0, regime)
+    p = h * w
+    if ref == "sep_t":
+        want = _sample_pallas_sep_t(x_rows, pyx, h, w, interpret=True)
+    elif ref == "banded_t":
+        want = _sample_pallas_t(x_rows, pyx, h, w, interpret=True)
+    else:   # (N, P, K, Cg) -> (N, K*Cg, P)
+        want = sample_ref(x_rows, pyx, h, w).transpose(0, 2, 3, 1)
+    want = np.asarray(want)[:, :, :p].reshape(b, g * 9 * cg, p)
+    got = deform_sample.deform_im2col(_nchw(x), _nchw(off), (3, 3), 1, 1, 1,
+                                      g)
+    # same f32 arithmetic as sample_ref; the one-hot matmuls of the Pallas
+    # kernels sum the same four products in another order
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_deform_im2col_cpu_takes_the_plain_version():
+    x, off, *_ = _k1_case(1, "moderate", h=6, w=5)
+    before = deform_sample.deform_im2col.launches
+    got = deform_sample.deform_im2col(_nchw(x), _nchw(off), (3, 3), 1, 1, 1,
+                                      2)
+    want = deform_sample.deform_im2col_plain(_nchw(x), _nchw(off), (3, 3),
+                                             1, 1, 1, 2)
+    assert torch.equal(got, want)
+    assert deform_sample.deform_im2col.launches == before
+
+
+def test_kernel_wrappers_raise_off_cpu_and_cuda():
+    """No fallback: a device with no kernel raises, it does not run the
+    plain version."""
+    x = torch.empty((1, 8, 4, 4), device="meta")
+    with pytest.raises(ValueError, match="no K1 kernel"):
+        deform_sample.deform_im2col(x, torch.empty((1, 18, 4, 4),
+                                                   device="meta"))
+    with pytest.raises(ValueError, match="no K4 kernel"):
+        gn_relu.gn_relu(x, torch.ones(8, device="meta"),
+                        torch.zeros(8, device="meta"), 4)
+
+
+def test_deform_im2col_rejects_bad_offsets():
+    with pytest.raises(ValueError, match="offsets"):
+        deform_sample.deform_im2col(torch.zeros(1, 8, 5, 5),
+                                    torch.zeros(1, 36, 5, 5), (3, 3), 1, 1,
+                                    1, 1)
+
+
+@pytest.mark.parametrize("stride,dilation,groups,regime", [
+    (1, 1, 4, "moderate"),   # FeatureAlign
+    (1, 1, 4, "extreme"),
+    (2, 1, 1, "moderate"),
+    (1, 2, 2, "extreme"),
+])
+def test_deform_conv2d_matches_jax(stride, dilation, groups, regime):
+    rng = np.random.RandomState(3)
+    b, c, h, w, o = 2, 16, 13, 11, 12
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    pad = dilation
+    ho = (h + 2 * pad - 2 * dilation - 1) // stride + 1
+    wo = (w + 2 * pad - 2 * dilation - 1) // stride + 1
+    off = _offsets(rng, b, groups, ho, wo, regime)
+    weight = (rng.randn(3, 3, c, o) * 0.1).astype(np.float32)    # HWIO
+    want = j_deform_conv2d(jnp.asarray(x), jnp.asarray(off),
+                           jnp.asarray(weight), stride=stride, padding=pad,
+                           dilation=dilation, deform_groups=groups)
+    got = deform_conv2d(_nchw(x), _nchw(off),
+                        T(np.ascontiguousarray(weight.transpose(3, 2, 0, 1))),
+                        stride=stride, padding=pad, dilation=dilation,
+                        deform_groups=groups)
+    # f32 contractions over 9*16 products, summed in another order
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------- K4
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("ref", ["fused_gn_relu", "group_norm_nhwc"])
+def test_gn_relu_plain_matches_jax(ref, act):
+    rng = np.random.RandomState(4)
+    b, h, w, c, groups = 2, 9, 7, 256, 32     # odd h*w: ragged tiles
+    x = (rng.randn(b, h, w, c) * 3.0 + 1.0).astype(np.float32)
+    scale = (rng.rand(c) + 0.5).astype(np.float32)
+    bias = (rng.randn(c) * 0.2).astype(np.float32)
+    xj, sj, bj = jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias)
+    if ref == "fused_gn_relu":
+        want = fused_gn_relu(xj, sj, bj, groups, 1e-5, act, True)
+    else:
+        want = group_norm_nhwc(xj, sj, bj, groups, 1e-5)
+        want = jnp.maximum(want, 0) if act else want
+    got = gn_relu.gn_relu(_nchw(x), T(scale), T(bias), groups, 1e-5, act)
+    # the same single-pass f32 statistics; only summation order differs
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ NMS
+
+def _greedy_nms_oracle(boxes, scores, iou_thr):
+    """Greedy NMS with the +1 IoU, one pick at a time (the oracle of
+    tests/test_ops.py, with each pick's IoU row in numpy)."""
+    order = np.argsort(-scores, kind="stable")
+    area = (boxes[:, 2] - boxes[:, 0] + 1) * (boxes[:, 3] - boxes[:, 1] + 1)
+    keep = []
+    suppressed = np.zeros(len(boxes), bool)
+    for i in order:
+        if suppressed[i]:
+            continue
+        keep.append(i)
+        iw = np.maximum(np.minimum(boxes[i, 2], boxes[:, 2]) -
+                        np.maximum(boxes[i, 0], boxes[:, 0]) + 1, 0)
+        ih = np.maximum(np.minimum(boxes[i, 3], boxes[:, 3]) -
+                        np.maximum(boxes[i, 1], boxes[:, 1]) + 1, 0)
+        inter = iw * ih
+        suppressed |= inter / (area[i] + area - inter) > iou_thr
+        suppressed[i] = True
+    return keep
+
+
+def _multiclass_oracle(boxes, scores, max_img):
+    """Per-class greedy NMS, concatenated: (must, optional) keep sets, the
+    optional ones tied with the max_img-th score."""
+    pairs = []
+    for cc in range(scores.shape[1]):
+        s = scores[:, cc].copy()
+        s[s <= 0.05] = -1
+        keep = _greedy_nms_oracle(boxes, s, 0.5)
+        pairs += [(i, cc, s[i]) for i in keep if s[i] > 0.05]
+    pairs.sort(key=lambda t: -t[2])
+    kth = pairs[max_img - 1][2] if len(pairs) >= max_img else -1
+    must = {(i, cc) for i, cc, s in pairs[:max_img] if s > kth}
+    opt = {(i, cc) for i, cc, s in pairs if s == kth}
+    return must, opt, min(max_img, len(pairs))
+
+
+def _kept(out):
+    v = out["valid"].numpy()
+    return set(zip(out["idxs"].numpy()[v].tolist(),
+                   out["labels"].numpy()[v].tolist()))
+
+
+class TestMulticlassNMS:
+    """The keep-set cases of tests/test_ops.py::TestNMS on the port."""
+
+    def test_single_class_matches_greedy_oracle(self):
+        rng = np.random.RandomState(0)
+        n = 60
+        boxes = rng.uniform(0, 80, (n, 4)).astype(np.float32)
+        boxes[:, 2:] = boxes[:, :2] + rng.uniform(5, 40, (n, 2))
+        scores = rng.rand(n).astype(np.float32)
+        expect = [i for i in _greedy_nms_oracle(boxes, scores, 0.5)
+                  if scores[i] > 0.05][:30]
+        out = multiclass_nms_idx(T(boxes), T(scores[:, None]), 0.05, 0.5, 30)
+        v = out["valid"].numpy()
+        assert out["idxs"].numpy()[v].tolist() == expect
+
+    def test_basic(self):
+        boxes = torch.tensor([[0, 0, 10, 10], [1, 1, 11, 11],
+                              [50, 50, 60, 60], [0, 0, 10, 10]],
+                             dtype=torch.float32)
+        scores = torch.tensor([[0.9, 0.01], [0.8, 0.01], [0.7, 0.01],
+                               [0.01, 0.6]])
+        out = multiclass_nms_idx(boxes, scores, 0.05, 0.5, 10)
+        assert out["valid"].sum() == 3
+        assert _kept(out) == {(0, 0), (2, 0), (3, 1)}
+
+    def test_degenerate_box_not_repicked(self):
+        boxes = torch.tensor([[50.0, 50.0, 40.0, 40.0],
+                              [0, 0, 10, 10], [100, 100, 110, 110]])
+        scores = torch.tensor([[0.95], [0.9], [0.8]])
+        out = multiclass_nms_idx(boxes, scores, 0.05, 0.5, 5)
+        v = out["valid"].numpy()
+        assert v.sum() == 3
+        assert out["idxs"].numpy()[v].tolist() == [0, 1, 2]
+
+    def test_tied_scores_early_stop_exact(self):
+        rng = np.random.RandomState(7)
+        n, c = 400, 12
+        boxes = rng.uniform(0, 200, (n, 4)).astype(np.float32)
+        boxes[:, 2:] = boxes[:, :2] + rng.uniform(4, 60, (n, 2))
+        scores = (np.round(rng.rand(n, c) * 8) / 8).astype(np.float32)
+        out = multiclass_nms_idx(T(boxes), T(scores), 0.05, 0.5, 50)
+        got = _kept(out)
+        must, opt, count = _multiclass_oracle(boxes, scores, 50)
+        assert must <= got
+        assert got - must <= opt
+        assert len(got) == count
+
+    def test_suppression_chain_within_wave(self):
+        boxes = torch.tensor([[0, 0, 10, 10], [3, 0, 13, 10],
+                              [6, 0, 16, 10]], dtype=torch.float32)
+        scores = torch.tensor([[0.9], [0.8], [0.7]])
+        out = multiclass_nms_idx(boxes, scores, 0.05, 0.5, 5)
+        v = out["valid"].numpy()
+        assert out["idxs"].numpy()[v].tolist() == [0, 2]
+
+    def test_fuzz_vs_oracle(self):
+        rng = np.random.RandomState(42)
+        for trial in range(12):
+            n = int(rng.randint(5, 160))
+            c = int(rng.randint(1, 9))
+            max_img = int(rng.randint(1, 40))
+            centers = rng.uniform(0, 300, (max(1, n // 12), 2))
+            ctr = centers[rng.randint(0, len(centers), n)] + \
+                rng.randn(n, 2) * 6
+            wh = rng.uniform(8, 50, (n, 2))
+            boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2],
+                                   1).astype(np.float32)
+            deg = rng.rand(n) < 0.1
+            boxes[deg, 2] = boxes[deg, 0] - 3.0
+            scores = (np.round(rng.rand(n, c) * 16) / 16).astype(np.float32)
+            out = multiclass_nms_idx(T(boxes), T(scores), 0.05, 0.5, max_img)
+            got = _kept(out)
+            must, opt, count = _multiclass_oracle(boxes, scores, max_img)
+            assert must <= got, f"trial {trial}: missing {must - got}"
+            assert got - must <= opt, f"trial {trial}: extras"
+            assert len(got) == count, f"trial {trial}"
+
+    def test_score_factor_ordering(self):
+        boxes = torch.tensor([[0, 0, 10, 10], [100, 100, 110, 110]],
+                             dtype=torch.float32)
+        scores = torch.tensor([[0.9], [0.8]])
+        out = multiclass_nms_idx(boxes, scores, 0.05, 0.5, 2,
+                                 score_factors=torch.tensor([0.1, 1.0]))
+        assert out["idxs"][0] == 1
+        np.testing.assert_allclose(out["scores"].numpy()[:2], [0.8, 0.09],
+                                   rtol=1e-5)
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_identical_to_jax(self, seed):
+        """Same picks in the same order, ties included: the stable sort
+        reproduces lax.top_k's lower-index-first rule."""
+        rng = np.random.RandomState(seed)
+        n, c = 300, 6
+        ctr = rng.uniform(0, 200, (n, 2))
+        wh = rng.uniform(5, 60, (n, 2))
+        boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2],
+                               1).astype(np.float32)
+        scores = (np.round(rng.rand(n, c) * 32) / 32).astype(np.float32)
+        factors = (np.round(rng.rand(n) * 4) / 4).astype(np.float32)
+        want = j_multiclass_nms_idx(jnp.asarray(boxes), jnp.asarray(scores),
+                                    0.05, 0.5, 100,
+                                    score_factors=jnp.asarray(factors))
+        got = multiclass_nms_idx(T(boxes), T(scores), 0.05, 0.5, 100,
+                                 score_factors=T(factors))
+        v = np.asarray(want["valid"])
+        np.testing.assert_array_equal(got["valid"].numpy(), v)
+        for k in ("idxs", "labels"):
+            np.testing.assert_array_equal(got[k].numpy()[v],
+                                          np.asarray(want[k])[v])
+        for k in ("scores", "boxes"):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------- masks, geometry, resize
+
+def test_assemble_masks_matches_jax():
+    rng = np.random.RandomState(5)
+    h, w, nb, n = 19, 23, 8, 7
+    basis = rng.randn(h, w, nb).astype(np.float32)
+    cofs = rng.randn(n, 4 * nb).astype(np.float32)
+    boxes = np.array([[1, 1, 9, 9], [4, 2, 15, 13], [0, 0, 23, 19],
+                      [5, 5, 6.5, 7.2], [-4, -3, 30, 25], [10, 8, 9, 7],
+                      [2.5, 3.3, 2.55, 3.4]], np.float32)
+    want = j_assemble_masks(jnp.asarray(basis), jnp.asarray(cofs),
+                            jnp.asarray(boxes))
+    got = assemble_masks(T(basis), T(cofs), T(boxes))
+    # sigmoid of f32 32-term dot products; the crop masks are exact
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got.numpy() > 0, np.asarray(want) > 0)
+
+
+@pytest.mark.parametrize("size,out", [((3, 5), (6, 10)), ((2, 3), (8, 12)),
+                                      ((3, 4), (7, 9))])
+def test_resize_bilinear_matches_jax(size, out):
+    x = np.random.RandomState(6).randn(2, *size, 3).astype(np.float32)
+    want = jax.image.resize(jnp.asarray(x), (2, *out, 3), method="bilinear")
+    got = resize_bilinear(_nchw(x), *out)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("size,out", [((3, 5), (6, 10)), ((2, 3), (8, 12))])
+def test_resize_nearest_matches_jax(size, out):
+    x = np.random.RandomState(7).randn(2, *size, 3).astype(np.float32)
+    want = jax.image.resize(jnp.asarray(x), (2, *out, 3), method="nearest")
+    got = resize_nearest(_nchw(x), *out)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(want))
+
+
+def test_box_geometry_and_points_match_jax():
+    rng = np.random.RandomState(8)
+    b1 = rng.uniform(0, 50, (7, 4)).astype(np.float32)
+    b2 = rng.uniform(0, 50, (9, 4)).astype(np.float32)
+    b2[:, 2:] = b2[:, :2] + rng.uniform(-3, 30, (9, 2))   # some degenerate
+    np.testing.assert_allclose(bbox_overlaps(T(b1), T(b2)).numpy(),
+                               np.asarray(jboxes.bbox_overlaps(b1, b2)),
+                               rtol=1e-6, atol=1e-7)
+    pts = rng.uniform(0, 100, (11, 2)).astype(np.float32)
+    dist = rng.uniform(0, 40, (11, 4)).astype(np.float32)
+    np.testing.assert_array_equal(distance2bbox(T(pts), T(dist)).numpy(),
+                                  np.asarray(jboxes.distance2bbox(pts, dist)))
+    sizes, strides = [(16, 20), (8, 10), (1, 2)], (8, 16, 128)
+    np.testing.assert_array_equal(all_points(sizes, strides).numpy(),
+                                  np.asarray(j_all_points(sizes, strides)[0]))
+
+
+# ------------------------------------------------------- package and build
+
+def test_import_leaves_jax_flax_cv2_and_the_jax_package_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sipmask_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'cv2', 'sipmask_tpu')]\n"
+        "assert not bad, bad\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root)
+    assert res.returncode == 0, res.stderr
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(native, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        native.load("gn_relu")
+    assert not (tmp_path / "kernels").exists()

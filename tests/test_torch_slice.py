@@ -1,0 +1,107 @@
+"""The port's serving slice against the JAX package's, end to end: detector
+-> decode_batch, and inference_detector, on the same weights at golden's
+shrunk config (f32, CPU). The cls and reg biases are bumped so that the
+decode has detections to keep (see _torch_parity)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (bumped_state_dict, images, jax_variables,
+                           shrunk_cfg)
+from sipmask_tpu.apis.inference import Detector as JDetector
+from sipmask_tpu.apis.inference import inference_detector as j_inference
+from sipmask_tpu.models import build_model as j_build_model
+from sipmask_tpu.models.decode import decode_batch as j_decode_batch
+from sipmask_tpu_torch.apis.inference import (inference_detector,
+                                              init_detector, preprocess)
+from sipmask_tpu_torch.models.decode import decode_batch
+from sipmask_tpu_torch.utils.convert import params_from_jax
+
+IMG_SHAPES = np.array([[120.0, 160.0], [128.0, 150.0]], np.float32)
+SCALES = np.array([[1.0] * 4, [0.8] * 4], np.float32)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = shrunk_cfg()
+    det = init_detector(cfg, "cpu")
+    variables = jax_variables(bumped_state_dict(det.model))
+    det.model.load_state_dict(params_from_jax(variables["params"],
+                                              variables["constants"]))
+    x = images(2, 128, 160)
+    jm = j_build_model(cfg.model)
+    j_out = jax.jit(jm.apply)(variables, jnp.asarray(x))
+    j_dec = jax.jit(lambda o: j_decode_batch(
+        o, jnp.asarray(IMG_SHAPES), jnp.asarray(SCALES), cfg.model))(j_out)
+    with torch.no_grad():
+        out = det.model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    return dict(cfg=cfg, det=det, variables=variables, jm=jm,
+                j_out=jax.tree_util.tree_map(np.asarray, j_out),
+                j_dec=jax.tree_util.tree_map(np.asarray, j_dec), out=out)
+
+
+def _check_decoded(got, want):
+    v = want["valid"]
+    assert v.sum() > 0, "the bias bumps must give detections"
+    np.testing.assert_array_equal(got["valid"].numpy(), v)
+    np.testing.assert_array_equal(got["labels"].numpy()[v], want["labels"][v])
+    # scores: sigmoid products of f32 logits; boxes: points +- stride-scaled
+    # f32 regressions of ~16 px
+    np.testing.assert_allclose(got["scores"].numpy(), want["scores"],
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["boxes"].numpy(), want["boxes"], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(got["masks"].numpy(), want["masks"], rtol=0,
+                               atol=1e-4)
+
+
+def test_decode_matches_jax_on_the_same_head_outputs(setup):
+    """Same inputs to both decodes: any difference is the decode's own."""
+    nchw = {k: ([torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
+                 for a in v] if isinstance(v, list) else
+                torch.from_numpy(v.transpose(0, 3, 1, 2).copy()))
+            for k, v in setup["j_out"].items()}
+    got = decode_batch(nchw, torch.from_numpy(IMG_SHAPES),
+                       torch.from_numpy(SCALES), setup["cfg"].model)
+    _check_decoded(got, setup["j_dec"])
+
+
+def test_detector_and_decode_match_jax(setup):
+    got = decode_batch(setup["out"], torch.from_numpy(IMG_SHAPES),
+                       torch.from_numpy(SCALES), setup["cfg"].model)
+    _check_decoded(got, setup["j_dec"])
+
+
+def test_inference_detector_matches_jax(setup):
+    img = (np.random.RandomState(3).rand(120, 160, 3) * 255).astype(np.uint8)
+    want = j_inference(JDetector(setup["cfg"], setup["jm"],
+                                 setup["variables"]), img)
+    got = inference_detector(setup["det"], img)
+    assert len(want["labels"]) > 0
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0,
+                               atol=1e-3)
+    assert got["masks"].shape == want["masks"].shape == (
+        len(want["labels"]), 120, 160)
+    # thresholded at mask_thr: only pixels whose probability lies within
+    # float noise of the threshold may flip
+    assert (got["masks"] != want["masks"]).mean() < 1e-4
+
+
+def test_preprocess_pads_to_32_and_refuses_a_resize(setup):
+    cfg = setup["cfg"]
+    img = np.full((120, 160, 3), 200, np.uint8)
+    padded, img_shape, scale = preprocess(img, cfg)
+    assert padded.shape == (128, 160, 3)
+    np.testing.assert_array_equal(img_shape, [120, 160])
+    np.testing.assert_array_equal(scale, [1, 1, 1, 1])
+    np.testing.assert_allclose(padded[0, 0], 200 - np.asarray(cfg.data.mean),
+                               rtol=1e-6)
+    assert not padded[120:].any()
+    with pytest.raises(NotImplementedError, match="resize"):
+        preprocess(np.zeros((100, 150, 3), np.uint8), cfg)
