@@ -1,1 +1,1 @@
-"""Box and point geometry of the port."""
+"""Box and point geometry, targets and losses of the port."""

@@ -1,25 +1,38 @@
 """Box geometry, the port of ``sipmask_tpu/core/boxes.py`` (the parts the
-serving path uses). Boxes are xyxy."""
+serving and training paths use). Boxes are xyxy."""
 
 from __future__ import annotations
 
 import torch
 
 
-def bbox_overlaps(bboxes1, bboxes2):
-    """Pairwise IoU with mmdet-v1's +1 pixel convention.
+def bbox_overlaps(bboxes1, bboxes2, is_aligned: bool = False,
+                  eps: float = 0.0):
+    """IoU with mmdet-v1's +1 pixel convention.
 
-    bboxes1 (..., M, 4), bboxes2 (..., N, 4) -> (..., M, N).
+    Pairwise: bboxes1 (..., M, 4), bboxes2 (..., N, 4) -> (..., M, N).
+    Aligned: both (..., M, 4) -> (..., M). ``eps`` is added to the
+    denominator (padded or degenerate boxes).
     """
-    lt = torch.maximum(bboxes1[..., :, None, :2], bboxes2[..., None, :, :2])
-    rb = torch.minimum(bboxes1[..., :, None, 2:], bboxes2[..., None, :, 2:])
+    if is_aligned:
+        lt = torch.maximum(bboxes1[..., :2], bboxes2[..., :2])
+        rb = torch.minimum(bboxes1[..., 2:], bboxes2[..., 2:])
+    else:
+        lt = torch.maximum(bboxes1[..., :, None, :2],
+                           bboxes2[..., None, :, :2])
+        rb = torch.minimum(bboxes1[..., :, None, 2:],
+                           bboxes2[..., None, :, 2:])
     wh = (rb - lt + 1).clamp(min=0)
     overlap = wh[..., 0] * wh[..., 1]
     area1 = ((bboxes1[..., 2] - bboxes1[..., 0] + 1) *
              (bboxes1[..., 3] - bboxes1[..., 1] + 1))
     area2 = ((bboxes2[..., 2] - bboxes2[..., 0] + 1) *
              (bboxes2[..., 3] - bboxes2[..., 1] + 1))
-    return overlap / (area1[..., :, None] + area2[..., None, :] - overlap)
+    if is_aligned:
+        denom = area1 + area2 - overlap
+    else:
+        denom = area1[..., :, None] + area2[..., None, :] - overlap
+    return overlap / (denom + eps)
 
 
 def distance2bbox(points, distance):
@@ -28,3 +41,9 @@ def distance2bbox(points, distance):
                         points[..., 1] - distance[..., 1],
                         points[..., 0] + distance[..., 2],
                         points[..., 1] + distance[..., 3]], -1)
+
+
+def center_size(boxes):
+    """xyxy -> (cx, cy, w, h)."""
+    return torch.cat([(boxes[..., 2:] + boxes[..., :2]) / 2,
+                      boxes[..., 2:] - boxes[..., :2]], -1)

@@ -33,7 +33,7 @@ def decode_batch(outputs, img_shapes, scale_factors, cfg):
                                   "ported")
     featmap_sizes = [tuple(x.shape[2:]) for x in outputs["cls_scores"]]
     dev = outputs["feat_masks"].device
-    points = all_points(featmap_sizes, h.strides, dev)
+    points = all_points(featmap_sizes, h.strides, device=dev)[0]
     level_sizes = [hh * ww for hh, ww in featmap_sizes]
 
     cls_logits, bbox_preds, ctr_logits, cof_preds = flatten_outputs(outputs)

@@ -25,7 +25,7 @@ class SipMask(nn.Module):
                 "P5) image models without DCN stages, ResNeXt groups, "
                 "tracking or rescoring")
         self.cfg = cfg
-        self.backbone = ResNet(b.depth, b.out_indices)
+        self.backbone = ResNet(b.depth, b.out_indices, b.frozen_stages)
         self.neck = FPN(f.in_channels, f.out_channels, f.start_level,
                         f.num_outs)
         self.bbox_head = SipMaskHead(cfg.head)

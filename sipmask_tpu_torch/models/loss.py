@@ -1,8 +1,23 @@
-"""The part of ``sipmask_tpu/models/loss.py`` that inference uses."""
+"""SipMask training loss, the port of ``sipmask_tpu/models/loss.py``.
+
+``compute_losses`` covers the mmdet image path: focal classification loss
+(avg factor num_pos + num_imgs), centerness-weighted -log IoU box loss on
+stride-normalised decoded boxes, centerness BCE, and the SP mask loss over a
+static top-``max_pos`` selection of each image's positives, ranked by the
+no-grad weighting sigmoid(cls score) x IoU(gt/2, det box). The benchmark
+fork's loss deltas, GIoU, SipMask++ rescoring and VIS tracking raise
+NotImplementedError.
+"""
 
 from __future__ import annotations
 
 import torch
+
+from ..core import losses as L
+from ..core.boxes import bbox_overlaps, center_size, distance2bbox
+from ..core.points import all_points
+from ..core.targets import centerness_target, fcos_targets
+from ..ops import mask_loss
 
 
 def _flat(levels):
@@ -19,3 +34,102 @@ def flatten_outputs(outputs):
     return (_flat(outputs["cls_scores"]), _flat(outputs["bbox_preds"]),
             _flat(outputs["centernesses"])[..., 0],
             _flat(outputs["cof_preds"]))
+
+
+def _take(x, idx):
+    """x (B, P, ...) gathered along P by idx (B, K)."""
+    return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+                        .expand(idx.shape + x.shape[2:]))
+
+
+def compute_losses(outputs, batch, cfg, max_pos: int = 256):
+    """Args:
+      outputs: the head's output dict (NCHW, ``SipMaskHead.forward``).
+      batch: dict of tensors on the outputs' device: gt_bboxes (B, G, 4) in
+        input coordinates, gt_labels (B, G) (0 = padding), gt_masks
+        (B, G, H/2, W/2) {0, 1} at the basis resolution.
+      cfg: the JAX package's ``HeadConfig``.
+    Returns: dict of scalar losses (loss_cls, loss_bbox, loss_centerness,
+    loss_mask).
+    """
+    if (cfg.benchmark_loss_extras or cfg.rescoring or cfg.track
+            or cfg.iou_loss_mode != "log"):
+        raise NotImplementedError(
+            "the port's loss covers the mmdet image path: -log IoU, no "
+            "benchmark-fork extras, rescoring or tracking")
+    dev = outputs["feat_masks"].device
+    featmap_sizes = [tuple(x.shape[2:]) for x in outputs["cls_scores"]]
+    points, strides, ranges = all_points(featmap_sizes, cfg.strides,
+                                         cfg.regress_ranges, device=dev)
+    cls_logits, bbox_preds, ctr_logits, cof_preds = (
+        t.float() for t in flatten_outputs(outputs))
+    feat_masks = outputs["feat_masks"].float()            # (B, nb, Hm, Wm)
+    b, p, nc = cls_logits.shape
+    gt_bboxes = batch["gt_bboxes"].float()
+    gt_labels = batch["gt_labels"].long()
+
+    tgt = fcos_targets(gt_bboxes, gt_labels, points, ranges, strides,
+                       cfg.center_sampling, cfg.center_sample_radius)
+    labels, bbox_targets, gt_inds = (tgt["labels"], tgt["bbox_targets"],
+                                     tgt["gt_inds"])
+    pos = labels > 0
+    num_pos = pos.sum()
+
+    # classification, avg factor num_pos + num_imgs
+    loss_cls = L.sigmoid_focal_loss(
+        cls_logits, labels, nc, cfg.focal_gamma, cfg.focal_alpha,
+        avg_factor=num_pos + b) * cfg.loss_cls_weight
+
+    # box and centerness on stride-normalised decoded boxes
+    ctr_targets = centerness_target(bbox_targets.clamp(min=0.0))
+    posf = pos.float()
+    w_ctr = ctr_targets * posf
+    pts = points[None].expand(b, p, 2)
+    strd = strides[None, :, None]
+    loss_bbox = L.iou_loss(
+        distance2bbox(pts, bbox_preds / strd),
+        distance2bbox(pts, bbox_targets / strd), weight=w_ctr,
+        avg_factor=w_ctr.sum().clamp(min=1e-6)) * cfg.loss_bbox_weight
+    loss_centerness = L.bce_with_logits(
+        ctr_logits, ctr_targets, weight=posf,
+        avg_factor=num_pos.clamp(min=1)) * cfg.loss_centerness_weight
+
+    # mask loss: per image, the top max_pos positives by the no-grad
+    # weighting; boxes in mask (stride-2) coordinates
+    bbox_dt = distance2bbox(pts, bbox_preds.detach()) / 2.0   # (B, P, 4)
+    area = ((bbox_dt[..., 2] - bbox_dt[..., 0]) *
+            (bbox_dt[..., 3] - bbox_dt[..., 1]))
+    valid = pos & (area > 1.0)
+    lbl = (labels - 1).clamp(min=0)
+    cls_score = torch.sigmoid(torch.gather(cls_logits.detach(), 2,
+                                           lbl[..., None])[..., 0])
+    gt_sel = _take(gt_bboxes, gt_inds)                        # (B, P, 4)
+    ious = bbox_overlaps(gt_sel / 2.0, bbox_dt, is_aligned=True, eps=1e-9)
+    w_raw = cls_score * ious
+    score = torch.where(valid, w_raw, torch.full_like(w_raw, -1.0))
+    k = min(max_pos, p)
+    # a stable descending sort keeps lax.top_k's lower-index-first ties
+    topw, topi = torch.sort(score, stable=True, dim=1, descending=True)
+    topw, topi = topw[:, :k], topi[:, :k]
+    sel_valid = topw > -0.5
+    n_sel = sel_valid.sum(1).float().clamp(min=1.0)
+    cof_sel = _take(cof_preds, topi)                          # (B, K, 4*nb)
+    box_sel = _take(bbox_dt, topi)                            # (B, K, 4)
+    gtidx_sel = torch.gather(gt_inds, 1, topi)
+    w_sel = torch.where(sel_valid, torch.gather(w_raw, 1, topi),
+                        torch.zeros_like(topw))
+    # weighting renormalised over the selected set (mmdet's +1e-4)
+    w_norm = w_sel / (w_sel.sum(1, keepdim=True) + 1e-4).clamp(
+        min=1e-20) * n_sel[:, None]
+
+    pre = mask_loss.mask_bce_loss(feat_masks, cof_sel, box_sel,
+                                  batch["gt_masks"], gtidx_sel, sel_valid)
+    csz = center_size(box_sel)
+    ones = torch.ones_like(topw)
+    bw = torch.where(sel_valid, csz[..., 2], ones)
+    bh = torch.where(sel_valid, csz[..., 3], ones)
+    pre = pre / bw / bh / n_sel[:, None]
+    loss_mask = torch.where(sel_valid, pre * w_norm,
+                            torch.zeros_like(pre)).sum() / b
+    return dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
+                loss_centerness=loss_centerness, loss_mask=loss_mask)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.deform_conv import deform_conv2d
+from ..ops import deform_conv as dc_ops
 from .layers import ConvModule, GroupNorm32, Scale, resize_bilinear
 
 
@@ -40,8 +40,8 @@ class FeatureAlign(nn.Module):
 
     def forward(self, x, shape):
         offsets = self.conv_offset(shape.detach())
-        x = deform_conv2d(x, offsets, self.conv_adaption.weight, padding=1,
-                          deform_groups=self.deform_groups)
+        x = dc_ops.deform_conv2d(x, offsets, self.conv_adaption.weight,
+                                 padding=1, deform_groups=self.deform_groups)
         return self.norm(x) if self.norm is not None else torch.relu(x)
 
 

@@ -1,12 +1,14 @@
-"""Spatial-Preservation mask assembly for inference, the port of
-``sipmask_tpu/ops/crop_split.py:assemble_masks``.
+"""Spatial-Preservation mask assembly, the port of
+``sipmask_tpu/ops/crop_split.py``: ``assemble_masks`` for inference and
+``mask_bce_loss_indexed``, the training mask loss of one image (the plain
+version of kernels K3a/K3b, ``ops/mask_loss.py``).
 
 CropSplit rules of the reference CUDA kernel: pixel (ph, pw) lies in box n
 iff pw >= x1, ph >= y1, pw < x2 and ph < y2 (float compares); its quadrant
 is right of the half-split when pw >= x1 + (x2 - x1 + 0.1)/2 and below it
 when ph >= y1 + (y2 - y1 + 0.1)/2; coefficient planes are ordered
 [top-left, top-right, bottom-left, bottom-right]; outside the box the mask
-is 0. Plain PyTorch, as the JAX decode uses its XLA path here.
+is 0. Plain PyTorch: the JAX decode uses its XLA path here too.
 """
 
 from __future__ import annotations
@@ -57,3 +59,27 @@ def assemble_masks(basis, cofs, boxes):
     """
     sel, in_box = _colmix_logits(basis, cofs, boxes)
     return torch.sigmoid(sel) * in_box.to(sel.dtype)
+
+
+def mask_bce_loss_indexed(basis, cofs, boxes, gt_masks_g, gt_idx):
+    """Per-detection pixel-summed BCE of the SP-assembled mask against its
+    gt mask, inside the box (the training mask loss of one image).
+
+    The BCE splits into a gt-independent part and the linear term
+    ``-sum_p sel*gt``; the latter is one contraction against the G distinct
+    gt masks followed by a pick of each detection's gt, so the gathered
+    (h, w, K) gt tensor is never built. Differentiable in basis and cofs.
+
+    Args:
+      basis: (h, w, nb); cofs: (K, 4*nb); boxes: (K, 4) in mask coords;
+      gt_masks_g: (G, h, w) binary; gt_idx: (K,) int index into G.
+    Returns:
+      (K,) pixel-summed BCE per detection.
+    """
+    sel, in_box = _colmix_logits(basis, cofs, boxes)
+    inb = in_box.to(sel.dtype)
+    pos = ((sel.clamp(min=0) + torch.log1p(torch.exp(-sel.abs()))) * inb
+           ).sum((0, 1))                                        # (K,)
+    t = torch.einsum("hwk,ghw->kg", sel * inb,
+                     gt_masks_g.to(sel.dtype))                  # (K, G)
+    return pos - torch.gather(t, 1, gt_idx.long()[:, None])[:, 0]

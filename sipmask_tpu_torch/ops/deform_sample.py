@@ -4,7 +4,8 @@ Counterpart of ``sipmask_tpu/ops/pallas/deform_gather.py``'s kc-major
 forward (``sample_bilinear_rows_t`` and the TPU kernels behind it) together
 with the position math of ``sipmask_tpu/ops/deform_conv.py:_sample_positions``.
 On a CUDA tensor :func:`deform_im2col` launches ``csrc/deform_im2col.cu``; on
-a CPU tensor it runs :func:`deform_im2col_plain`. Forward only.
+a CPU tensor it runs :func:`deform_im2col_plain`. Forward only: the backward
+is kernel K2 in ``deform_conv.py``.
 
 Layouts (NCHW, f32):
   x        (B, C, H, W); deformable group g owns channels g*Cg .. (g+1)*Cg-1.
@@ -118,12 +119,19 @@ def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
 
     CPU tensors take :func:`deform_im2col_plain`; CUDA tensors launch the
     K1 kernel (contiguous f32 only) and raise on anything it does not take.
+    The kernel records no gradient, so on CUDA it also raises when one is
+    wanted: the deformable convolution differentiates through
+    ``deform_conv.deform_conv2d``, whose backward is kernel K2.
     """
     if x.device.type == "cpu":
         return deform_im2col_plain(x, offsets, kernel_size, stride, padding,
                                    dilation, deform_groups)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or
+                                    offsets.requires_grad):
+        raise RuntimeError("deform_im2col records no gradient on CUDA: "
+                           "differentiate through deform_conv.deform_conv2d")
     kh, kw = kernel_size
     b, c, h, w, g, k, ho, wo = _check(x, offsets, kh, kw, stride, padding,
                                       dilation, deform_groups)

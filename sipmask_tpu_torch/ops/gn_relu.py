@@ -1,11 +1,15 @@
-"""GroupNorm (+ ReLU) forward: kernel K4 and its plain version.
+"""GroupNorm (+ ReLU): kernels K4a (forward) and K4b (backward) and their
+plain versions.
 
 Counterpart of ``sipmask_tpu/ops/pallas/group_norm.py:fused_gn_relu`` (its
-forward, ``_fwd_impl``) and of ``sipmask_tpu/models/layers.py:
-group_norm_nhwc`` + relu. On a CUDA tensor :func:`gn_relu` launches
-``csrc/gn_relu.cu``; on a CPU tensor it runs :func:`gn_relu_plain`.
+forward ``_fwd_impl`` and backward ``_vjp_bwd``) and of
+``sipmask_tpu/models/layers.py:group_norm_nhwc`` + relu. :func:`gn_relu` is a
+``torch.autograd.Function`` on every device: on CUDA tensors its forward
+launches K4a and its backward K4b (``csrc/gn_relu.cu``); on CPU tensors they
+are :func:`gn_relu_plain`'s arithmetic and :func:`gn_relu_backward_plain`.
 
-Layout: x and the result (B, C, H, W), f32; weight and bias (C,).
+Layout: x and the result (B, C, H, W), f32; weight and bias (C,); the
+saved statistics ``stats`` (B, groups, 2), each group's (mean, rstd).
 """
 
 from __future__ import annotations
@@ -33,26 +37,81 @@ def _check(x, weight, bias, groups):
         raise ValueError("x, weight and bias must share a device")
 
 
-def gn_relu_plain(x, weight, bias, groups: int = 32, eps: float = 1e-5,
-                  act: bool = True):
-    """Plain PyTorch K4: the single-pass-variance GroupNorm of
+def _stats_plain(x, groups: int, eps: float):
+    """The single-pass-variance group statistics of
+    ``layers._gn_fwd_impl``: (mean, rstd), each (B, groups)."""
+    b, c, h, w = x.shape
+    s1 = x.sum((2, 3))                   # (B, C)
+    s2 = (x * x).sum((2, 3))
+    n = float(h * w * (c // groups))
+    mean = s1.reshape(b, groups, -1).sum(-1) / n
+    var = s2.reshape(b, groups, -1).sum(-1) / n - mean * mean
+    return mean, torch.rsqrt(var + eps)
+
+
+def _affine(weight, bias, mean, rstd):
+    """Per-(image, channel) (sc, bi), each (B, C): y = x*sc + bi."""
+    b, groups = mean.shape
+    g_sc = weight.reshape(groups, -1)
+    sc = (rstd[:, :, None] * g_sc).reshape(b, -1)
+    bi = (bias.reshape(groups, -1) -
+          (mean * rstd)[:, :, None] * g_sc).reshape(b, -1)
+    return sc, bi
+
+
+def _forward_plain(x, weight, bias, groups: int, eps: float, act: bool):
+    """(y, stats) of the single-pass-variance GroupNorm of
     ``layers._gn_fwd_impl``, then a ReLU when ``act``."""
     _check(x, weight, bias, groups)
+    mean, rstd = _stats_plain(x, groups, eps)
+    sc, bi = _affine(weight, bias, mean, rstd)
+    y = x * sc[:, :, None, None] + bi[:, :, None, None]
+    return (torch.relu(y) if act else y), torch.stack([mean, rstd], -1)
+
+
+def gn_relu_plain(x, weight, bias, groups: int = 32, eps: float = 1e-5,
+                  act: bool = True):
+    """Plain PyTorch K4a, differentiable by autograd."""
+    return _forward_plain(x, weight, bias, groups, eps, act)[0]
+
+
+def _bwd_coefficients(r1, r2, weight, stats, n: float):
+    """``group_norm._vjp_bwd``'s (B, C) algebra: from r1 = sum dy_eff and
+    r2 = sum dy_eff*x per (image, channel), the coefficients (a, b2, c2) of
+    dx = a*dy_eff + b2*x + c2, and d weight, d bias."""
+    b, c = r1.shape
+    mean, rstd = stats.unbind(-1)
+    groups = mean.shape[1]
+    mean_c = mean.repeat_interleave(c // groups, 1)
+    rstd_c = rstd.repeat_interleave(c // groups, 1)
+    sdx = (r2 - mean_c * r1) * rstd_c        # sum dy_eff * xhat per (B, C)
+    m1_c = ((r1 * weight).reshape(b, groups, -1).sum(-1) / n
+            ).repeat_interleave(c // groups, 1)
+    m2_c = ((sdx * weight).reshape(b, groups, -1).sum(-1) / n
+            ).repeat_interleave(c // groups, 1)
+    a = rstd_c * weight[None]
+    b2 = -(rstd_c * rstd_c) * m2_c
+    c2 = rstd_c * (mean_c * rstd_c * m2_c - m1_c)
+    return a, b2, c2, sdx.sum(0), r1.sum(0)
+
+
+def gn_relu_backward_plain(x, weight, bias, stats, dy, groups: int,
+                           act: bool):
+    """Plain PyTorch K4b: ``layers._gn_vjp_bwd`` with the ReLU mask
+    recomputed from x, as ``group_norm._vjp_bwd`` does. Returns (dx,
+    d weight, d bias)."""
     b, c, h, w = x.shape
-    cg = c // groups
-    xf = x.float()
-    s1 = xf.sum((2, 3))                  # (B, C)
-    s2 = (xf * xf).sum((2, 3))
-    n = float(h * w * cg)
-    mean = s1.reshape(b, groups, cg).sum(-1) / n          # (B, G)
-    var = s2.reshape(b, groups, cg).sum(-1) / n - mean * mean
-    rstd = torch.rsqrt(var + eps)
-    g_sc = weight.float().reshape(groups, cg)
-    g_bi = bias.float().reshape(groups, cg)
-    sc = (rstd[:, :, None] * g_sc).reshape(b, c)
-    bi = (g_bi - (mean * rstd)[:, :, None] * g_sc).reshape(b, c)
-    y = xf * sc[:, :, None, None] + bi[:, :, None, None]
-    return torch.relu(y) if act else y
+    if act:
+        sc, bi = _affine(weight, bias, *stats.unbind(-1))
+        u = x * sc[:, :, None, None] + bi[:, :, None, None]
+        dy = torch.where(u > 0, dy, torch.zeros_like(dy))
+    r1 = dy.sum((2, 3))
+    r2 = (dy * x).sum((2, 3))
+    a, b2, c2, dweight, dbias = _bwd_coefficients(
+        r1, r2, weight, stats, float(h * w * (c // groups)))
+    dx = (a[:, :, None, None] * dy + b2[:, :, None, None] * x +
+          c2[:, :, None, None])
+    return dx, dweight, dbias
 
 
 def _lib():
@@ -62,34 +121,47 @@ def _lib():
         lib.gn_relu_num_partials.argtypes = [ctypes.c_longlong]
         lib.gn_relu_f32.restype = ctypes.c_int
         lib.gn_relu_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
+        tail = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
+        lib.gn_relu_bwd_reduce_f32.restype = ctypes.c_int
+        lib.gn_relu_bwd_reduce_f32.argtypes = [ctypes.c_void_p] * 6 + tail
+        lib.gn_relu_bwd_apply_f32.restype = ctypes.c_int
+        lib.gn_relu_bwd_apply_f32.argtypes = [ctypes.c_void_p] * 7 + tail
     return lib
 
 
-def gn_relu(x, weight, bias, groups: int = 32, eps: float = 1e-5,
-            act: bool = True):
-    """GroupNorm(groups) with a per-channel affine, then ReLU when ``act``.
-
-    CPU tensors take :func:`gn_relu_plain`; CUDA tensors launch the K4
-    kernels (contiguous f32 only) and raise on anything they do not take.
-    """
-    if x.device.type == "cpu":
-        return gn_relu_plain(x, weight, bias, groups, eps, act)
+def _cuda_check(x, weight, bias, groups):
     if x.device.type != "cuda":
         raise ValueError(f"no K4 kernel for device {x.device}")
     _check(x, weight, bias, groups)
     if not (x.is_contiguous() and weight.is_contiguous()
             and bias.is_contiguous()):
         raise ValueError("x, weight and bias must be contiguous")
+    b, c = x.shape[:2]
+    if b * max(groups, c) > 65535:
+        raise ValueError(f"grid too large for B={b}, C={c}")
+
+
+def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
+                    act: bool = True, keep_stats: bool = True):
+    """K4a: (y, stats), stats None unless ``keep_stats``. CPU tensors take
+    the plain arithmetic; CUDA tensors launch the kernels (contiguous f32
+    only) and raise on anything they do not take. Records no gradient:
+    :func:`gn_relu` does."""
+    if x.device.type == "cpu":
+        y, stats = _forward_plain(x, weight, bias, groups, eps, act)
+        return y, (stats if keep_stats else None)
+    _cuda_check(x, weight, bias, groups)
     b, c, h, w = x.shape
-    if b * groups > 65535:
-        raise ValueError(f"grid too large for B*G={b * groups}")
     y = torch.empty_like(x)
+    stats = (torch.empty((b, groups, 2), device=x.device, dtype=torch.float32)
+             if keep_stats else None)
     if y.numel() == 0:
-        return y
+        return y, stats
     lib = _lib()
     parts = lib.gn_relu_num_partials(c // groups * h * w)
     partial = torch.empty((b * groups * parts * 2,), device=x.device,
@@ -97,11 +169,80 @@ def gn_relu(x, weight, bias, groups: int = 32, eps: float = 1e-5,
     with torch.cuda.device(x.device):
         code = lib.gn_relu_f32(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            partial.data_ptr(), y.data_ptr(), b, c, h * w, groups, eps,
-            int(act), native.stream_ptr(x.device))
+            partial.data_ptr(), y.data_ptr(),
+            None if stats is None else stats.data_ptr(), b, c, h * w,
+            groups, eps, int(act), native.stream_ptr(x.device))
     native.check_launch(lib, "gn_relu", code)
     gn_relu.launches += 1
-    return y
+    return y, stats
+
+
+def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
+    """K4b: (dx, d weight, d bias) from the forward's ``stats``. CPU
+    tensors take :func:`gn_relu_backward_plain`; CUDA tensors launch the
+    kernels."""
+    if x.device.type == "cpu":
+        return gn_relu_backward_plain(x, weight, bias, stats, dy, groups, act)
+    _cuda_check(x, weight, bias, groups)
+    if dy.shape != x.shape or dy.dtype != torch.float32:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x")
+    b, c, h, w = x.shape
+    if tuple(stats.shape) != (b, groups, 2) or not stats.is_contiguous():
+        raise ValueError(f"stats {tuple(stats.shape)} must be contiguous "
+                         f"({b}, {groups}, 2)")
+    dy = dy.contiguous()
+    lib = _lib()
+    r = torch.empty((b, c, 2), device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    args = (b, c, h * w, groups, int(act), native.stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        code = lib.gn_relu_bwd_reduce_f32(
+            x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), r.data_ptr(), *args)
+        native.check_launch(lib, "gn_relu", code)
+        a, b2, c2, dweight, dbias = _bwd_coefficients(
+            r[..., 0], r[..., 1], weight, stats,
+            float(h * w * (c // groups)))
+        co = torch.stack([a, b2, c2], -1).contiguous()      # (B, C, 3)
+        code = lib.gn_relu_bwd_apply_f32(
+            x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), co.data_ptr(), dx.data_ptr(), *args)
+    native.check_launch(lib, "gn_relu", code)
+    gn_relu_backward.launches += 1
+    return dx, dweight, dbias
+
+
+gn_relu_backward.launches = 0
+
+
+class _GNReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, act, keep_stats):
+        y, stats = gn_relu_forward(x, weight, bias, groups, eps, act,
+                                   keep_stats)
+        ctx.save_for_backward(x, weight, bias, stats)
+        ctx.groups, ctx.act = groups, act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, stats = ctx.saved_tensors
+        dx, dweight, dbias = gn_relu_backward(x, weight, bias, stats, dy,
+                                              ctx.groups, ctx.act)
+        return dx, dweight, dbias, None, None, None, None
+
+
+def gn_relu(x, weight, bias, groups: int = 32, eps: float = 1e-5,
+            act: bool = True):
+    """GroupNorm(groups) with a per-channel affine, then ReLU when ``act``;
+    differentiable in x, weight and bias. Kernels K4a/K4b on CUDA tensors,
+    their plain versions on CPU tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no K4 kernel for device {x.device}")
+    # the statistics are kept only for a backward that can happen
+    keep_stats = torch.is_grad_enabled() and (
+        x.requires_grad or weight.requires_grad or bias.requires_grad)
+    return _GNReLU.apply(x, weight, bias, groups, eps, act, keep_stats)
 
 
 gn_relu.launches = 0

@@ -1,0 +1,1 @@
+"""Command-line tools of the port that run on the card."""

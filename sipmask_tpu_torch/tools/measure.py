@@ -1,0 +1,259 @@
+"""Times of the port on one CUDA card, the numbers behind ``PERF.md``:
+
+    python -m sipmask_tpu_torch.tools.measure serve k4a train
+
+from the root of the checkout, with any of the three modes, in the order
+given:
+
+- ``serve``: wall ms of single 800x1333 requests through
+  ``inference_detector`` and of batches of 4 at 800x1344 through
+  ``Detector.infer``, each ending in a synchronise;
+- ``k4a``: the GroupNorm+ReLU forward (K4a) over one GN site of each of the
+  five levels at batch 4, as in serving (no gradient): CUDA-event ms of the
+  sweep, the host's enqueue time of a sweep, and the device time of its
+  kernels in a ``torch.profiler`` trace; first through ``gn_relu`` (the
+  model's entry point, an autograd Function), then through the bare
+  launcher ``gn_relu_forward`` with and without the saved statistics;
+- ``train``: warm train steps at 800x1344, batch 4 (median), their
+  sections (forward, loss, backward, optimizer), the peak memory, and a
+  ``torch.profiler`` trace of two steps: kernel time by owner and the
+  device's idle share of the wall.
+
+``sipmask_r50_fpn_gn_1x`` at full width with random weights from seed 0,
+bumped as ``chip_smoke.py`` bumps them; f32 with TF32 off and cuDNN's
+benchmark mode on. The first line is the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+CONFIG = "sipmask_r50_fpn_gn_1x"
+SEED = 0
+BATCH = 4
+IMAGE_HW = (800, 1333)
+LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # 800x1344
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def wall_ms(fn):
+    """Host-clock ms of fn(), from a synchronised start to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def report(name, ms):
+    log(f"{name}: median {statistics.median(ms):.2f} ms, min {min(ms):.2f}, "
+        f"max {max(ms):.2f} over {len(ms)}: "
+        + ", ".join(f"{m:.2f}" for m in ms))
+
+
+def kernel_events(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def serve(dev, reps):
+    from ..apis.inference import inference_detector, init_detector, preprocess
+    from ..utils.demo_inputs import bump_weights
+
+    det = init_detector(CONFIG, dev, seed=SEED)
+    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    imgs = [(rng.rand(*IMAGE_HW, 3) * 255).astype(np.uint8)
+            for _ in range(BATCH)]
+    for im in imgs[:2]:   # cuDNN times its algorithms at the first shape
+        inference_detector(det, im)
+    report("request (bs 1, inference_detector)",
+           [wall_ms(lambda: inference_detector(det, imgs[i % BATCH]))
+            for i in range(reps)])
+    prepped = [preprocess(im, det.cfg) for im in imgs]
+    images = torch.stack([torch.from_numpy(p[0]).permute(2, 0, 1)
+                          for p in prepped]).to(dev)
+    shapes = torch.from_numpy(np.stack([p[1] for p in prepped]))
+    scales = torch.from_numpy(np.stack([p[2] for p in prepped]))
+    for _ in range(2):
+        det.infer(images, shapes, scales)
+    report(f"batch of {BATCH} (Detector.infer)",
+           [wall_ms(lambda: det.infer(images, shapes, scales))
+            for _ in range(reps)])
+
+
+def k4a(dev, iters=20):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import gn_relu
+
+    gen = torch.Generator().manual_seed(SEED)
+    xs = [torch.randn((BATCH, 256, h, w), generator=gen).to(dev)
+          for h, w in LEVELS]
+    wt = torch.ones(256, device=dev)
+    bs = torch.zeros(256, device=dev)
+    ways = {
+        "gn_relu (autograd Function, no statistics kept)":
+            lambda x: gn_relu.gn_relu(x, wt, bs, 32),
+        "gn_relu_forward, keep_stats=False":
+            lambda x: gn_relu.gn_relu_forward(x, wt, bs, 32,
+                                              keep_stats=False),
+        "gn_relu_forward, keep_stats=True":
+            lambda x: gn_relu.gn_relu_forward(x, wt, bs, 32),
+    }
+    sweeps = {name: (lambda fn=fn: [fn(x) for x in xs])
+              for name, fn in ways.items()}
+    timed = {name: [] for name in ways}
+    with torch.no_grad():
+        # every way twice, in the order A B C C B A, before the first
+        # profiler session, so that no trace runs ahead of a timing
+        for name in list(ways) + list(ways)[::-1]:
+            timed[name].append(event_and_host_ms(sweeps[name], iters))
+        for name, sweep in sweeps.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    sweep()
+                torch.cuda.synchronize()
+            device = sum(e.device_time for e in kernel_events(prof)
+                         ) / 1e3 / iters
+            (e1, h1), (e2, h2) = timed[name]
+            log(f"K4a {name}, 5 levels bs{BATCH}, ms per sweep: CUDA events "
+                f"{e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / {h2:.4f}, "
+                f"kernels {device:.4f}")
+
+
+def event_and_host_ms(sweep, iters):
+    """(CUDA-event ms, host enqueue ms) per sweep() over iters sweeps. The
+    queue holds the launches of all iters sweeps, so the host never waits
+    for the card inside the loop."""
+    for _ in range(3):
+        sweep()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        sweep()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host
+
+
+# kernel-name fragments of the port's kernels -> their ids
+OWNERS = {"deform_im2col": "K1", "sgemm_kernel": "K2", "fold_partials": "K2",
+          "deform_col2im": "K2", "mask_bce": "K3", "fold_slices": "K3",
+          "gn_stats": "K4a", "gn_apply": "K4a", "gn_bwd": "K4b"}
+CUDNN = ("cudnn", "xmma", "convolve", "winograd", "implicit", "dgrad",
+         "wgrad")
+
+
+def train(dev, reps):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..config import get_config
+    from ..models.loss import compute_losses
+    from ..train import create_train_state, make_train_step
+    from ..utils.demo_inputs import bump_weights, train_batch
+
+    cfg = get_config(CONFIG)
+    state = create_train_state(cfg, dev, seed=SEED)
+    bump_weights(state.model, torch.Generator().manual_seed(SEED))
+    batch = train_batch(BATCH, 800, 1344, cfg.data.max_gts, SEED, dev)
+    step = make_train_step(state, cfg)
+    log(f"train step 0 (cuDNN's algorithm search): "
+        f"{wall_ms(lambda: step(batch)):.1f} ms")
+    for _ in range(2):
+        step(batch)
+    torch.cuda.reset_peak_memory_stats()
+    report(f"train step (bs {BATCH}, warm)",
+           [wall_ms(lambda: step(batch)) for _ in range(reps)])
+    log(f"peak memory of the warm steps: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    def sections():
+        out, t = {}, time.perf_counter
+        torch.cuda.synchronize()
+        t0 = t()
+        heads = state.model(batch["images"])
+        torch.cuda.synchronize()
+        out["forward"] = t() - t0
+        t0 = t()
+        total = sum(compute_losses(heads, batch, cfg.model.head,
+                                   max_pos=cfg.train.max_pos).values())
+        torch.cuda.synchronize()
+        out["loss"] = t() - t0
+        state.optimizer.zero_grad(set_to_none=True)
+        t0 = t()
+        total.backward()
+        torch.cuda.synchronize()
+        out["backward"] = t() - t0
+        t0 = t()
+        state.optimizer.step()
+        torch.cuda.synchronize()
+        out["optimizer"] = t() - t0
+        return out
+    secs = [sections() for _ in range(reps)]
+    log("sections, median ms: " + ", ".join(
+        f"{k} {statistics.median(s[k] for s in secs) * 1e3:.2f}"
+        for k in secs[0]))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = wall_ms(lambda: [step(batch) for _ in range(2)])
+    kern = kernel_events(prof)
+    busy = sum(e.device_time for e in kern) / 1e3
+    log(f"profiled 2 steps: wall {wall:.1f} ms, kernel time {busy:.1f} ms, "
+        f"device idle share {1 - busy / wall:.3f}")
+    by_name, by_owner = {}, {}
+    for e in kern:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time / 2e3, n + 1)
+        owner = next((v for k, v in OWNERS.items() if k in e.name), None)
+        if owner is None:
+            owner = ("cuDNN/cuBLAS convolutions and GEMMs"
+                     if any(k in e.name for k in CUDNN)
+                     else "other PyTorch kernels")
+        by_owner[owner] = by_owner.get(owner, 0.0) + e.device_time / 2e3
+    log("kernel ms per step by owner: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(by_owner.items(),
+                                          key=lambda kv: -kv[1])))
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:20]:
+        log(f"  {ms:9.3f} ms/step {n // 2:5d} launches/step  {name[:100]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("modes", nargs="+", choices=("serve", "k4a", "train"))
+    ap.add_argument("--reps", type=int, default=7,
+                    help="timed repetitions of a request, batch or step")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("measure: no CUDA device")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True).stdout.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    dev = torch.device("cuda", 0)
+    for mode in args.modes:
+        if mode == "k4a":
+            k4a(dev)
+        else:
+            {"serve": serve, "train": train}[mode](dev, args.reps)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Weight conversion and initialisation of the port."""
+"""Weight conversion, initialisation and synthetic batches of the port."""

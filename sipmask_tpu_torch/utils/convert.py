@@ -53,19 +53,28 @@ def _jax_path_to_torch(name: str) -> str:
             .replace(".mean", ".running_mean").replace(".var", ".running_var"))
 
 
-def params_from_jax(params, constants) -> "OrderedDict[str, torch.Tensor]":
+def params_from_jax(params, constants,
+                    dtype=np.float32) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``params`` and frozen-BN ``constants`` trees (nested dicts of
-    arrays) -> a ``state_dict`` of the port's ``SipMask``. Conv kernels go
-    from HWIO to OIHW."""
+    arrays) -> a ``state_dict`` of the port's ``SipMask`` in ``dtype``.
+    Conv kernels go from HWIO to OIHW."""
     sd = OrderedDict()
     for tree in (params, constants):
         for path, v in _flatten(tree):
-            v = np.asarray(v, dtype=np.float32)
+            v = np.asarray(v, dtype=dtype)
             if path[-1] == "kernel" and v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)
             sd[_jax_path_to_torch("/".join(path))] = torch.from_numpy(
                 v.copy())
     return sd
+
+
+def grads_from_jax(grads,
+                   dtype=np.float32) -> "OrderedDict[str, torch.Tensor]":
+    """A JAX gradient tree (shaped like ``params``) -> {port parameter
+    name: gradient} in ``dtype``, by the same names and layouts as the
+    weights (conv kernels HWIO -> OIHW)."""
+    return params_from_jax(grads, {}, dtype)
 
 
 def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator):

@@ -69,14 +69,16 @@ def test_gn_relu_kernel_matches_plain(dev, shape, act):
     wt = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(dev)
     bs = torch.from_numpy((rng.randn(c) * 0.2).astype(np.float32)).to(dev)
     before = gn_relu.gn_relu.launches
-    got = gn_relu.gn_relu(x, wt, bs, 32, 1e-5, act)
-    again = gn_relu.gn_relu(x, wt, bs, 32, 1e-5, act)
+    got = gn_relu.gn_relu(x, wt, bs, 32, 1e-5, act)   # keeps no statistics
+    again, stats = gn_relu.gn_relu_forward(x, wt, bs, 32, 1e-5, act)
     torch.cuda.synchronize()
     assert gn_relu.gn_relu.launches == before + 2
     assert torch.equal(got, again)       # fixed reduction order, no atomics
-    want = gn_relu.gn_relu_plain(x, wt, bs, 32, 1e-5, act)
+    want, want_stats = gn_relu.gn_relu_forward(x.cpu(), wt.cpu(), bs.cpu(),
+                                               32, 1e-5, act)
     # f32 sums over up to 134400 elements per group, in another order
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(stats.cpu(), want_stats, rtol=1e-4, atol=1e-4)
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -93,3 +95,204 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gn_relu.gn_relu(x.half(), w, b, 4)
     with pytest.raises(ValueError, match="contiguous"):
         gn_relu.gn_relu(x.transpose(2, 3), w, b, 4)
+
+
+# ------------------------------------------------- K2, K3a/K3b, K4b (training)
+
+def _deform_case(dev, b, c, g, h, w, regime, o=None, seed=2):
+    """x, offsets (CUDA layout), w2 and dy at one FeatureAlign level:
+    'random' offsets of ~2 px with a third of the pixels +-300 px out,
+    'zero' offsets (conv_offset's initial state: every sample on the grid)."""
+    rng = np.random.RandomState(seed)
+    o = o or c
+    x = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(dev)
+    if regime == "zero":
+        off = np.zeros((b, g * 18, h, w), np.float32)
+    else:
+        off = _offsets(rng, b, g * 18, h, w, far=True)
+    off = torch.from_numpy(off).to(dev)
+    w2 = torch.from_numpy((rng.randn(o, 9 * c) * 0.02).astype(np.float32)
+                          ).to(dev)
+    dy = torch.from_numpy(rng.randn(b, o, h, w).astype(np.float32)).to(dev)
+    return x, off, w2, dy
+
+
+@pytest.mark.parametrize("b,c,g,h,w,regime", [
+    (2, 256, 4, 100, 168, "random"),   # FeatureAlign at P3, 800x1344
+    (2, 256, 4, 100, 168, "zero"),
+    (2, 256, 4, 7, 11, "random"),      # P7
+    (1, 20, 4, 13, 9, "random"),       # ragged GEMM tiles, Cg = 5
+])
+def test_deform_conv_backward_kernel_matches_plain(dev, b, c, g, h, w,
+                                                   regime):
+    from sipmask_tpu_torch.ops import deform_conv
+    x, off, w2, dy = _deform_case(dev, b, c, g, h, w, regime)
+    cols = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    before = deform_conv.deform_conv_backward.launches
+    got = deform_conv.deform_conv_backward(x, off, cols, w2, dy, (3, 3), 1,
+                                           1, 1, g)
+    torch.cuda.synchronize()
+    assert deform_conv.deform_conv_backward.launches == before + 1
+    want = deform_conv.deform_conv_backward_plain(x, off, w2, dy, (3, 3), 1,
+                                                  1, 1, g)
+    for name, a, e in zip(("dx", "doffsets", "dw2"), got, want):
+        assert torch.isfinite(a).all(), name
+        # relative to the largest |value|: the SIMT GEMMs sum 256 (dcols)
+        # or B*P (dw2) products in another order than cuBLAS, and dx's
+        # atomics add in run-to-run order
+        err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+        assert err <= 1e-5, (name, err)
+    if regime == "zero":   # the one-sided rule: offsets train from zero
+        assert float(got[1].abs().max()) > 0
+
+
+def _mask_case(dev, b, k, g, h, w, seed=3):
+    """Basis, coefficients, boxes covering 5-60% of the map (a few
+    degenerate or off the map), gt masks, gt indices and validity."""
+    rng = np.random.RandomState(seed)
+    basis = torch.from_numpy(rng.randn(b, 32, h, w).astype(np.float32))
+    cofs = torch.from_numpy((rng.randn(b, k, 128) * 0.3).astype(np.float32))
+    frac = np.sqrt(rng.uniform(0.05, 0.6, (b, k, 1)))
+    wh = frac * np.array([w, h], np.float32)
+    ctr = rng.uniform(0, 1, (b, k, 2)) * np.array([w, h], np.float32)
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(
+        np.float32)
+    boxes[:, ::17] = [5.3, 7.1, 5.2, 30.0]          # degenerate (x2 < x1)
+    boxes[:, 1::23] += np.float32(2 * w)             # off the map
+    gt = torch.from_numpy((rng.rand(b, g, h, w) > 0.5).astype(np.uint8))
+    gt_idx = torch.from_numpy(rng.randint(0, g, (b, k)))
+    valid = torch.from_numpy(rng.rand(b, k) > 0.2)
+    return [t.to(dev) for t in (basis, cofs, torch.from_numpy(boxes), gt,
+                                gt_idx, valid)]
+
+
+@pytest.mark.parametrize("b,k,g,h,w", [
+    (2, 512, 64, 400, 672),    # the flagship's basis grid, max_pos, max_gts
+    (1, 37, 5, 33, 47),
+])
+def test_mask_bce_kernels_match_plain(dev, b, k, g, h, w):
+    from sipmask_tpu_torch.ops import mask_loss
+    args = _mask_case(dev, b, k, g, h, w)
+    grad = torch.from_numpy(np.random.RandomState(4).rand(b, k).astype(
+        np.float32)).to(dev)
+    grad[:, ::5] = 0.0                       # skipped: zero cotangent
+    f0, b0 = (mask_loss.mask_bce_forward.launches,
+              mask_loss.mask_bce_backward.launches)
+    pre = mask_loss.mask_bce_forward(*args)
+    dbasis, dcofs = mask_loss.mask_bce_backward(*args, grad)
+    again = mask_loss.mask_bce_backward(*args, grad)
+    torch.cuda.synchronize()
+    assert mask_loss.mask_bce_forward.launches == f0 + 1
+    assert mask_loss.mask_bce_backward.launches == b0 + 2
+    # fixed-order folds, no atomics: the same bits on every run
+    assert torch.equal(dbasis, again[0]) and torch.equal(dcofs, again[1])
+    want_pre = mask_loss.mask_bce_loss_plain(*args)
+    want_db, want_dc = mask_loss.mask_bce_backward_plain(*args, grad)
+    assert bool((pre[~args[5]] == 0).all())
+    # relative to the largest |value|: per-pixel 32-term dots and sums over
+    # up to 268800 pixels, in another order than the plain matmuls
+    for name, a, e in (("pre", pre, want_pre), ("dbasis", dbasis, want_db),
+                       ("dcofs", dcofs, want_dc)):
+        err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 100, 168), (2, 256, 25, 42),
+                                   (1, 64, 7, 11)])
+def test_gn_relu_backward_kernel_matches_plain(dev, shape, act):
+    rng = np.random.RandomState(5)
+    c = shape[1]
+    x = torch.from_numpy((rng.randn(*shape) * 3 + 1).astype(np.float32)
+                         ).to(dev)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    wt = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(dev)
+    bs = torch.from_numpy((rng.randn(c) * 0.2).astype(np.float32)).to(dev)
+    _, stats = gn_relu.gn_relu_forward(x, wt, bs, 32, 1e-5, act)
+    before = gn_relu.gn_relu_backward.launches
+    got = gn_relu.gn_relu_backward(x, wt, bs, stats, dy, 32, act)
+    again = gn_relu.gn_relu_backward(x, wt, bs, stats, dy, 32, act)
+    torch.cuda.synchronize()
+    assert gn_relu.gn_relu_backward.launches == before + 2
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    want = gn_relu.gn_relu_backward_plain(x, wt, bs, stats, dy, 32, act)
+    for name, a, e in zip(("dx", "dweight", "dbias"), got, want):
+        # sums over up to 16800 elements per (image, channel), reordered
+        err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+def test_autograd_functions_keep_the_graph(dev):
+    """Outputs of the kernels' autograd Functions carry a grad_fn and their
+    backward launches the kernels; a direct K1 or K3a call that would drop
+    the graph raises instead."""
+    from sipmask_tpu_torch.ops import deform_conv, mask_loss
+    x, off, w2, _ = _deform_case(dev, 1, 16, 4, 9, 10, "random", o=8)
+    x.requires_grad_(True)
+    off.requires_grad_(True)
+    weight = torch.randn(8, 16, 3, 3, device=dev, requires_grad=True)
+    out = deform_conv.deform_conv2d(x, off, weight, padding=1,
+                                    deform_groups=4)
+    assert out.grad_fn is not None
+    k2 = deform_conv.deform_conv_backward.launches
+    out.square().sum().backward()
+    assert deform_conv.deform_conv_backward.launches == k2 + 1
+    assert x.grad is not None and off.grad is not None
+    assert weight.grad is not None
+    with pytest.raises(RuntimeError, match="no gradient"):
+        deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, 4)
+
+    wt = torch.ones(16, device=dev, requires_grad=True)
+    bs = torch.zeros(16, device=dev, requires_grad=True)
+    y = gn_relu.gn_relu(x, wt, bs, 4)
+    assert y.grad_fn is not None
+    k4b = gn_relu.gn_relu_backward.launches
+    y.sum().backward()
+    assert gn_relu.gn_relu_backward.launches == k4b + 1
+    assert wt.grad is not None and bs.grad is not None
+
+    args = _mask_case(dev, 1, 9, 3, 20, 24)
+    args[0].requires_grad_(True)
+    args[1].requires_grad_(True)
+    pre = mask_loss.mask_bce_loss(*args)
+    assert pre.grad_fn is not None
+    k3b = mask_loss.mask_bce_backward.launches
+    pre.sum().backward()
+    assert mask_loss.mask_bce_backward.launches == k3b + 1
+    assert args[0].grad is not None and args[1].grad is not None
+    with pytest.raises(RuntimeError, match="no gradient"):
+        mask_loss.mask_bce_forward(*args)
+
+
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from sipmask_tpu_torch.ops import deform_conv, mask_loss
+    x, off, w2, dy = _deform_case(dev, 1, 16, 4, 6, 7, "random", o=8)
+    cols = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, 4)
+    with pytest.raises(TypeError):
+        deform_conv.deform_conv_backward(x, off, cols, w2.double(), dy,
+                                         (3, 3), 1, 1, 1, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        deform_conv.deform_conv_backward(x, off, cols, w2,
+                                         dy.transpose(2, 3).contiguous()
+                                         .transpose(2, 3), (3, 3), 1, 1, 1, 4)
+    with pytest.raises(ValueError, match="device"):
+        deform_conv.deform_conv_backward(x, off, cols, w2.cpu(), dy, (3, 3),
+                                         1, 1, 1, 4)
+    args = _mask_case(dev, 1, 9, 3, 20, 24)
+    with pytest.raises(TypeError):
+        mask_loss.mask_bce_forward(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        mask_loss.mask_bce_forward(
+            args[0].transpose(2, 3).contiguous().transpose(2, 3), *args[1:])
+    with pytest.raises(ValueError, match="device"):
+        mask_loss.mask_bce_forward(*args[:3], args[3].cpu(), *args[4:])
+    wt, bs = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    _, stats = gn_relu.gn_relu_forward(x, wt, bs, 4)
+    with pytest.raises(ValueError, match="dy"):
+        gn_relu.gn_relu_backward(x, wt, bs, stats, dy[:, :4], 4, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_relu.gn_relu_backward(
+            x.transpose(2, 3).contiguous().transpose(2, 3), wt, bs, stats,
+            x, 4, True)
+    with pytest.raises(ValueError, match="stats"):
+        gn_relu.gn_relu_backward(x, wt, bs, stats[:, :2], x, 4, True)

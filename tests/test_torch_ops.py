@@ -26,11 +26,22 @@ from sipmask_tpu.ops.pallas.deform_gather import (_sample_pallas_sep_t,
                                                   _sample_pallas_t,
                                                   sample_ref)
 from sipmask_tpu.ops.pallas.group_norm import fused_gn_relu
-from sipmask_tpu_torch.core.boxes import bbox_overlaps, distance2bbox
+from sipmask_tpu.ops.pallas.mask_loss import mask_bce_loss_fused
+from sipmask_tpu.core import losses as jlosses
+from sipmask_tpu.core.targets import centerness_target as j_centerness
+from sipmask_tpu.core.targets import fcos_targets as j_fcos_targets
+from sipmask_tpu.ops.crop_split import (
+    mask_bce_loss_indexed as j_mask_bce_loss_indexed)
+from sipmask_tpu_torch.core import losses as plosses
+from sipmask_tpu_torch.core.boxes import (bbox_overlaps, center_size,
+                                          distance2bbox)
 from sipmask_tpu_torch.core.points import all_points
+from sipmask_tpu_torch.core.targets import centerness_target, fcos_targets
 from sipmask_tpu_torch.models.layers import resize_bilinear, resize_nearest
-from sipmask_tpu_torch.ops import deform_sample, gn_relu, native
-from sipmask_tpu_torch.ops.crop_split import assemble_masks
+from sipmask_tpu_torch.ops import (deform_conv, deform_sample, gn_relu,
+                                   mask_loss, native)
+from sipmask_tpu_torch.ops.crop_split import (assemble_masks,
+                                              mask_bce_loss_indexed)
 from sipmask_tpu_torch.ops.deform_conv import deform_conv2d
 from sipmask_tpu_torch.ops.nms import multiclass_nms_idx
 
@@ -146,6 +157,62 @@ def test_deform_conv2d_matches_jax(stride, dilation, groups, regime):
                                np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
+def _deform_grad_case(regime):
+    rng = np.random.RandomState(9)
+    b, c, h, w, o, g = 2, 16, 11, 13, 8, 4
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    if regime == "zero":      # conv_offset's initial state
+        off = np.zeros((b, h, w, g * 18), np.float32)
+    else:
+        off = _offsets(rng, b, g, h, w, regime)
+    weight = (rng.randn(3, 3, c, o) * 0.1).astype(np.float32)      # HWIO
+    dy = rng.randn(b, h, w, o).astype(np.float32)
+    return x, off, weight, dy, g
+
+
+@pytest.mark.parametrize("regime", ["moderate", "zero", "extreme"])
+def test_deform_conv2d_gradients_match_jax(regime):
+    """The plain version's gradients (autograd through deform_im2col_plain)
+    and K2's CPU wrapper against jax.vjp of the JAX deform_conv2d (its CPU
+    path: autodiff of sample_ref, the one-sided floor rule)."""
+    x, off, weight, dy, g = _deform_grad_case(regime)
+    _, vjp = jax.vjp(lambda a, b_, c: j_deform_conv2d(
+        a, b_, c, padding=1, deform_groups=g), jnp.asarray(x),
+        jnp.asarray(off), jnp.asarray(weight))
+    jdx, jdoff, jdw = (np.asarray(t) for t in vjp(jnp.asarray(dy)))
+    xt = _nchw(x).requires_grad_(True)
+    ot = _nchw(off).requires_grad_(True)
+    wt = T(np.ascontiguousarray(weight.transpose(3, 2, 0, 1))
+           ).requires_grad_(True)
+    out = deform_conv2d(xt, ot, wt, padding=1, deform_groups=g)
+    out.backward(_nchw(dy))
+    # f32 sums of up to 9*16 products (dx, d offsets) or 2*143 (dw), in
+    # another order
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), jdx,
+                               **tol)
+    np.testing.assert_allclose(ot.grad.permute(0, 2, 3, 1).numpy(), jdoff,
+                               **tol)
+    np.testing.assert_allclose(wt.grad.permute(2, 3, 1, 0).numpy(), jdw,
+                               **tol)
+    if regime == "zero":
+        assert np.abs(jdoff).max() > 0 and ot.grad.abs().max() > 0
+    # K2's wrapper (its plain version on the CPU) gives the same gradients
+    w2 = deform_conv._w2(wt.detach(), g).contiguous()
+    cols = deform_sample.deform_im2col(xt.detach(), ot.detach(), (3, 3), 1,
+                                       1, 1, g)
+    dx, doff, dw2 = deform_conv.deform_conv_backward(
+        xt.detach(), ot.detach(), cols, w2, _nchw(dy), (3, 3), 1, 1, 1, g)
+    np.testing.assert_allclose(dx.numpy(), xt.grad.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(doff.numpy(), ot.grad.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    wt2 = wt.detach().clone().requires_grad_(True)
+    deform_conv._w2(wt2, g).backward(dw2)
+    np.testing.assert_allclose(wt2.grad.numpy(), wt.grad.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
 # ------------------------------------------------------------------- K4
 
 @pytest.mark.parametrize("act", [True, False])
@@ -166,6 +233,190 @@ def test_gn_relu_plain_matches_jax(ref, act):
     # the same single-pass f32 statistics; only summation order differs
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", [True, False])
+def test_gn_relu_backward_matches_jax(act):
+    """gn_relu's CPU backward (gn_relu_backward_plain) and autograd through
+    gn_relu_plain against the VJP of group_norm_nhwc (+ relu)."""
+    rng = np.random.RandomState(10)
+    b, h, w, c, groups = 2, 9, 7, 64, 32
+    x = (rng.randn(b, h, w, c) * 3.0 + 1.0).astype(np.float32)
+    scale = (rng.rand(c) + 0.5).astype(np.float32)
+    bias = (rng.randn(c) * 0.2).astype(np.float32)
+    dy = rng.randn(b, h, w, c).astype(np.float32)
+
+    def f(x_, s_, b_):
+        y = group_norm_nhwc(x_, s_, b_, groups, 1e-5)
+        return jnp.maximum(y, 0) if act else y
+    _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    want = [np.asarray(t) for t in vjp(jnp.asarray(dy))]
+    want[0] = want[0].transpose(0, 3, 1, 2)
+    for fn in (gn_relu.gn_relu, gn_relu.gn_relu_plain):
+        xt = _nchw(x).requires_grad_(True)
+        st, bt = T(scale).requires_grad_(True), T(bias).requires_grad_(True)
+        y = fn(xt, st, bt, groups, 1e-5, act)
+        assert y.grad_fn is not None
+        y.backward(_nchw(dy))
+        # the same f32 algebra; sums over 63 pixels in another order
+        for got, exp in zip((xt.grad, st.grad, bt.grad), want):
+            np.testing.assert_allclose(got.numpy(), exp, rtol=1e-4,
+                                       atol=1e-5)
+
+
+# ------------------------------------------------------------------- K3
+
+def _mask_case(seed, b=2, k=20, g=5, h=24, w=40):
+    """Basis NCHW, coefficients, boxes in mask coordinates (some partly or
+    wholly off the map, one degenerate), gt masks, gt indices, validity."""
+    rng = np.random.RandomState(seed)
+    basis = rng.randn(b, 32, h, w).astype(np.float32)
+    cofs = (rng.randn(b, k, 128) * 0.5).astype(np.float32)
+    x1 = rng.uniform(-5, w - 4, (b, k))
+    y1 = rng.uniform(-5, h - 4, (b, k))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(1.5, w, (b, k)),
+                      y1 + rng.uniform(1.5, h, (b, k))], -1).astype(
+                          np.float32)
+    boxes[:, 3] = [6.3, 4.2, 5.1, 9.0]                   # degenerate
+    gt = (rng.rand(b, g, h, w) > 0.5).astype(np.uint8)
+    gt_idx = rng.randint(0, g, (b, k)).astype(np.int32)
+    valid = rng.rand(b, k) > 0.25
+    return basis, cofs, boxes, gt, gt_idx, valid
+
+
+def test_mask_bce_loss_indexed_matches_jax():
+    basis, cofs, boxes, gt, gt_idx, _ = _mask_case(11)
+    g = np.random.RandomState(12).rand(*gt_idx.shape).astype(np.float32)
+    for i in range(basis.shape[0]):
+        jb = jnp.asarray(basis[i].transpose(1, 2, 0))
+        want, vjp = jax.vjp(lambda bs, cf: j_mask_bce_loss_indexed(
+            bs, cf, jnp.asarray(boxes[i]), jnp.asarray(gt[i]),
+            jnp.asarray(gt_idx[i])), jb, jnp.asarray(cofs[i]))
+        jdb, jdc = vjp(jnp.asarray(g[i]))
+        bt = T(basis[i].transpose(1, 2, 0).copy()).requires_grad_(True)
+        ct = T(cofs[i]).requires_grad_(True)
+        got = mask_bce_loss_indexed(bt, ct, T(boxes[i]), T(gt[i]),
+                                    T(gt_idx[i]))
+        got.backward(T(g[i]))
+        # f32 sums over up to 960 pixels, in another order
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jdb),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(ct.grad.numpy(), np.asarray(jdc),
+                                   rtol=1e-5, atol=1e-4)
+
+
+def test_mask_loss_wrappers_match_the_fused_kernel():
+    """K3's CPU wrappers (the plain version, batched, invalid positives
+    zeroed) against the JAX Pallas kernel in interpret mode, values and
+    gradients in basis and cofs."""
+    basis, cofs, boxes, gt, gt_idx, valid = _mask_case(13)
+    g = np.random.RandomState(14).rand(*gt_idx.shape).astype(np.float32)
+    jb = jnp.asarray(basis.transpose(0, 2, 3, 1))
+    want, vjp = jax.vjp(lambda bs, cf: mask_bce_loss_fused(
+        bs, cf, jnp.asarray(boxes), jnp.asarray(gt), jnp.asarray(gt_idx),
+        interpret=True, mm_dtype=jnp.float32, valid=jnp.asarray(valid)),
+        jb, jnp.asarray(cofs))
+    jdb, jdc = vjp(jnp.asarray(g))
+    args = (T(basis), T(cofs), T(boxes), T(gt), T(gt_idx), T(valid))
+    pre = mask_loss.mask_bce_forward(*args)
+    dbasis, dcofs = mask_loss.mask_bce_backward(*args, T(g))
+    assert not pre[~args[5]].any()
+    np.testing.assert_allclose(pre.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(dbasis.numpy(),
+                               np.asarray(jdb).transpose(0, 3, 1, 2),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dcofs.numpy(), np.asarray(jdc), rtol=1e-5,
+                               atol=1e-4)
+    bt, ct = args[0].clone().requires_grad_(True), args[1].clone(
+    ).requires_grad_(True)
+    loss = mask_loss.mask_bce_loss(bt, ct, *args[2:])
+    assert loss.grad_fn is not None
+    loss.backward(T(g))
+    np.testing.assert_allclose(bt.grad.numpy(), dbasis.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(ct.grad.numpy(), dcofs.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+# ----------------------------------------------------- targets and losses
+
+def test_fcos_targets_match_jax():
+    rng = np.random.RandomState(15)
+    sizes, strides = [(16, 20), (8, 10), (4, 5), (2, 3), (1, 2)], \
+        (8, 16, 32, 64, 128)
+    ranges = ((-1, 64), (64, 128), (128, 256), (256, 512), (512, 1e8))
+    b, g = 3, 9
+    ctr = rng.uniform(0, 160, (b, g, 2))
+    wh = rng.uniform(4, 150, (b, g, 2))
+    gtb = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    gtb[0, 1] = gtb[0, 0]                       # a tie of areas
+    labels = rng.randint(1, 81, (b, g)).astype(np.int32)
+    labels[:, 6:] = 0                           # padding
+    pts, strd, rng_ = all_points(sizes, strides, ranges)
+    jp, js, jr = j_all_points(sizes, strides, ranges)
+    for cs in (True, False):
+        want = j_fcos_targets(jnp.asarray(gtb), jnp.asarray(labels), jp, jr,
+                              js, cs, 1.5)
+        got = fcos_targets(T(gtb), T(labels), pts, rng_, strd, cs, 1.5)
+        assert int((got["labels"] > 0).sum()) > 20
+        for k in ("labels", "gt_inds"):
+            np.testing.assert_array_equal(got[k].numpy(),
+                                          np.asarray(want[k]), err_msg=k)
+        np.testing.assert_array_equal(got["bbox_targets"].numpy(),
+                                      np.asarray(want["bbox_targets"]))
+        np.testing.assert_allclose(
+            centerness_target(got["bbox_targets"].clamp(min=0)).numpy(),
+            np.asarray(j_centerness(jnp.clip(want["bbox_targets"], 0))),
+            rtol=1e-6, atol=1e-7)
+
+
+def test_losses_match_jax():
+    rng = np.random.RandomState(16)
+    n, c = 300, 7
+    logits = (rng.randn(n, c) * 3).astype(np.float32)
+    labels = rng.randint(0, c + 1, n).astype(np.int32)
+    ctr = rng.uniform(0, 100, (n, 2))
+    pred = np.concatenate([ctr - rng.uniform(1, 30, (n, 2)),
+                           ctr + rng.uniform(1, 30, (n, 2))], -1
+                          ).astype(np.float32)
+    tgt = np.concatenate([ctr - rng.uniform(1, 30, (n, 2)),
+                          ctr + rng.uniform(1, 30, (n, 2))], -1
+                         ).astype(np.float32)
+    w = rng.rand(n).astype(np.float32)
+    t = rng.rand(n).astype(np.float32)
+    cases = [
+        (lambda L, a: L.sigmoid_focal_loss(a[0], a[1], c, 2.0, 0.25,
+                                           avg_factor=37.0),
+         (logits, labels)),
+        (lambda L, a: L.iou_loss(a[0], a[1], weight=a[2], avg_factor=5.0),
+         (pred, tgt, w)),
+        (lambda L, a: L.giou_loss(a[0], a[1], weight=a[2], avg_factor=5.0),
+         (pred, tgt, w)),
+        (lambda L, a: L.bce_with_logits(a[0], a[1], weight=a[2],
+                                        avg_factor=3.0),
+         (logits[:, 0], t, w)),
+    ]
+    for fn, args in cases:
+        want, vjp = jax.vjp(lambda x: fn(jlosses, (x,) + tuple(
+            jnp.asarray(a) for a in args[1:])), jnp.asarray(args[0]))
+        xt = T(args[0]).requires_grad_(True)
+        got = fn(plosses, (xt,) + tuple(T(a) for a in args[1:]))
+        got.backward()
+        # f32 sums over up to 2100 terms, in another order
+        np.testing.assert_allclose(float(got.detach()), float(want),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(xt.grad.numpy(),
+                                   np.asarray(vjp(jnp.float32(1.0))[0]),
+                                   rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(
+        bbox_overlaps(T(pred), T(tgt), is_aligned=True, eps=1e-9).numpy(),
+        np.asarray(jboxes.bbox_overlaps(pred, tgt, is_aligned=True,
+                                        eps=1e-9)), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(center_size(T(pred)).numpy(),
+                                  np.asarray(jboxes.center_size(pred)))
 
 
 # ------------------------------------------------------------------ NMS
@@ -378,8 +629,10 @@ def test_box_geometry_and_points_match_jax():
     np.testing.assert_array_equal(distance2bbox(T(pts), T(dist)).numpy(),
                                   np.asarray(jboxes.distance2bbox(pts, dist)))
     sizes, strides = [(16, 20), (8, 10), (1, 2)], (8, 16, 128)
-    np.testing.assert_array_equal(all_points(sizes, strides).numpy(),
-                                  np.asarray(j_all_points(sizes, strides)[0]))
+    ranges = ((-1, 64), (64, 128), (128, 1e8))
+    for got, want in zip(all_points(sizes, strides, ranges),
+                         j_all_points(sizes, strides, ranges)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ------------------------------------------------------- package and build
