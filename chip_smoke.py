@@ -4,8 +4,9 @@ NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It drives ``sipmask_r50_fpn_gn_1x`` at full width with random weights from a
-seed through the port's entry points, serving and then training:
+It drives two presets at full width with random weights from a seed through
+the port's entry points, serving and then training each: the high-accuracy
+``sipmask_r50_fpn_gn_1x`` and SipMask++ ``sipmaskpp_r101_fpn_ssd_6x``.
 
 1. finds the card (no CUDA is an error), prints ``nvidia-smi``'s name and
    power limit and the backend flags it sets (TF32 off: plain f32; cuDNN
@@ -24,11 +25,27 @@ seed through the port's entry points, serving and then training:
    ``make_train_step``, counting kernel launches, and checks the losses,
    the frozen stages and the gradients;
 8. runs the first step again from the same weights with the plain versions
-   and compares losses and gradients.
+   and compares losses and gradients;
+9. holds SipMask++'s kernels (K5 p-major deformable sampling, K5c its
+   backward, K6 SP mask assembly) against their plain versions at the
+   slice's shapes (the R101 DCN stages at 544x544 and at 576x576, batch 8;
+   the decode's and the rescoring loss's mask grids), and times them;
+10. serves SipMask++: 3 requests of one 544x544 image and a batch of 8 twice
+    through ``Detector.infer``, counting launches, then the batch with the
+    plain versions (head outputs, detections and mask_scores compared);
+11. trains SipMask++ for 3 SGD steps at 576x576, batch 8, counting
+    launches, checks losses (loss_iou included), frozen stages and every
+    DCN offset conv's gradient, then runs the first step again twice, with
+    the kernels and with the plain versions, the backbone's ReLUs pinned
+    to one set of masks in both, and compares them.
 
-Any failure raises (non-zero exit, no result). The second-to-last line is a
-JSON object of the kernels, with each kernel's launches in the train steps
-of phase 7; the last is the device line.
+Each path (phases 4, 7, 10, 11) is driven with every launch count set to 0
+just before it and read just after; a kernel of the path that did not
+launch fails the run. Any failure raises (non-zero exit, no result). The
+second-to-last line is a JSON object of the kernels (launches summed over
+the four paths, with each path's count beside them; errors and times from
+phases 3, 6 and 9; each kernel's bound and a one-call PyTorch equivalent's
+time where there is one); the last is the device line.
 """
 
 import contextlib
@@ -61,6 +78,34 @@ LOSS_TOL = 1e-4   # relative: forward values differ by the kernels' rounding
 # backward of ~70 layers, and cuDNN's algorithm picks in the two runs
 GRAD_TOL = 1e-3
 MASK_HW, MAX_POS, MAX_GTS, TRAIN_STEPS = (400, 672), 512, 64, 3
+PP_CONFIG = "sipmaskpp_r101_fpn_ssd_6x"
+PP_HW, PP_TRAIN_HW, PP_BATCH, PP_MAX_POS = (544, 544), (576, 576), 8, 256
+# the R101 DCN stages' conv2 at 544x544 (serving) and 576x576 (training):
+# (channels = Cg = O, h, w)
+PP_DCN = [(128, 68, 68), (256, 34, 34), (512, 17, 17)]
+PP_DCN_TRAIN = [(128, 72, 72), (256, 36, 36), (512, 18, 18)]
+K5_TOL = 1e-5     # abs: the same four f32 products, FMA-fused in the kernel
+K6_TOL = 1e-5     # abs: sigmoid of a 32-term f32 dot summed in another order
+# SipMask++'s train step against the plain versions. Losses: relative; the
+# rescoring target thresholds assembled masks at 0.4, where the kernels'
+# rounding may flip a pixel, so loss_iou gets more room. Gradients,
+# relative to each tensor's max |g|, with the backbone's ReLUs pinned to one
+# set of masks in both runs: unpinned, the calibrated random backbone puts
+# pre-activations within rounding of 0, the two runs' f32 rounding sends
+# some to opposite sides, and each such kink moves a row of a weight
+# gradient (3.7e-2 to 7.5e-2 of a tensor's max read on the card; on the CPU
+# tests/test_torch_pp_train.py traces the same spread to the ReLU kinks).
+# Pinned, the head, neck and rescoring gradients read 4.3e-3; the
+# backbone's 1.0e-2, its DCN offset convs' 1.9e-2. Not separated in what
+# is left: the one-sided floor derivative of the sampling positions, which
+# jumps where the two runs' offsets put a position on either side of an
+# integer (the run counts such positions per DCN block: 8 of 3.0M read),
+# the head's own ReLU kinks, and the kernels' rounding through ~100
+# layers. The limits are twice the readings; a dX or d-offsets dropped in
+# one DCN block moves the gradients by their whole size.
+PP_LOSS_TOL = {"loss_iou": 1e-2}
+PP_GRAD_TOL, PP_BACKBONE_GRAD_TOL = 1e-2, 4e-2
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12   # H100 SXM data sheet
 KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
     "deform_im2col": ("deform_im2col.cu",
                       "sipmask_tpu/ops/pallas/deform_gather.py:465"),
@@ -73,6 +118,23 @@ KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
     "gn_relu": ("gn_relu.cu", "sipmask_tpu/ops/pallas/group_norm.py:124"),
     "gn_relu_backward": ("gn_relu.cu",
                          "sipmask_tpu/ops/pallas/group_norm.py:174"),
+    "deform_rows": ("deform_rows.cu",
+                    "sipmask_tpu/ops/pallas/deform_gather.py:288, :381"),
+    "deform_rows_backward": ("deform_rows.cu",
+                             "sipmask_tpu/ops/pallas/deform_gather.py:724"),
+    "assemble_masks": ("mask_assembly.cu",
+                       "sipmask_tpu/ops/pallas/mask_assembly.py:66"),
+}
+PATH_KERNELS = {   # the kernels each driven path must launch
+    "hi-acc serving": ("deform_im2col", "gn_relu", "assemble_masks"),
+    "hi-acc training": ("deform_im2col", "deform_conv_backward",
+                        "mask_bce_forward", "mask_bce_backward", "gn_relu",
+                        "gn_relu_backward"),
+    "sipmask++ serving": ("deform_im2col", "deform_rows", "assemble_masks"),
+    "sipmask++ training": ("deform_im2col", "deform_conv_backward",
+                           "mask_bce_forward", "mask_bce_backward",
+                           "deform_rows", "deform_rows_backward",
+                           "assemble_masks"),
 }
 
 
@@ -83,13 +145,16 @@ def log(*args):
 def wrappers():
     """The kernel wrappers by name; each carries its launch count."""
     from sipmask_tpu_torch.ops import deform_conv, deform_sample, gn_relu
-    from sipmask_tpu_torch.ops import mask_loss
+    from sipmask_tpu_torch.ops import mask_assembly, mask_loss
     return {"deform_im2col": deform_sample.deform_im2col,
             "deform_conv_backward": deform_conv.deform_conv_backward,
             "mask_bce_forward": mask_loss.mask_bce_forward,
             "mask_bce_backward": mask_loss.mask_bce_backward,
             "gn_relu": gn_relu.gn_relu,
-            "gn_relu_backward": gn_relu.gn_relu_backward}
+            "gn_relu_backward": gn_relu.gn_relu_backward,
+            "deform_rows": deform_sample.deform_rows,
+            "deform_rows_backward": deform_sample.deform_rows_backward,
+            "assemble_masks": mask_assembly.assemble_masks}
 
 
 def reset_launches():
@@ -101,12 +166,49 @@ def read_launches():
     return {k: fn.launches for k, fn in wrappers().items()}
 
 
+def check_path_launches(path, launches):
+    """Raise unless every kernel of ``path`` launched in its run."""
+    log(f"kernel launches in the {path} run: {launches}")
+    idle = [k for k in PATH_KERNELS[path] if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels of the {path} path never ran: {idle}")
+
+
+def bound(nbytes, flops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) at the
+    HBM rate and do ``flops`` f32 operations at the CUDA-core rate."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def grid_sample_rows(x_rows, pyx, h, w):
+    """``F.grid_sample`` set up to compute K5/K1's bilinear sampling (zero
+    outside, corner-aligned): x_rows (N, h*w, Cg) -> NCHW input, pyx ->
+    normalised grid. Returns (call, its input, its grid); the set-up is
+    outside the call. Timed as the one-call library equivalent only."""
+    import torch.nn.functional as F
+    n, _, cg = x_rows.shape
+    inp = x_rows.reshape(n, h, w, cg).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([pyx[..., 1] / (w - 1) * 2 - 1,
+                        pyx[..., 0] / (h - 1) * 2 - 1], -1).contiguous()
+
+    def call(i=inp, g=grid):
+        return F.grid_sample(i, g, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+    return call, inp, grid
+
+
 def turns(name, plain, kernel, iters=20):
     """Mean CUDA-event ms of kernel and plain, in the order plain, kernel,
     kernel, plain (means of the two turns each)."""
     p1, k1, k2, p2 = (cuda_ms(plain, iters), cuda_ms(kernel, iters),
                       cuda_ms(kernel, iters), cuda_ms(plain, iters))
-    log(f"time {name} bs{BATCH}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+    log(f"time {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
         f"{p1:.4f} / {p2:.4f} ms")
     return (k1 + k2) / 2, (p1 + p2) / 2
 
@@ -197,9 +299,34 @@ def phase_kernels(dev):
             lambda: [gn_relu.gn_relu_plain(x, wt, bs, GN_GROUPS)
                      for (x,) in k4_in]),
     }
-    times = {name: turns(name + " all 5 levels", plain, kernel)
+    times = {name: turns(name + f" all 5 levels bs{BATCH}", plain, kernel)
              for name, (kernel, plain) in runs.items()}
-    return {"deform_im2col": k1_err, "gn_relu": k4_err}, times
+
+    # bounds and one-call library equivalents, on the same inputs
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    import torch.nn.functional as F
+    cols = sum(BATCH * 9 * CHANNELS * h * w for h, w in LEVELS)
+    k1_bytes = sum(nbytes(x, o) for x, o in k1_in) + 4 * cols
+    k1_lib = []
+    for x, o in k1_in:
+        b, c, h, w = x.shape
+        pyx = ds.positions(o, 3, 3, 1, 1, 1, DEFORM_GROUPS)
+        rows = x.reshape(b * DEFORM_GROUPS, c // DEFORM_GROUPS, h * w
+                         ).transpose(1, 2)
+        k1_lib.append(grid_sample_rows(rows, pyx, h, w)[0])
+    k4_elems = sum(x.numel() for (x,) in k4_in)
+    extra = {
+        "deform_im2col": (bound(k1_bytes, 7 * cols),
+                          cuda_ms(lambda: [f() for f in k1_lib])),
+        # two passes over x (sums, then normalise and ReLU): ~8 flops each
+        "gn_relu": (bound(8 * k4_elems + 8 * CHANNELS, 8 * k4_elems),
+                    cuda_ms(lambda: [torch.relu(F.group_norm(
+                        x, GN_GROUPS, wt, bs)) for (x,) in k4_in])),
+    }
+    for name, (bnd, lib) in extra.items():
+        log(f"{name}: bound {bnd[0]:.4f} ms ({bnd[1]}), one-call library "
+            f"equivalent {lib:.4f} ms")
+    return {"deform_im2col": k1_err, "gn_relu": k4_err}, times, extra
 
 
 def k2_inputs(b, h, w, gen, dev, zero_offsets=False):
@@ -236,6 +363,16 @@ def k3_inputs(b, gen, dev):
     grad[:, ::5] = 0.0
     return ([t.to(dev) for t in (basis, cofs, boxes, gt, gt_idx, valid)],
             grad.to(dev))
+
+
+def in_box_pixels(boxes, valid, h, w):
+    """Pixels inside the valid boxes (CropSplit: col >= x1, col < x2)."""
+    def count(lo, hi, n):
+        return (torch.ceil(hi).clamp(0, n) - torch.ceil(lo).clamp(0, n)
+                ).clamp(min=0)
+    cnt = count(boxes[..., 0], boxes[..., 2], w) * count(
+        boxes[..., 1], boxes[..., 3], h)
+    return float((cnt * valid).sum())
 
 
 def check_outputs(label, got, want, tol):
@@ -325,13 +462,19 @@ def phase_train_kernels(dev):
             leaves[0], leaves[1], (3, 3), 1, 1, 1, g))
         k2_in.append((x, off, w2, dy, cols, leaves, out))
     times["deform_conv_backward"] = turns(
-        "K2 deform_conv_backward all 5 levels",
+        f"K2 deform_conv_backward all 5 levels bs{BATCH}",
         lambda: [torch.autograd.grad(out, leaves, dy.reshape(out.shape),
                                      retain_graph=True)
                  for *_, dy, _c, leaves, out in k2_in],
         lambda: [deform_conv.deform_conv_backward(
             x, off, cols, w2, dy, (3, 3), 1, 1, 1, g)
             for x, off, w2, dy, cols, _, _o in k2_in], iters=10)
+    # K2: two GEMMs of 2*KC*O*P flops per image, col2im ~16 per cols entry
+    extra = {"deform_conv_backward": (bound(
+        sum(2 * nbytes(x, off, w2) + nbytes(dy, cols)
+            for x, off, w2, dy, cols, _, _o in k2_in),
+        sum(4 * cols.numel() * w2.shape[0] + 16 * cols.numel()
+            for x, off, w2, dy, cols, _, _o in k2_in)), None)}
     del k2_in
     args, grad = k3_inputs(BATCH, gen, dev)
 
@@ -339,12 +482,20 @@ def phase_train_kernels(dev):
         with torch.no_grad():
             return mask_loss.mask_bce_loss_plain(*args)
     times["mask_bce_forward"] = turns(
-        f"K3a mask_bce_forward {MASK_HW} K={MAX_POS}", k3a_plain,
+        f"K3a mask_bce_forward {MASK_HW} K={MAX_POS} bs{BATCH}", k3a_plain,
         lambda: mask_loss.mask_bce_forward(*args), iters=5)
+    # the work is the in-box pixels of the valid positives: a 32-term dot
+    # and a BCE (~76 flops) each forward, ~200 backward
+    inbox = in_box_pixels(args[2], args[5], *MASK_HW)
+    extra["mask_bce_forward"] = (bound(nbytes(*args) + 4 * grad.numel(),
+                                       76 * inbox), None)
+    extra["mask_bce_backward"] = (bound(
+        2 * nbytes(args[0], args[1]) + nbytes(*args[2:], grad),
+        200 * inbox), None)
     leaves = [t.detach().requires_grad_(True) for t in args[:2]]
     pre_p = mask_loss.mask_bce_loss_plain(*leaves, *args[2:])
     times["mask_bce_backward"] = turns(
-        f"K3b mask_bce_backward {MASK_HW} K={MAX_POS}",
+        f"K3b mask_bce_backward {MASK_HW} K={MAX_POS} bs{BATCH}",
         lambda: torch.autograd.grad(pre_p, leaves, grad, retain_graph=True),
         lambda: mask_loss.mask_bce_backward(*args, grad), iters=5)
     del args, grad, leaves, pre_p
@@ -357,14 +508,32 @@ def phase_train_kernels(dev):
         _, stats = gn_relu.gn_relu_forward(x, wt, bs, GN_GROUPS)
         k4_in.append((x, wt, bs, stats, dy))
     times["gn_relu_backward"] = turns(
-        "K4b gn_relu_backward all 5 levels",
+        f"K4b gn_relu_backward all 5 levels bs{BATCH}",
         lambda: [gn_relu.gn_relu_backward_plain(*a, GN_GROUPS, True)
                  for a in k4_in],
         lambda: [gn_relu.gn_relu_backward(*a, GN_GROUPS, True)
                  for a in k4_in])
-    del k4_in
+    # K4b's one-call equivalent: autograd of F.group_norm + ReLU, over
+    # graphs built once
+    import torch.nn.functional as F
+    gn_graphs = []
+    for x, wt, bs, _, dy in k4_in:
+        leaves = [t.detach().requires_grad_(True) for t in (x, wt, bs)]
+        gn_graphs.append((torch.relu(F.group_norm(leaves[0], GN_GROUPS,
+                                                  leaves[1], leaves[2])),
+                          leaves, dy))
+    k4b_lib = cuda_ms(lambda: [torch.autograd.grad(y, lv, dy,
+                                                   retain_graph=True)
+                               for y, lv, dy in gn_graphs])
+    k4_elems = sum(a[0].numel() for a in k4_in)
+    extra["gn_relu_backward"] = (bound(12 * k4_elems, 10 * k4_elems),
+                                 k4b_lib)
+    del k4_in, gn_graphs
     torch.cuda.empty_cache()
-    return errs, times
+    for name, (bnd, lib) in extra.items():
+        log(f"{name}: bound {bnd[0]:.4f} ms ({bnd[1]}), one-call library "
+            f"equivalent " + ("none" if lib is None else f"{lib:.4f} ms"))
+    return errs, times, extra
 
 
 def run_step(step, batch, label, name, smi):
@@ -415,13 +584,10 @@ def phase_train(dev, name, smi):
         peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         torch.cuda.reset_peak_memory_stats()
     launches = read_launches()
-    log(f"kernel launches over the {TRAIN_STEPS} train steps: {launches}")
+    check_path_launches("hi-acc training", launches)
     log("peak device memory per train step (torch.cuda.max_memory_allocated;"
         " step 0 holds cuDNN's algorithm search): " + ", ".join(
             f"{p:.2f} GiB" for p in peaks))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the train path never ran: "
-                             f"{launches}")
     for i, vals in enumerate(losses):
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"step {i}: non-finite losses {vals}")
@@ -474,19 +640,26 @@ def phase_train(dev, name, smi):
 @contextlib.contextmanager
 def plain_kernels():
     """Swap the model's kernel entry points for their plain versions at the
-    call sites' module attributes: the deformable conv (K1 + K2), GroupNorm
-    (K4a + K4b) and the mask loss (K3a + K3b)."""
-    from sipmask_tpu_torch.ops import deform_conv, gn_relu, mask_loss
-    saved = (deform_conv.deform_conv2d, gn_relu.gn_relu,
-             mask_loss.mask_bce_loss)
-    deform_conv.deform_conv2d = deform_conv.deform_conv2d_plain
-    gn_relu.gn_relu = gn_relu.gn_relu_plain
-    mask_loss.mask_bce_loss = mask_loss.mask_bce_loss_plain
+    call sites' module attributes: the deformable convs (K1 + K2, K5 + K5c),
+    GroupNorm (K4a + K4b), the mask loss (K3a + K3b) and the mask assembly
+    (K6)."""
+    from sipmask_tpu_torch.ops import (deform_conv, gn_relu, mask_assembly,
+                                       mask_loss)
+    swaps = [(deform_conv, "deform_conv2d", deform_conv.deform_conv2d_plain),
+             (deform_conv, "deform_conv2d_rows",
+              deform_conv.deform_conv2d_rows_plain),
+             (gn_relu, "gn_relu", gn_relu.gn_relu_plain),
+             (mask_loss, "mask_bce_loss", mask_loss.mask_bce_loss_plain),
+             (mask_assembly, "assemble_masks",
+              mask_assembly.assemble_masks_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (deform_conv.deform_conv2d, gn_relu.gn_relu,
-         mask_loss.mask_bce_loss) = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def run_batch(det, batch, capture):
@@ -559,9 +732,7 @@ def phase_serving(dev, name, smi):
         log(f"batch of {tuple(images.shape)} through Detector.infer: "
             f"{ms:.1f} ms wall on {name} ({smi})")
     launches = read_launches()
-    log(f"kernel launches over the 3 requests and 2 batches: {launches}")
-    if min(launches["deform_im2col"], launches["gn_relu"]) <= 0:
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    check_path_launches("hi-acc serving", launches)
     valid = dec_k["valid"].sum(1).tolist()
     log(f"valid detections per image of the batch: {valid}")
     if min(valid) <= 0:
@@ -602,6 +773,464 @@ def phase_serving(dev, name, smi):
     if min(shares) < MATCH_MIN or \
             dec_k["valid"].sum(1).tolist() != dec_p["valid"].sum(1).tolist():
         raise AssertionError("decoded detections disagree")
+    return launches
+
+
+# ------------------------------------------------------------- SipMask++
+
+def pp_positions(b, c, h, w, gen, dev, zero=False):
+    """x_rows (B, h*w, C) and pyx (B, 9, h*w, 2) of a DCN conv2 (3x3, pad 1,
+    deform_groups 1): offsets ~2 px, a third of the pixels +-300 px out
+    (or all zero, DeformConvPack's initial state)."""
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    x = torch.randn((b, h * w, c), generator=gen).to(dev)
+    off = torch.randn((b, 18, h, w), generator=gen) * 2.0
+    off.view(b, 18, h * w)[:, :, : (h * w) // 3] *= 150.0
+    if zero:
+        off.zero_()
+    return x, ds.positions(off.to(dev), 3, 3, 1, 1, 1, 1).contiguous()
+
+
+def k6_inputs(b, h, w, n, gen, dev):
+    """A basis (NCHW view, as the head gives it), coefficients and boxes of
+    5-60% of the grid, a fifth degenerate (zero width)."""
+    basis = torch.randn((b, 32, h, w), generator=gen).to(dev)
+    cofs = (torch.randn((b, n, 128), generator=gen) * 0.3).to(dev)
+    frac = torch.sqrt(torch.rand((b, n, 1), generator=gen) * 0.55 + 0.05)
+    wh = frac * torch.tensor([w, h], dtype=torch.float32)
+    ctr = torch.rand((b, n, 2), generator=gen) * torch.tensor(
+        [w, h], dtype=torch.float32)
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    boxes[:, ::5, 2] = boxes[:, ::5, 0]
+    return basis.permute(0, 2, 3, 1), cofs, boxes.to(dev)
+
+
+def phase_pp_kernels(dev):
+    """Phase 9: K5 and K5c at the R101 DCN stages' shapes at 544x544 and
+    576x576, batch 8 (random offsets with a third +-300 px out, and zero
+    offsets), K6 at
+    the decode's (272x272 grid, 100 detections) and the rescoring loss's
+    (288x288, K = 256) shapes, batch 8; then times, bounds and library
+    equivalents."""
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    from sipmask_tpu_torch.ops import mask_assembly as ma
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    errs = {"deform_rows": 0.0, "deform_rows_backward": 0.0}
+    for (c, h, w), path in [(s, "serving") for s in PP_DCN] + [
+            (s, "training") for s in PP_DCN_TRAIN]:
+        for zero in (False, True):
+            x, pyx = pp_positions(PP_BATCH, c, h, w, gen, dev, zero)
+            g = torch.randn((PP_BATCH, h * w, 9, c), generator=gen).to(dev)
+            got = ds.deform_rows(x, pyx, h, w)
+            dx, dp = ds.deform_rows_backward(x, pyx, g, h, w)
+            want = ds.deform_rows_plain(x, pyx, h, w)
+            wdx, wdp = ds.deform_rows_backward_plain(x, pyx, g, h, w)
+            torch.cuda.synchronize()
+            label = (f"{path} {(PP_BATCH, c, h, w)} "
+                     f"{'zero' if zero else 'random'}")
+            ab = errors(got, want)[0]
+            log(f"K5 deform_rows {label} offsets: max_abs_err {ab:.3e} "
+                f"(tol abs {K5_TOL})")
+            if not ab <= K5_TOL:
+                raise AssertionError(f"K5 disagrees with its plain version "
+                                     f"at {label}: {ab}")
+            errs["deform_rows"] = max(errs["deform_rows"], ab)
+            errs["deform_rows_backward"] = max(
+                errs["deform_rows_backward"], check_outputs(
+                    f"K5c deform_rows_backward {label} offsets (dx, dpyx)",
+                    [dx, dp], [wdx, wdp], TRAIN_KERNEL_TOL))
+            if zero and not float(dp.abs().max()) > 0:
+                raise AssertionError("K5c gives zero offset gradients at "
+                                     "zero offsets")
+            del x, pyx, g, got, dx, dp, want, wdx, wdp
+    errs["assemble_masks"] = 0.0
+    for hw, n in (((272, 272), 100), ((288, 288), PP_MAX_POS)):
+        args = k6_inputs(PP_BATCH, *hw, n, gen, dev)
+        got = ma.assemble_masks(*args)
+        want = ma.assemble_masks_plain(*args)
+        torch.cuda.synchronize()
+        ab = errors(got, want)[0]
+        same_zeros = bool(torch.equal(got == 0, want == 0))
+        log(f"K6 assemble_masks {hw} N={n} bs{PP_BATCH}: max_abs_err "
+            f"{ab:.3e} (tol abs {K6_TOL}), same zeros {same_zeros}")
+        if not (ab <= K6_TOL and same_zeros):
+            raise AssertionError(f"K6 disagrees with its plain version at "
+                                 f"{hw}: {ab}, same zeros {same_zeros}")
+        errs["assemble_masks"] = max(errs["assemble_masks"], ab)
+        del args, got, want
+
+    # times at the serving shapes: one DCN conv of each stage (K5, K5c), the
+    # decode's assembly of a batch of 8 (K6)
+    k5_in = [pp_positions(PP_BATCH, c, h, w, gen, dev) + (h, w)
+             for c, h, w in PP_DCN]
+    k5c_g = [torch.randn((PP_BATCH, h * w, 9, c), generator=gen).to(dev)
+             for c, h, w in PP_DCN]
+    times = {"deform_rows": turns(
+        f"K5 deform_rows, one DCN conv of each stage bs{PP_BATCH}",
+        lambda: [ds.deform_rows_plain(*a) for a in k5_in],
+        lambda: [ds.deform_rows(*a) for a in k5_in])}
+    graphs = []
+    for (x, pyx, h, w), g in zip(k5_in, k5c_g):
+        leaves = [t.detach().requires_grad_(True) for t in (x, pyx)]
+        graphs.append((ds.deform_rows_plain(*leaves, h, w), leaves, g))
+    times["deform_rows_backward"] = turns(
+        f"K5c deform_rows_backward, one DCN conv of each stage bs{PP_BATCH}",
+        lambda: [torch.autograd.grad(o, lv, g, retain_graph=True)
+                 for o, lv, g in graphs],
+        lambda: [ds.deform_rows_backward(x, pyx, g, h, w)
+                 for (x, pyx, h, w), g in zip(k5_in, k5c_g)], iters=10)
+    del graphs
+    k6_in = k6_inputs(PP_BATCH, 272, 272, 100, gen, dev)
+    times["assemble_masks"] = turns(
+        f"K6 assemble_masks 272x272 N=100 bs{PP_BATCH}",
+        lambda: ma.assemble_masks_plain(*k6_in),
+        lambda: ma.assemble_masks(*k6_in))
+
+    out_elems = sum(x.shape[0] * x.shape[1] * 9 * x.shape[2]
+                    for x, *_ in k5_in)
+    libs = [grid_sample_rows(x, pyx, h, w) for x, pyx, h, w in k5_in]
+    lib_graphs = []
+    for (call, inp, grid), g in zip(libs, k5c_g):
+        leaves = [inp.detach().requires_grad_(True),
+                  grid.detach().requires_grad_(True)]
+        out = call(*leaves)
+        lib_graphs.append((out, leaves, g.permute(0, 3, 2, 1).reshape(
+            out.shape).contiguous()))
+    k6_inbox = in_box_pixels(k6_in[2], torch.ones_like(k6_in[2][..., 0]),
+                             272, 272)
+    extra = {
+        "deform_rows": (bound(sum(nbytes(x, pyx) for x, pyx, *_ in k5_in)
+                              + 4 * out_elems, 7 * out_elems),
+                        cuda_ms(lambda: [c() for c, *_ in libs])),
+        # reads x, pyx and dsampled; writes dx (4 atomic adds an element)
+        # and dpyx; ~18 flops an element
+        "deform_rows_backward": (bound(
+            sum(2 * nbytes(x, pyx) for x, pyx, *_ in k5_in)
+            + 4 * out_elems, 18 * out_elems), cuda_ms(
+                lambda: [torch.autograd.grad(o, lv, g, retain_graph=True)
+                         for o, lv, g in lib_graphs], iters=10)),
+        # a 32-term dot and a sigmoid (~68 flops) per in-box pair
+        "assemble_masks": (bound(nbytes(*k6_in) + 4 * PP_BATCH * 272 * 272
+                                 * 100, 68 * k6_inbox), None),
+    }
+    for name, (bnd, lib) in extra.items():
+        log(f"{name}: bound {bnd[0]:.4f} ms ({bnd[1]}), one-call library "
+            f"equivalent " + ("none" if lib is None else f"{lib:.4f} ms"))
+    del k5_in, k5c_g, libs, lib_graphs, k6_in
+    torch.cuda.empty_cache()
+    return errs, times, extra
+
+
+def pp_batch_images(n, seed):
+    """n random 544x544 BGR uint8 images."""
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(*PP_HW, 3) * 255).astype(np.uint8) for _ in range(n)]
+
+
+def matched_pp(a, b, i):
+    """matched_share with mask_scores within 1e-4 as well."""
+    va, vb = a["valid"][i], b["valid"][i]
+    la, lb = a["labels"][i][va], b["labels"][i][vb]
+    if len(la) == 0:
+        return 1.0
+    same = ((la[:, None] == lb[None]) &
+            ((a["boxes"][i][va][:, None] - b["boxes"][i][vb][None]
+              ).abs().amax(-1) <= 0.01) &
+            ((a["scores"][i][va][:, None] - b["scores"][i][vb][None]
+              ).abs() <= 1e-4) &
+            ((a["mask_scores"][i][va][:, None] -
+              b["mask_scores"][i][vb][None]).abs() <= 1e-4))
+    return float(same.any(1).float().mean())
+
+
+def phase_pp_serving(dev, name, smi):
+    """Phase 10: SipMask++ serving with the kernels, then the batch with
+    the plain versions."""
+    from sipmask_tpu_torch.apis.inference import (inference_detector,
+                                                  init_detector, preprocess)
+    from sipmask_tpu_torch.utils.demo_inputs import (bump_weights,
+                                                     calibrate_frozen_bn)
+
+    det = init_detector(PP_CONFIG, dev, seed=SEED)
+    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+    imgs = pp_batch_images(3 + PP_BATCH, SEED)
+    prepped = [preprocess(im, det.cfg) for im in imgs[3:]]
+    images = torch.stack([torch.from_numpy(p[0]).permute(2, 0, 1)
+                          for p in prepped]).to(dev)
+    batch = (images, torch.from_numpy(np.stack([p[1] for p in prepped])),
+             torch.from_numpy(np.stack([p[2] for p in prepped])))
+    # a pretrained backbone's BN standardises its activations; random
+    # weights with identity BN grow them ~3x a block (see the function)
+    calibrate_frozen_bn(det.model.backbone, images)
+    capture = {}
+    det.model.bbox_head.register_forward_hook(
+        lambda mod, inp, out: capture.update(out))
+
+    reset_launches()
+    req_ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        res = inference_detector(det, imgs[i])
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+        n = len(res["labels"])
+        log(f"SipMask++ request {i}: {PP_HW} image -> {n} detections, "
+            f"mask_scores {res['mask_scores'][:3]}, {req_ms[-1]:.1f} ms "
+            f"wall on {name} ({smi})")
+        if n == 0 or not np.isfinite(res["mask_scores"]).all():
+            raise AssertionError(f"request {i}: no valid or finite result")
+        if res["masks"].shape != (n, *PP_HW):
+            raise AssertionError(f"request {i}: masks {res['masks'].shape}")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):   # the first run is the first at the batch shapes
+        t0 = time.perf_counter()
+        head_k, dec_k = run_batch(det, batch, capture)
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"SipMask++ batch of {tuple(images.shape)} through "
+            f"Detector.infer: {ms:.1f} ms wall on {name} ({smi}); peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    launches = read_launches()
+    check_path_launches("sipmask++ serving", launches)
+    valid = dec_k["valid"].sum(1).tolist()
+    log(f"valid detections per image of the batch: {valid}")
+    if min(valid) <= 0:
+        raise AssertionError("an image of the batch has no detection")
+    for key, val in head_k.items():
+        for j, t in enumerate(val if isinstance(val, list) else [val]):
+            check_finite(f"{key}[{j}]", t)
+    for key in ("boxes", "scores", "masks", "mask_scores"):
+        check_finite(key, dec_k[key])
+    ms_valid = dec_k["mask_scores"][dec_k["valid"]]
+    if not float(ms_valid.min()) > 0:
+        raise AssertionError("a valid detection has mask score 0")
+
+    with plain_kernels():
+        head_p, dec_p = run_batch(det, batch, capture)
+    if read_launches() != launches:
+        raise AssertionError("the plain run launched a kernel")
+    worst = 0.0
+    for key, val in head_k.items():
+        vals = val if isinstance(val, list) else [val]
+        pvals = head_p[key] if isinstance(val, list) else [head_p[key]]
+        for a, b in zip(vals, pvals):
+            worst = max(worst, errors(a, b)[1])
+    log(f"SipMask++ head outputs, kernels vs plain: max relative error "
+        f"{worst:.3e} (tol {HEAD_TOL})")
+    if not worst <= HEAD_TOL:
+        raise AssertionError(f"head outputs disagree: {worst}")
+    shares = [min(matched_pp(dec_k, dec_p, i), matched_pp(dec_p, dec_k, i))
+              for i in range(PP_BATCH)]
+    log(f"SipMask++ detections reproduced by the plain run (label, box "
+        f"within 0.01 px, score and mask score within 1e-4): {shares} "
+        f"(min {MATCH_MIN})")
+    if min(shares) < MATCH_MIN or \
+            dec_k["valid"].sum(1).tolist() != dec_p["valid"].sum(1).tolist():
+        raise AssertionError("decoded detections disagree")
+    del det
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pp_train(dev, name, smi):
+    """Phase 11: SipMask++ SGD steps with the kernels, then the first step
+    again from the same weights with the plain versions."""
+    from sipmask_tpu_torch.config import get_config
+    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    from sipmask_tpu_torch.utils.demo_inputs import (bump_weights,
+                                                     calibrate_frozen_bn,
+                                                     train_batch_for)
+
+    cfg = get_config(PP_CONFIG)
+    if (cfg.data.train_size, cfg.train.imgs_per_device,
+            cfg.train.max_pos) != (PP_TRAIN_HW, PP_BATCH, PP_MAX_POS):
+        raise AssertionError("the preset's train size, batch or max_pos "
+                             "moved")
+    state = create_train_state(cfg, dev, seed=SEED)
+    bump_weights(state.model, torch.Generator().manual_seed(SEED),
+                 training=True)
+    batch = train_batch_for(cfg, SEED, dev)
+    calibrate_frozen_bn(state.model.backbone, batch["images"])
+    init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    params = dict(state.model.named_parameters())
+    frozen = {n: p.detach().clone() for n, p in params.items()
+              if not p.requires_grad}
+    offsets = [n for n in params if n.startswith("backbone.")
+               and n.endswith("conv2.conv_offset.weight")]
+    log(f"SipMask++ train batch: images {tuple(batch['images'].shape)}, gts "
+        f"per image {(batch['gt_labels'] > 0).sum(1).tolist()}, "
+        f"{len(offsets)} DCN blocks, {len(frozen)} frozen and "
+        f"{len(params) - len(frozen)} trainable parameter tensors")
+    if len(offsets) != 11:
+        raise AssertionError(f"R101 with DCN in stages 2-4 has 11 DCN "
+                             f"blocks, not {len(offsets)}")
+    step = make_train_step(state, cfg)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, peaks = [], []
+    for i in range(TRAIN_STEPS):
+        vals, _ = run_step(step, batch, f"SipMask++ train step {i}", name,
+                           smi)
+        losses.append(vals)
+        if i == 0:
+            first_grads = {n: p.grad.detach().clone()
+                           for n, p in params.items() if p.requires_grad}
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+    launches = read_launches()
+    check_path_launches("sipmask++ training", launches)
+    log("SipMask++ peak device memory per train step: " + ", ".join(
+        f"{p:.2f} GiB" for p in peaks))
+    for i, vals in enumerate(losses):
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"step {i}: non-finite losses {vals}")
+        if not (vals["loss_mask"] > 0 and "loss_iou" in vals):
+            raise AssertionError(f"step {i}: loss_mask {vals['loss_mask']}, "
+                                 f"losses {sorted(vals)}")
+    for n, v in frozen.items():
+        if not torch.equal(params[n].detach(), v):
+            raise AssertionError(f"frozen parameter {n} moved")
+    for n, g in first_grads.items():
+        check_finite(f"gradient of {n}", g)
+    off_g = {n: float(first_grads[n].abs().max()) for n in offsets}
+    log(f"max |grad| of the DCN conv_offset weights, step 0: "
+        f"{min(off_g.values()):.3e} .. {max(off_g.values()):.3e}")
+    if not min(off_g.values()) > 0:
+        raise AssertionError(f"a DCN conv_offset has a zero gradient: "
+                             f"{off_g}")
+    log("SipMask++ train checks passed: finite losses, loss_mask > 0, "
+        "loss_iou present, frozen stages unchanged, every DCN offset conv "
+        "trains")
+    del state, step, params, first_grads
+    torch.cuda.empty_cache()
+
+    # the first step again, with the kernels and then with the plain
+    # versions, the backbone's ReLUs pinned to the masks of one forward
+    snapshot = read_launches()
+    runs, floors = [], []
+    for plain in (False, True):
+        state = create_train_state(cfg, dev, state_dict=init)
+        step = make_train_step(state, cfg)
+        if not runs:
+            masks = relu_masks(state.model.backbone, batch["images"])
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            stack.enter_context(pinned_relus(state.model.backbone, masks))
+            floors.append(stack.enter_context(recorded_floors()))
+            vals, _ = run_step(
+                step, batch, f"SipMask++ {'plain' if plain else 'kernel'} "
+                f"train step 0, backbone ReLUs pinned", name, smi)
+        if plain and read_launches() != snapshot:
+            raise AssertionError("the plain train step launched a kernel")
+        snapshot = read_launches()
+        runs.append((vals, {
+            n: p.grad.detach().clone()
+            for n, p in state.model.named_parameters() if p.requires_grad}))
+        del state, step
+    del masks
+    flips = [int((a != b).sum()) for a, b in zip(*floors)]
+    log(f"sampling positions whose floor differs between the two runs, per "
+        f"DCN block: {flips} of {[a.numel() for a in floors[0]]}")
+    del floors
+    (kvals, kgrads), (vals, grads) = runs
+    for k in vals:
+        for label, ref in (("kernels", kvals),
+                           ("unpinned kernels", losses[0])):
+            rel = abs(vals[k] - ref[k]) / max(abs(vals[k]), 1e-12)
+            tol = PP_LOSS_TOL.get(k, LOSS_TOL)
+            log(f"{k}, {label} vs pinned plain: relative difference "
+                f"{rel:.3e} (tol {tol})")
+            if not rel <= tol:
+                raise AssertionError(f"{k} disagrees: {ref[k]} vs {vals[k]}")
+    worst = {}
+    for n, g in grads.items():
+        part = ("rest" if not n.startswith("backbone.") else
+                "backbone conv_offset" if ".conv_offset." in n
+                else "backbone")
+        rel = errors(kgrads[n], g)[1]
+        if rel >= worst.get(part, (0.0, ""))[0]:
+            worst[part] = (rel, n)
+    log("SipMask++ gradients, kernels vs plain with the backbone's ReLUs "
+        "pinned: max relative error (to each tensor's max |g|) " + ", ".join(
+            f"{part} {rel:.3e} at {n}" for part, (rel, n) in worst.items())
+        + f" (tol backbone {PP_BACKBONE_GRAD_TOL}, rest {PP_GRAD_TOL})")
+    if not (max(rel for part, (rel, _) in worst.items()
+                if part != "rest") <= PP_BACKBONE_GRAD_TOL
+            and worst["rest"][0] <= PP_GRAD_TOL):
+        raise AssertionError(f"gradients disagree: {worst}")
+    del batch, runs, kgrads, grads
+    torch.cuda.empty_cache()
+    return launches
+
+
+def relu_masks(backbone, images):
+    """The sign masks (x > 0) of ``backbone``'s ReLU calls, in call order,
+    from one forward without gradients."""
+    real, masks = torch.relu, []
+
+    def record(x):
+        masks.append(x > 0)
+        return real(x)
+    torch.relu = record
+    try:
+        with torch.no_grad():
+            backbone(images)
+    finally:
+        torch.relu = real
+    return masks
+
+
+@contextlib.contextmanager
+def recorded_floors():
+    """Within the context, the floor of every sampling position the
+    sampled route computes (one tensor per DCN conv, in call order) is
+    appended to the yielded list."""
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    real, out = ds.positions, []
+
+    def positions(*args):
+        pyx = real(*args)
+        out.append(torch.floor(pyx.detach()))
+        return pyx
+    ds.positions = positions
+    try:
+        yield out
+    finally:
+        ds.positions = real
+
+
+@contextlib.contextmanager
+def pinned_relus(backbone, masks):
+    """Within the context, the i-th ReLU call of each forward of
+    ``backbone`` returns ``x * masks[i]``: the same piecewise-linear
+    function in every run, whatever side of 0 each run's rounding puts a
+    pre-activation on. Raises unless each forward made len(masks) calls."""
+    real, calls = torch.relu, [0]
+
+    def pinned(x):
+        m = masks[calls[0] % len(masks)]
+        calls[0] += 1
+        if m.shape != x.shape:
+            raise AssertionError(f"ReLU call {calls[0]}: mask {m.shape}, "
+                                 f"input {x.shape}")
+        return x * m
+
+    def on(*_):
+        torch.relu = pinned
+
+    def off(*_):
+        torch.relu = real
+    hooks = [backbone.register_forward_pre_hook(on),
+             backbone.register_forward_hook(off)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+        torch.relu = real
+    if calls[0] % len(masks) or not calls[0]:
+        raise AssertionError(f"{calls[0]} pinned ReLU calls, "
+                             f"{len(masks)} a forward")
 
 
 def main():
@@ -654,24 +1283,38 @@ def main():
             ln.strip() for ln in lines))
 
     # ---- 3. kernels against their plain versions
-    errs, times = phase_kernels(dev)
+    errs, times, extra = phase_kernels(dev)
 
     # ---- 4 and 5. the serving path, with the kernels and then without
-    phase_serving(dev, name, smi)
+    paths = {"hi-acc serving": phase_serving(dev, name, smi)}
 
     # ---- 6. the training kernels against their plain versions
-    train_errs, train_times = phase_train_kernels(dev)
+    train_errs, train_times, train_extra = phase_train_kernels(dev)
     errs.update(train_errs)
     times.update(train_times)
+    extra.update(train_extra)
 
     # ---- 7 and 8. the train step, with the kernels and then without
-    launches = phase_train(dev, name, smi)
+    paths["hi-acc training"] = phase_train(dev, name, smi)
+
+    # ---- 9. SipMask++'s kernels against their plain versions
+    pp_errs, pp_times, pp_extra = phase_pp_kernels(dev)
+    errs.update(pp_errs)
+    times.update(pp_times)
+    extra.update(pp_extra)
+
+    # ---- 10 and 11. SipMask++ serving and training
+    paths["sipmask++ serving"] = phase_pp_serving(dev, name, smi)
+    paths["sipmask++ training"] = phase_pp_train(dev, name, smi)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"sipmask_tpu_torch/csrc/{src}",
-                "replaces": replaces, "launches": launches[k],
+                "replaces": replaces,
+                "launches": sum(p[k] for p in paths.values()),
+                "launches_by_path": {path: p[k] for path, p in paths.items()},
                 "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]}
+                "plain_ms": times[k][1], "bound_ms": extra[k][0][0],
+                "bound_by": extra[k][0][1], "library_ms": extra[k][1]}
                for k, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
 Preprocessing uses numpy and torch only: caffe BGR mean subtraction and
 zero padding to a multiple of ``size_divisor``, as the reference's test
 pipeline does. Images must already be at the configured test scale (a
-keep-ratio scale factor of 1); a resize that matches cv2's is not ported
-yet. The mask paste runs on the device with ``F.interpolate``.
+keep-ratio scale factor of 1, or exactly ``data.fixed_size``, 544x544 for
+the real-time and SipMask++ presets); a resize that matches cv2's is not
+ported yet. The mask paste runs on the device with ``F.interpolate``.
 """
 
 from __future__ import annotations
@@ -35,9 +36,13 @@ class Detector:
     def infer(self, images, img_shapes, scale_factors):
         """images (B, 3, H, W) normalized and padded, on the device;
         img_shapes (B, 2) (h, w) before padding; scale_factors (B, 4).
-        Returns ``decode_batch``'s dict of device tensors."""
+        Returns ``decode_batch``'s dict of device tensors (with
+        ``mask_scores`` when the model rescores, SipMask++)."""
         out = self.model(images)
-        return decode_batch(out, img_shapes, scale_factors, self.cfg.model)
+        rescore = (self.model.rescore if self.cfg.model.head.rescoring
+                   else None)
+        return decode_batch(out, img_shapes, scale_factors, self.cfg.model,
+                            rescore_fn=rescore)
 
 
 def init_detector(config: Union[str, SipMaskConfig], device="cuda",
@@ -100,7 +105,7 @@ def paste_masks(masks, scale_factor, ori_shape, thr: float):
 def inference_detector(det: Detector, img: np.ndarray):
     """img (H, W, 3) BGR uint8 -> dict of numpy arrays: boxes (N, 4) in
     original coordinates, scores (N,), labels (N,) 0-based, masks
-    (N, H, W) bool."""
+    (N, H, W) bool, and mask_scores (N,) when the model rescores."""
     image, img_shape, scale_factor = preprocess(img, det.cfg)
     images = torch.from_numpy(image).permute(2, 0, 1)[None].to(det.device)
     out = det.infer(images, torch.from_numpy(img_shape)[None],
@@ -108,7 +113,10 @@ def inference_detector(det: Detector, img: np.ndarray):
     valid = out["valid"][0]
     masks = paste_masks(out["masks"][0][valid], scale_factor, img.shape[:2],
                         det.cfg.model.test.mask_thr)
-    return dict(boxes=out["boxes"][0][valid].cpu().numpy(),
-                scores=out["scores"][0][valid].cpu().numpy(),
-                labels=out["labels"][0][valid].cpu().numpy(),
-                masks=masks.cpu().numpy())
+    res = dict(boxes=out["boxes"][0][valid].cpu().numpy(),
+               scores=out["scores"][0][valid].cpu().numpy(),
+               labels=out["labels"][0][valid].cpu().numpy(),
+               masks=masks.cpu().numpy())
+    if "mask_scores" in out:   # SipMask++ rescoring: the segm ranking scores
+        res["mask_scores"] = out["mask_scores"][0][valid].cpu().numpy()
+    return res

@@ -35,6 +35,22 @@ def bbox_overlaps(bboxes1, bboxes2, is_aligned: bool = False,
     return overlap / (denom + eps)
 
 
+def jaccard_nop1(box_a, box_b):
+    """IoU without the +1 convention (YOLACT's), used by ``fast_nms``:
+    box_a (..., A, 4), box_b (..., B, 4) -> (..., A, B); 0 where the union
+    is not positive."""
+    max_xy = torch.minimum(box_a[..., :, None, 2:], box_b[..., None, :, 2:])
+    min_xy = torch.maximum(box_a[..., :, None, :2], box_b[..., None, :, :2])
+    wh = (max_xy - min_xy).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = ((box_a[..., 2] - box_a[..., 0]) *
+              (box_a[..., 3] - box_a[..., 1]))[..., :, None]
+    area_b = ((box_b[..., 2] - box_b[..., 0]) *
+              (box_b[..., 3] - box_b[..., 1]))[..., None, :]
+    union = area_a + area_b - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
 def distance2bbox(points, distance):
     """(l, t, r, b) distances at ``points`` (..., 2) [x, y] -> xyxy."""
     return torch.stack([points[..., 0] - distance[..., 0],

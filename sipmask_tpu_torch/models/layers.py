@@ -70,14 +70,17 @@ class GroupNorm32(nn.Module):
 
 class ConvModule(nn.Module):
     """conv -> (GroupNorm32) -> (ReLU), mmdet's ConvModule: the conv has a
-    bias only when there is no norm."""
+    bias only when there is no norm; padding defaults to 'same'."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
-                 norm: Optional[str] = None, act: bool = True):
+                 norm: Optional[str] = None, act: bool = True,
+                 padding: Optional[int] = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              kernel_size // 2, bias=norm is None)
+        self.conv = nn.Conv2d(
+            in_channels, out_channels, kernel_size, stride,
+            kernel_size // 2 if padding is None else padding,
+            bias=norm is None)
         self.gn = (GroupNorm32(out_channels, 32, 1e-5, act)
                    if norm == "gn" else None)
         self.act = act

@@ -4,12 +4,14 @@
 (avg factor num_pos + num_imgs), centerness-weighted -log IoU box loss on
 stride-normalised decoded boxes, centerness BCE, and the SP mask loss over a
 static top-``max_pos`` selection of each image's positives, ranked by the
-no-grad weighting sigmoid(cls score) x IoU(gt/2, det box). The benchmark
-fork's loss deltas, GIoU, SipMask++ rescoring and VIS tracking raise
-NotImplementedError.
+no-grad weighting sigmoid(cls score) x IoU(gt/2, det box), and SipMask++'s
+rescoring MSE (``loss_iou``). The benchmark fork's loss deltas, GIoU and VIS
+tracking raise NotImplementedError.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
@@ -18,6 +20,7 @@ from ..core.boxes import bbox_overlaps, center_size, distance2bbox
 from ..core.points import all_points
 from ..core.targets import centerness_target, fcos_targets
 from ..ops import mask_loss
+from ..ops.crop_split import assemble_masks
 
 
 def _flat(levels):
@@ -42,21 +45,25 @@ def _take(x, idx):
                         .expand(idx.shape + x.shape[2:]))
 
 
-def compute_losses(outputs, batch, cfg, max_pos: int = 256):
+def compute_losses(outputs, batch, cfg, max_pos: int = 256,
+                   rescore_fn: Optional[Callable] = None):
     """Args:
       outputs: the head's output dict (NCHW, ``SipMaskHead.forward``).
       batch: dict of tensors on the outputs' device: gt_bboxes (B, G, 4) in
         input coordinates, gt_labels (B, G) (0 = padding), gt_masks
         (B, G, H/2, W/2) {0, 1} at the basis resolution.
-      cfg: the JAX package's ``HeadConfig``.
+      cfg: a ``HeadConfig`` (``sipmask_tpu_torch.config``).
+      rescore_fn: ``SipMask.rescore``, needed iff ``cfg.rescoring``.
     Returns: dict of scalar losses (loss_cls, loss_bbox, loss_centerness,
-    loss_mask).
+    loss_mask, and loss_iou when rescoring).
     """
-    if (cfg.benchmark_loss_extras or cfg.rescoring or cfg.track
+    if (cfg.benchmark_loss_extras or cfg.track
             or cfg.iou_loss_mode != "log"):
         raise NotImplementedError(
             "the port's loss covers the mmdet image path: -log IoU, no "
-            "benchmark-fork extras, rescoring or tracking")
+            "benchmark-fork extras or tracking")
+    if cfg.rescoring and rescore_fn is None:
+        raise ValueError("a rescoring head needs rescore_fn")
     dev = outputs["feat_masks"].device
     featmap_sizes = [tuple(x.shape[2:]) for x in outputs["cls_scores"]]
     points, strides, ranges = all_points(featmap_sizes, cfg.strides,
@@ -131,5 +138,41 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256):
     pre = pre / bw / bh / n_sel[:, None]
     loss_mask = torch.where(sel_valid, pre * w_norm,
                             torch.zeros_like(pre)).sum() / b
-    return dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
-                loss_centerness=loss_centerness, loss_mask=loss_mask)
+    out = dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
+               loss_centerness=loss_centerness, loss_mask=loss_mask)
+    if cfg.rescoring:
+        out["loss_iou"] = _rescoring_loss(
+            feat_masks, batch["gt_masks"], cof_sel, box_sel, gtidx_sel,
+            sel_valid, torch.gather(lbl, 1, topi), rescore_fn)
+    return out
+
+
+def _rescoring_loss(feat_masks, gt_masks, cof_sel, box_sel, gtidx_sel,
+                    sel_valid, labels_sel, rescore_fn):
+    """SipMask++ rescoring MSE (the reference's sipmask_head.py:466-486).
+
+    The predicted masks are assembled with no gradient (kernel K6 on the
+    card); each IoU target compares the thresholded, box-cropped predicted
+    mask with the *uncropped* selected gt mask; weights keep
+    0.1 < iou <= 1 with gt area >= 100; total = 10 * sum(w * MSE) /
+    max(sum(w), 0.1).
+    """
+    b, k = gtidx_sel.shape
+    with torch.no_grad():
+        pred = assemble_masks(feat_masks.detach().permute(0, 2, 3, 1),
+                              cof_sel.detach(), box_sel)   # (B, H, W, K)
+        pred = pred.permute(0, 3, 1, 2).contiguous()       # (B, K, H, W)
+        rows = torch.arange(b, device=gtidx_sel.device)[:, None]
+        gt_m = gt_masks[rows, gtidx_sel.long()].float()     # (B, K, H, W)
+        mp = (pred > 0.4).float()
+        inter = (mp * gt_m).sum((2, 3))
+        gt_area = gt_m.sum((2, 3))
+        iou_t = inter / (mp.sum((2, 3)) + gt_area - inter + 0.1)
+        w = ((iou_t > 0.1) & (iou_t <= 1.0) & (gt_area >= 100)
+             & sel_valid).float()
+    scores = rescore_fn(pred.reshape(b * k, 1, *pred.shape[2:]))  # (BK, C)
+    pred_iou = torch.gather(scores, 1, labels_sel.reshape(b * k, 1))[:, 0]
+    mse = ((pred_iou - iou_t.reshape(b * k)) ** 2 * w.reshape(b * k)).sum()
+    # the reference divides by the count exactly; max(., 0.1) only guards
+    # the empty case
+    return mse * 10.0 / w.sum().clamp(min=0.1)

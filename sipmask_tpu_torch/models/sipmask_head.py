@@ -1,7 +1,12 @@
 """SipMask head (NCHW), the port of ``sipmask_tpu/models/sipmask_head.py``
-for images: FCOS towers, FeatureAlign, the SP coefficient branch and the
-basis-mask branch. The VIS track branch and SipMask++ rescoring are not
+for images: FCOS towers, FeatureAlign, the SP coefficient branch, the
+basis-mask branch and SipMask++'s mask rescoring. The VIS track branch is not
 ported yet.
+
+The JAX package's ``RescoringHead`` (a module of its own in flax) lives on
+the head here, as :meth:`SipMaskHead.rescore`, because the reference keeps
+its layers under the head's mmdet names (``bbox_head.convs_scoring.{i}.conv``,
+``bbox_head.mask_scoring``).
 
 Output dict (NCHW; ``models.loss.flatten_outputs`` turns the level lists
 into the JAX package's NHWC-flattened order):
@@ -47,7 +52,7 @@ class FeatureAlign(nn.Module):
 
 class SipMaskHead(nn.Module):
     def __init__(self, cfg):
-        """cfg: the JAX package's ``HeadConfig``."""
+        """cfg: a ``HeadConfig`` (``sipmask_tpu_torch.config``)."""
         super().__init__()
         c = self.cfg = cfg
         feat = c.feat_channels
@@ -65,6 +70,15 @@ class SipMaskHead(nn.Module):
         self.scales = nn.ModuleList(Scale(1.0) for _ in c.strides)
         self.sip_mask_lat0 = nn.Conv2d(feat * 3, 512, 1)
         self.sip_mask_lat = nn.Conv2d(512, c.num_bases, 3, padding=1)
+        if c.rescoring:
+            # six stride-2 3x3 VALID convs 1->16->16->16->32->64->128 (ReLU),
+            # a 1x1 to the classes (ReLU), a global max (reference
+            # sipmask_head.py:200-219)
+            chans = (1, 16, 16, 16, 32, 64, 128)
+            self.convs_scoring = nn.ModuleList(
+                ConvModule(chans[i], chans[i + 1], 3, stride=2, padding=0)
+                for i in range(6))
+            self.mask_scoring = nn.Conv2d(128, c.num_classes, 1)
 
     def forward(self, feats):
         """feats: the 5 FPN levels, each (B, C, h_l, w_l)."""
@@ -94,3 +108,11 @@ class SipMaskHead(nn.Module):
         return dict(cls_scores=cls_scores, bbox_preds=bbox_preds,
                     centernesses=centernesses, cof_preds=cof_preds,
                     feat_masks=feat_masks)
+
+    def rescore(self, masks):
+        """SipMask++ mask rescoring: masks (N, 1, h, w), detached assembled
+        masks with h, w >= 127 -> (N, num_classes) predicted mask IoU."""
+        x = masks.to(self.mask_scoring.weight.dtype)
+        for conv in self.convs_scoring:
+            x = conv(x)
+        return torch.relu(self.mask_scoring(x)).amax((2, 3))

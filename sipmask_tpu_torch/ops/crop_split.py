@@ -8,57 +8,33 @@ iff pw >= x1, ph >= y1, pw < x2 and ph < y2 (float compares); its quadrant
 is right of the half-split when pw >= x1 + (x2 - x1 + 0.1)/2 and below it
 when ph >= y1 + (y2 - y1 + 0.1)/2; coefficient planes are ordered
 [top-left, top-right, bottom-left, bottom-right]; outside the box the mask
-is 0. Plain PyTorch: the JAX decode uses its XLA path here too.
+is 0 (``mask_assembly.py`` holds the CropSplit arithmetic).
 """
 
 from __future__ import annotations
 
 import torch
 
-
-def _quadrant_bounds(boxes, h: int, w: int):
-    """(in_box, right, bottom), each (h, w, N) bool."""
-    pw = torch.arange(w, dtype=boxes.dtype, device=boxes.device)[None, :, None]
-    ph = torch.arange(h, dtype=boxes.dtype, device=boxes.device)[:, None, None]
-    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
-    in_box = (pw >= x1) & (pw < x2) & (ph >= y1) & (ph < y2)
-    right = pw >= (x1 + (x2 - x1 + 0.1) / 2)
-    bottom = ph >= (y1 + (y2 - y1 + 0.1) / 2)
-    return in_box, right, bottom
-
-
-def _colmix_logits(basis, cofs, boxes):
-    """Each pixel's quadrant logit: the coefficients are mixed per column
-    (0/1 weights, so exactly a select) before the two basis matmuls.
-
-    Returns (sel (h, w, N) f32 logits, in_box (h, w, N) bool).
-    """
-    h, w, nb = basis.shape
-    n = cofs.shape[0]
-    in_box, right, bottom = _quadrant_bounds(boxes.float(), h, w)
-    r = right[0].to(cofs.dtype)                   # (w, N): same on every row
-    c = cofs.reshape(n, 4, nb)
-    ctop = (1 - r)[:, :, None] * c[:, 0][None] + r[:, :, None] * c[:, 1][None]
-    cbot = (1 - r)[:, :, None] * c[:, 2][None] + r[:, :, None] * c[:, 3][None]
-    bt = basis.permute(1, 0, 2)                   # (w, h, nb)
-    mtop = torch.matmul(bt, ctop.transpose(1, 2)).permute(1, 0, 2)  # (h,w,N)
-    mbot = torch.matmul(bt, cbot.transpose(1, 2)).permute(1, 0, 2)
-    bm = bottom.float()                           # (h, 1, N): same per column
-    return mtop * (1 - bm) + mbot * bm, in_box
+from . import mask_assembly
+from .mask_assembly import _colmix_logits
 
 
 def assemble_masks(basis, cofs, boxes):
-    """SP mask assembly.
+    """SP mask assembly: kernel K6 on CUDA tensors, its plain colmix version
+    on CPU tensors (``mask_assembly.assemble_masks``).
 
     Args:
-      basis: (h, w, nb) basis masks on the stride-2 grid.
-      cofs: (N, 4*nb) per-detection quadrant coefficients [00|01|10|11].
-      boxes: (N, 4) xyxy in mask (stride-2) coordinates.
+      basis: (h, w, nb) basis masks on the stride-2 grid, or (B, h, w, nb).
+      cofs: (N, 4*nb) per-detection quadrant coefficients [00|01|10|11], or
+        (B, N, 4*nb).
+      boxes: (N, 4) xyxy in mask (stride-2) coordinates, or (B, N, 4).
     Returns:
-      (h, w, N) sigmoid probabilities, 0 outside the boxes.
+      (h, w, N) sigmoid probabilities, 0 outside the boxes, or (B, h, w, N).
     """
-    sel, in_box = _colmix_logits(basis, cofs, boxes)
-    return torch.sigmoid(sel) * in_box.to(sel.dtype)
+    if basis.dim() == 3:
+        return mask_assembly.assemble_masks(basis[None], cofs[None],
+                                            boxes[None])[0]
+    return mask_assembly.assemble_masks(basis, cofs, boxes)
 
 
 def mask_bce_loss_indexed(basis, cofs, boxes, gt_masks_g, gt_idx):

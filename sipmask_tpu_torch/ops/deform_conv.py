@@ -1,20 +1,43 @@
-"""Deformable convolution v1, the port of
-``sipmask_tpu/ops/deform_conv.py:deform_conv2d``, with kernel K2 (its
-backward) and the plain version.
+"""Deformable convolution v1/v2, the port of
+``sipmask_tpu/ops/deform_conv.py:deform_conv2d``, on two routes.
 
-On CUDA tensors :func:`deform_conv2d` is a ``torch.autograd.Function``: the
-forward samples with K1 (:func:`.deform_sample.deform_im2col`) and contracts
-the taps with one ``torch.matmul``, as the JAX package leaves its own
-contraction (``deform_conv.py:104-107``) to XLA outside the Pallas kernel;
-it saves ``cols``, as the JAX code saves ``sampT``. The backward is K2
+**The im2col route** (:func:`deform_conv2d`, FeatureAlign): on CUDA tensors a
+``torch.autograd.Function`` whose forward samples with K1
+(:func:`.deform_sample.deform_im2col`) and contracts the taps with one
+``torch.matmul``, as the JAX package leaves its own contraction
+(``deform_conv.py:104-107``) to XLA outside the Pallas kernel; it saves
+``cols``, as the JAX code saves ``sampT``. The backward is K2
 (:func:`deform_conv_backward`, ``csrc/deform_col2im.cu``), which computes
 every product of the TPU kernel itself: the two GEMMs, the col2im and the
 position gradients. On CPU tensors it is :func:`deform_conv2d_plain`,
 autograd through ``deform_im2col_plain``.
 
+**The sampled route** (:func:`deform_conv2d_rows`, the SipMask++ backbone's
+``DeformConvPack``, and :func:`modulated_deform_conv2d`): the JAX package's
+``sample_bilinear_rows`` path (``deform_conv.py:193-215``). On CUDA a
+``torch.autograd.Function``: the forward samples with K5
+(:func:`.deform_sample.deform_rows`, p-major rows) and contracts with one
+``torch.matmul`` (B*P, K*C) x (K*C, O); the backward forms dsampled = dy*W^T
+and dW = sampled^T*dy with ``torch.matmul``, as the JAX package does outside
+any Pallas kernel on this route, then K5c
+(:func:`.deform_sample.deform_rows_backward`) for dX and d offsets. A DCNv2
+modulation mask multiplies the sampled taps outside the kernel, as in JAX
+(``deform_conv.py:200-202``). x arrives NCHW and the route wants
+channels-last rows, so each call permutes x once (a read and a write of x,
+a ninth of the sampled tensor it produces) and permutes the (B, P, O)
+product back to NCHW.
+
+Routing is by module, not by a TPU budget: FeatureAlign takes the im2col
+route and ``DeformConvPack`` the sampled route. In the JAX package the
+backbone's layer2 DCN (Cg = O = 128) fits the fused core's VMEM budget and
+takes the kc-major route (``deform_conv.py:139-146``), while layer3 and
+layer4 take the sampled one; the port runs all three on the sampled route:
+the same function, summed in another order.
+
 Layouts (NCHW, f32): x (B, C, H, W); offsets (B, G*K*2, Ho, Wo) in the CUDA
-layout ([dy, dx] per tap, group-major), K = kh*kw; weight (O, C, kh, kw);
-w2 (O, G*K*Cg), the weight in the row order of ``cols``.
+layout ([dy, dx] per tap, group-major), K = kh*kw; mask (B, G*K, Ho, Wo);
+weight (O, C, kh, kw); w2 (O, G*K*Cg), the weight in the row order of
+``cols``.
 """
 
 from __future__ import annotations
@@ -178,3 +201,130 @@ def deform_conv2d(x, offsets, weight, *, stride: int = 1, padding: int = 1,
                             _w2(weight, deform_groups).contiguous(), (kh, kw),
                             stride, padding, dilation, deform_groups)
     return out.reshape(x.shape[0], weight.shape[0], *offsets.shape[2:])
+
+
+# ------------------------------------------------------- the sampled route
+
+def _rows_inputs(x, offsets, weight, stride, padding, dilation,
+                 deform_groups, mask):
+    """NCHW inputs -> (x_rows (B*G, H*W, Cg), pyx (B*G, K, P, 2),
+    w2g (G, K*Cg, O), mask (B, G, P, K) or None), differentiable."""
+    _check_weight(x, weight)
+    o, c, kh, kw = weight.shape
+    b, _, h, w = x.shape
+    g, k = deform_groups, kh * kw
+    deform_sample._check(x, offsets, kh, kw, stride, padding, dilation, g)
+    cg = c // g
+    x_rows = x.permute(0, 2, 3, 1).reshape(b, h * w, g, cg)
+    x_rows = x_rows.permute(0, 2, 1, 3).reshape(b * g, h * w, cg)
+    pyx = deform_sample.positions(offsets, kh, kw, stride, padding,
+                                  dilation, g)
+    w2g = weight.reshape(o, g, cg, k).permute(1, 3, 2, 0).reshape(
+        g, k * cg, o)
+    m = None
+    if mask is not None:
+        p = pyx.shape[2]
+        if tuple(mask.shape) != (b, g * k, *offsets.shape[2:]):
+            raise ValueError(f"mask {tuple(mask.shape)} != "
+                             f"{(b, g * k, *offsets.shape[2:])}")
+        m = mask.float().reshape(b, g, k, p).permute(0, 1, 3, 2)
+    return x_rows.contiguous(), pyx.contiguous(), w2g.contiguous(), m
+
+
+def _contract(sampled, w2g, b: int):
+    """sampled (B*G, P, K, Cg) . w2g (G, K*Cg, O) -> (B, P, O)."""
+    g, kc, o = w2g.shape
+    p = sampled.shape[1]
+    out = torch.matmul(sampled.reshape(b, g, p, kc), w2g)   # (B, G, P, O)
+    return out[:, 0] if g == 1 else out.sum(1)
+
+
+def _modulate(sampled, m):
+    """sampled (B*G, P, K, Cg) times the per-tap mask (B, G, P, K)."""
+    n, p, k, cg = sampled.shape
+    return (sampled.reshape(m.shape + (cg,)) * m[..., None]).reshape(
+        n, p, k, cg)
+
+
+def _to_nchw(out, b: int, ho: int, wo: int):
+    return out.permute(0, 2, 1).reshape(b, out.shape[2], ho, wo)
+
+
+def deform_conv2d_rows_plain(x, offsets, weight, *, stride: int = 1,
+                             padding: int = 1, dilation: int = 1,
+                             deform_groups: int = 1, mask=None):
+    """Plain PyTorch sampled route: :func:`deform_rows_plain`, the optional
+    modulation and one ``torch.matmul``, differentiable by autograd."""
+    x_rows, pyx, w2g, m = _rows_inputs(x, offsets, weight, stride, padding,
+                                       dilation, deform_groups, mask)
+    h, w = x.shape[2:]
+    s = deform_sample.deform_rows_plain(x_rows, pyx, h, w)
+    if m is not None:
+        s = _modulate(s, m)
+    return _to_nchw(_contract(s, w2g, x.shape[0]), x.shape[0],
+                    *offsets.shape[2:])
+
+
+class _DeformConvRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_rows, pyx, w2g, m, h, w, b):
+        s = deform_sample.deform_rows(x_rows, pyx, h, w)   # (N, P, K, Cg)
+        sm = _modulate(s, m) if m is not None else s
+        ctx.save_for_backward(x_rows, pyx, w2g, sm, m,
+                              s if m is not None else None)
+        ctx.conf = (h, w, b)
+        return _contract(sm, w2g, b)                        # (B, P, O)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x_rows, pyx, w2g, sm, m, s = ctx.saved_tensors
+        h, w, b = ctx.conf
+        g, kc, o = w2g.shape
+        n, p, k, cg = sm.shape
+        dout = dout.contiguous()
+        # dsampled = dy . W^T and dW = sampled^T . dy, one matmul each
+        dsm = torch.matmul(dout[:, None], w2g.transpose(1, 2))  # (B,G,P,KC)
+        smg = sm.reshape(b, g, p, kc)
+        dy = dout.reshape(b * p, o)
+        dw2g = torch.stack([smg[:, j].reshape(b * p, kc).t() @ dy
+                            for j in range(g)])                 # (G, KC, O)
+        dsm = dsm.reshape(n, p, k, cg)
+        dm = None
+        if m is not None:
+            dm = (dsm * s).sum(-1).reshape(m.shape)
+            dsm = _modulate(dsm, m)
+        dx_rows, dpyx = deform_sample.deform_rows_backward(
+            x_rows, pyx, dsm.contiguous(), h, w)
+        return dx_rows, dpyx, dw2g, dm, None, None, None
+
+
+def deform_conv2d_rows(x, offsets, weight, *, stride: int = 1,
+                       padding: int = 1, dilation: int = 1,
+                       deform_groups: int = 1, mask=None):
+    """Deformable conv on the sampled route, NCHW, differentiable in x,
+    offsets, weight (and mask).
+
+    Args:
+      x: (B, C, H, W) f32.
+      offsets: (B, G*K*2, Ho, Wo) in the CUDA layout, K = kh*kw.
+      weight: (O, C, kh, kw) OIHW.
+      mask: optional (B, G*K, Ho, Wo) modulation (sigmoid already applied),
+        making this DCNv2.
+    Returns:
+      (B, O, Ho, Wo).
+    """
+    if x.device.type == "cpu":
+        return deform_conv2d_rows_plain(
+            x, offsets, weight, stride=stride, padding=padding,
+            dilation=dilation, deform_groups=deform_groups, mask=mask)
+    x_rows, pyx, w2g, m = _rows_inputs(x, offsets, weight, stride, padding,
+                                       dilation, deform_groups, mask)
+    h, w = x.shape[2:]
+    out = _DeformConvRows.apply(x_rows, pyx, w2g, m, h, w, x.shape[0])
+    return _to_nchw(out, x.shape[0], *offsets.shape[2:])
+
+
+def modulated_deform_conv2d(x, offsets, mask, weight, **kw):
+    """DCNv2 (the JAX package's ``modulated_deform_conv2d``): ``mask`` is the
+    (B, G*K, Ho, Wo) post-sigmoid modulation; the sampled route."""
+    return deform_conv2d_rows(x, offsets, weight, mask=mask, **kw)

@@ -1,5 +1,6 @@
-"""Exact multiclass hard NMS, the port of
-``sipmask_tpu/ops/nms.py:multiclass_nms_idx`` (its hard path).
+"""Exact multiclass hard NMS and YOLACT's fast NMS, the ports of
+``sipmask_tpu/ops/nms.py:multiclass_nms_idx`` (its hard path) and
+``fast_nms``.
 
 Plain PyTorch: it is not a Pallas kernel in the JAX package either. The
 algorithm is the same wave-batched greedy over the full (N, C) score matrix
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.boxes import bbox_overlaps
+from ..core.boxes import bbox_overlaps, jaccard_nop1
 
 NEG = -1.0e4
 
@@ -85,5 +86,45 @@ def multiclass_nms_idx(boxes, scores, score_thr: float, iou_thr: float,
         scores=torch.where(valid, ks, torch.zeros_like(ks)),
         labels=torch.where(valid, flat // width, torch.full_like(flat, -1)),
         idxs=kr,
+        valid=valid,
+    )
+
+
+def fast_nms(boxes, scores_cn, cofs, iou_thr: float = 0.5, top_k: int = 200,
+             score_thr: float = 0.1, max_out: int = 100):
+    """YOLACT-style matrix NMS (the reference's sipmask_head.py:868-910).
+
+    Per class, the top ``top_k`` scores; a box is dropped when a
+    higher-scored box of its class overlaps it by more than ``iou_thr``
+    (no +1 IoU, ``jaccard_nop1``) or its score is at most ``score_thr``;
+    then the global top ``max_out``. Both top-k's are stable sorts, so ties
+    go lower index first as with ``jax.lax.top_k``.
+
+    Args:
+      boxes: (N, 4); scores_cn: (C, N) class-major scores (already times
+        centerness at the call site); cofs: (N, D) payload gathered along.
+    Returns dict, each of length max_out: boxes (., 4), scores, labels
+    (0-based, -1 when empty), cofs (., D), idxs, valid.
+    """
+    c, n = scores_cn.shape
+    k = min(top_k, n)
+    scores_s, idx = _top(scores_cn, k)                    # (C, k)
+    b = boxes[idx.reshape(-1)].reshape(c, k, 4)
+    iou = torch.triu(jaccard_nop1(b, b), diagonal=1)      # (C, k, k)
+    iou_max = iou.max(dim=1).values   # max IoU with a higher-scored box
+    keep = (iou_max <= iou_thr) & (scores_s > score_thr)
+    masked = torch.where(keep, scores_s,
+                         torch.full_like(scores_s, NEG)).reshape(-1)
+    out_scores, out_flat = _top(masked, max_out)
+    picked = idx.reshape(-1)[out_flat]
+    valid = out_scores > NEG / 2
+    vf = valid[:, None].to(boxes.dtype)
+    return dict(
+        boxes=boxes[picked] * vf,
+        scores=torch.where(valid, out_scores, torch.zeros_like(out_scores)),
+        labels=torch.where(valid, out_flat // k, torch.full_like(out_flat,
+                                                                 -1)),
+        cofs=cofs[picked] * vf,
+        idxs=torch.where(valid, picked, torch.zeros_like(picked)),
         valid=valid,
     )

@@ -1,27 +1,33 @@
 """Times of the port on one CUDA card, the numbers behind ``PERF.md``:
 
     python -m sipmask_tpu_torch.tools.measure serve k4a train
+    python -m sipmask_tpu_torch.tools.measure --config \
+        sipmaskpp_r101_fpn_ssd_6x serve train
 
 from the root of the checkout, with any of the three modes, in the order
 given:
 
-- ``serve``: wall ms of single 800x1333 requests through
-  ``inference_detector`` and of batches of 4 at 800x1344 through
-  ``Detector.infer``, each ending in a synchronise;
+- ``serve``: wall ms of single requests (800x1333; 544x544 for the
+  fixed-size presets) through ``inference_detector`` and of batches of
+  ``imgs_per_device`` (4; 8) through ``Detector.infer``, each ending in a
+  synchronise, then a ``torch.profiler`` trace of two batches: kernel time
+  by owner and the device's idle share;
 - ``k4a``: the GroupNorm+ReLU forward (K4a) over one GN site of each of the
   five levels at batch 4, as in serving (no gradient): CUDA-event ms of the
   sweep, the host's enqueue time of a sweep, and the device time of its
   kernels in a ``torch.profiler`` trace; first through ``gn_relu`` (the
   model's entry point, an autograd Function), then through the bare
   launcher ``gn_relu_forward`` with and without the saved statistics;
-- ``train``: warm train steps at 800x1344, batch 4 (median), their
-  sections (forward, loss, backward, optimizer), the peak memory, and a
-  ``torch.profiler`` trace of two steps: kernel time by owner and the
-  device's idle share of the wall.
+- ``train``: warm train steps at the preset's training shapes (800x1344,
+  batch 4; 576x576, batch 8) (median), their sections (forward, loss,
+  backward, optimizer), the peak memory, and a ``torch.profiler`` trace of
+  two steps: kernel time by owner and the device's idle share of the wall.
 
-``sipmask_r50_fpn_gn_1x`` at full width with random weights from seed 0,
-bumped as ``chip_smoke.py`` bumps them; f32 with TF32 off and cuDNN's
-benchmark mode on. The first line is the card's name and power limit.
+``--config`` names the preset, ``sipmask_r50_fpn_gn_1x`` by default; full
+width, random weights from seed 0, bumped as ``chip_smoke.py`` bumps them
+(and, for a norm-free head, frozen BN calibrated on the batch); f32 with
+TF32 off and cuDNN's benchmark mode on. The first line is the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -36,8 +42,7 @@ import torch
 
 CONFIG = "sipmask_r50_fpn_gn_1x"
 SEED = 0
-BATCH = 4
-IMAGE_HW = (800, 1333)
+BATCH = 4   # k4a: the hi-acc serving batch
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # 800x1344
 
 
@@ -65,30 +70,50 @@ def kernel_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def serve(dev, reps):
-    from ..apis.inference import inference_detector, init_detector, preprocess
-    from ..utils.demo_inputs import bump_weights
+def prepare(model, cfg, images, training=False):
+    """Seed-0 weights that detect, as ``chip_smoke.py`` makes them."""
+    from ..utils.demo_inputs import bump_weights, calibrate_frozen_bn
+    bump_weights(model, torch.Generator().manual_seed(SEED), training)
+    if cfg.model.head.norm is None:
+        calibrate_frozen_bn(model.backbone, images)
 
-    det = init_detector(CONFIG, dev, seed=SEED)
-    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+
+def serve(dev, reps, config):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..apis.inference import inference_detector, init_detector, preprocess
+
+    det = init_detector(config, dev, seed=SEED)
+    batch = det.cfg.train.imgs_per_device
+    d = det.cfg.data
+    image_hw = d.fixed_size or (min(d.img_scale), max(d.img_scale))
     rng = np.random.RandomState(SEED)
-    imgs = [(rng.rand(*IMAGE_HW, 3) * 255).astype(np.uint8)
-            for _ in range(BATCH)]
-    for im in imgs[:2]:   # cuDNN times its algorithms at the first shape
-        inference_detector(det, im)
-    report("request (bs 1, inference_detector)",
-           [wall_ms(lambda: inference_detector(det, imgs[i % BATCH]))
-            for i in range(reps)])
+    imgs = [(rng.rand(*image_hw, 3) * 255).astype(np.uint8)
+            for _ in range(batch)]
     prepped = [preprocess(im, det.cfg) for im in imgs]
     images = torch.stack([torch.from_numpy(p[0]).permute(2, 0, 1)
                           for p in prepped]).to(dev)
     shapes = torch.from_numpy(np.stack([p[1] for p in prepped]))
     scales = torch.from_numpy(np.stack([p[2] for p in prepped]))
+    prepare(det.model, det.cfg, images)
+    for im in imgs[:2]:   # cuDNN times its algorithms at the first shape
+        inference_detector(det, im)
+    report(f"request (bs 1, {image_hw}, inference_detector)",
+           [wall_ms(lambda: inference_detector(det, imgs[i % batch]))
+            for i in range(reps)])
     for _ in range(2):
         det.infer(images, shapes, scales)
-    report(f"batch of {BATCH} (Detector.infer)",
+    torch.cuda.reset_peak_memory_stats()
+    report(f"batch of {batch} (Detector.infer)",
            [wall_ms(lambda: det.infer(images, shapes, scales))
             for _ in range(reps)])
+    log(f"peak memory of the batches: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = wall_ms(lambda: [det.infer(images, shapes, scales)
+                                for _ in range(2)])
+    owners(prof, wall, "batch")
 
 
 def k4a(dev, iters=20):
@@ -153,30 +178,61 @@ def event_and_host_ms(sweep, iters):
 # kernel-name fragments of the port's kernels -> their ids
 OWNERS = {"deform_im2col": "K1", "sgemm_kernel": "K2", "fold_partials": "K2",
           "deform_col2im": "K2", "mask_bce": "K3", "fold_slices": "K3",
-          "gn_stats": "K4a", "gn_apply": "K4a", "gn_bwd": "K4b"}
+          "gn_stats": "K4a", "gn_apply": "K4a", "gn_bwd": "K4b",
+          "deform_rows_fwd": "K5", "deform_rows_bwd": "K5c",
+          "assemble_masks": "K6"}
 CUDNN = ("cudnn", "xmma", "convolve", "winograd", "implicit", "dgrad",
-         "wgrad")
+         "wgrad", "gemm")
 
 
-def train(dev, reps):
+def owners(prof, wall, unit):
+    """Log the device's idle share over the profiled two ``unit``s and the
+    kernel time per ``unit`` by owner and by kernel name."""
+    kern = kernel_events(prof)
+    busy = sum(e.device_time for e in kern) / 1e3
+    log(f"profiled 2 x {unit}: wall {wall:.1f} ms, kernel time {busy:.1f} "
+        f"ms, device idle share {1 - busy / wall:.3f}")
+    by_name, by_owner = {}, {}
+    for e in kern:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time / 2e3, n + 1)
+        owner = next((v for k, v in OWNERS.items() if k in e.name), None)
+        if owner is None:
+            owner = ("cuDNN/cuBLAS convolutions and GEMMs"
+                     if any(k in e.name for k in CUDNN)
+                     else "other PyTorch kernels")
+        o_ms, o_n = by_owner.get(owner, (0.0, 0))
+        by_owner[owner] = (o_ms + e.device_time / 2e3, o_n + 1)
+    log(f"kernel ms (launches) per {unit} by owner: " + ", ".join(
+        f"{k} {ms:.3f} ({n // 2})" for k, (ms, n) in sorted(
+            by_owner.items(), key=lambda kv: -kv[1][0])))
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:20]:
+        log(f"  {ms:9.3f} ms/{unit} {n // 2:5d} launches/{unit}  "
+            f"{name[:100]}")
+
+
+def train(dev, reps, config):
     from torch.profiler import ProfilerActivity, profile
 
     from ..config import get_config
     from ..models.loss import compute_losses
     from ..train import create_train_state, make_train_step
-    from ..utils.demo_inputs import bump_weights, train_batch
+    from ..utils.demo_inputs import train_batch_for
 
-    cfg = get_config(CONFIG)
+    cfg = get_config(config)
     state = create_train_state(cfg, dev, seed=SEED)
-    bump_weights(state.model, torch.Generator().manual_seed(SEED))
-    batch = train_batch(BATCH, 800, 1344, cfg.data.max_gts, SEED, dev)
+    batch = train_batch_for(cfg, SEED, dev)
+    prepare(state.model, cfg, batch["images"], training=True)
+    rescore = state.model.rescore if cfg.model.head.rescoring else None
+    log(f"train batch {tuple(batch['images'].shape)}")
     step = make_train_step(state, cfg)
     log(f"train step 0 (cuDNN's algorithm search): "
         f"{wall_ms(lambda: step(batch)):.1f} ms")
     for _ in range(2):
         step(batch)
     torch.cuda.reset_peak_memory_stats()
-    report(f"train step (bs {BATCH}, warm)",
+    report(f"train step (bs {cfg.train.imgs_per_device}, warm)",
            [wall_ms(lambda: step(batch)) for _ in range(reps)])
     log(f"peak memory of the warm steps: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -190,7 +246,8 @@ def train(dev, reps):
         out["forward"] = t() - t0
         t0 = t()
         total = sum(compute_losses(heads, batch, cfg.model.head,
-                                   max_pos=cfg.train.max_pos).values())
+                                   max_pos=cfg.train.max_pos,
+                                   rescore_fn=rescore).values())
         torch.cuda.synchronize()
         out["loss"] = t() - t0
         state.optimizer.zero_grad(set_to_none=True)
@@ -211,31 +268,14 @@ def train(dev, reps):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = wall_ms(lambda: [step(batch) for _ in range(2)])
-    kern = kernel_events(prof)
-    busy = sum(e.device_time for e in kern) / 1e3
-    log(f"profiled 2 steps: wall {wall:.1f} ms, kernel time {busy:.1f} ms, "
-        f"device idle share {1 - busy / wall:.3f}")
-    by_name, by_owner = {}, {}
-    for e in kern:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.device_time / 2e3, n + 1)
-        owner = next((v for k, v in OWNERS.items() if k in e.name), None)
-        if owner is None:
-            owner = ("cuDNN/cuBLAS convolutions and GEMMs"
-                     if any(k in e.name for k in CUDNN)
-                     else "other PyTorch kernels")
-        by_owner[owner] = by_owner.get(owner, 0.0) + e.device_time / 2e3
-    log("kernel ms per step by owner: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in sorted(by_owner.items(),
-                                          key=lambda kv: -kv[1])))
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                                )[:20]:
-        log(f"  {ms:9.3f} ms/step {n // 2:5d} launches/step  {name[:100]}")
+    owners(prof, wall, "step")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("modes", nargs="+", choices=("serve", "k4a", "train"))
+    ap.add_argument("--config", default=CONFIG,
+                    help="the preset to measure")
     ap.add_argument("--reps", type=int, default=7,
                     help="timed repetitions of a request, batch or step")
     args = ap.parse_args(argv)
@@ -252,7 +292,8 @@ def main(argv=None):
         if mode == "k4a":
             k4a(dev)
         else:
-            {"serve": serve, "train": train}[mode](dev, args.reps)
+            {"serve": serve, "train": train}[mode](dev, args.reps,
+                                                   args.config)
 
 
 if __name__ == "__main__":

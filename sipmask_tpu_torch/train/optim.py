@@ -18,7 +18,7 @@ import torch
 def lr_schedule(cfg, steps_per_epoch: int):
     """The learning rate as a function of the global step (0-based).
 
-    cfg: the JAX package's ``OptimConfig``."""
+    cfg: an ``OptimConfig`` (``sipmask_tpu_torch.config``)."""
     milestones = [e * steps_per_epoch for e in cfg.lr_steps]
 
     def sched(step: int) -> float:

@@ -27,7 +27,8 @@ def create_train_state(cfg, device="cuda", seed: int = 0,
     """Build the model with the reference's random init from ``seed`` (or
     load ``state_dict``), move it to ``device``, and make its optimizer.
 
-    cfg: the JAX package's ``SipMaskConfig``."""
+    cfg: a ``SipMaskConfig`` (``sipmask_tpu_torch.config``); SipMask++'s
+    rescoring layers are built, initialised and trained with the rest."""
     model = build_model(cfg.model)
     if state_dict is None:
         init_weights(model, torch.Generator().manual_seed(seed))

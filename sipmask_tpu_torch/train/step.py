@@ -1,6 +1,7 @@
 """The train step, the port of ``sipmask_tpu/train/step.py``: forward,
-``compute_losses``, backward of the summed ``loss*`` terms, then the SGD
-update with the scheduled lr."""
+``compute_losses`` (with SipMask++'s rescoring head, whose ``loss_iou``
+joins the sum), backward of the summed ``loss*`` terms, then the SGD update
+with the scheduled lr."""
 
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ def make_train_step(state: TrainState, cfg):
     def train_step(batch):
         set_lr(state.optimizer, state.schedule(state.step))
         out = state.model(batch["images"])
-        losses = compute_losses(out, batch, head_cfg,
-                                max_pos=cfg.train.max_pos)
+        losses = compute_losses(
+            out, batch, head_cfg, max_pos=cfg.train.max_pos,
+            rescore_fn=state.model.rescore if head_cfg.rescoring else None)
         total = sum(v for k, v in losses.items() if k.startswith("loss"))
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()

@@ -4,7 +4,11 @@ initialisation.
 ``params_from_jax`` is the counterpart of
 ``sipmask_tpu/utils/torch_convert.py:flax_to_torch_names`` without flax:
 the port's modules carry the reference's mmdet ``state_dict`` names, so the
-JAX trees map onto them with the same rules.
+JAX trees map onto them with the same rules (a DCN block's
+``layer{s}_{b}/conv2/{kernel,conv_offset}`` becomes
+``layer{s}.{b}.conv2.{weight,conv_offset}``, and SipMask++'s
+``rescoring/*`` lands on the head as ``convs_scoring.{i}.conv`` and
+``mask_scoring``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from ..models.layers import FrozenBatchNorm2d, GroupNorm32, Scale
+from ..models.resnet import DeformConvPack
 
 
 def _flatten(tree, prefix=()):
@@ -44,6 +49,9 @@ def _jax_path_to_torch(name: str) -> str:
     n = n.replace("head/feat_align/norm/", "bbox_head.feat_align.norm.")
     n = n.replace("head/feat_align/kernel",
                   "bbox_head.feat_align.conv_adaption.weight")
+    n = re.sub(r"^rescoring/convs_scoring_(\d)/",
+               r"bbox_head.convs_scoring.\1.conv.", n)
+    n = n.replace("rescoring/mask_scoring/", "bbox_head.mask_scoring.")
     n = re.sub(r"^head/", "bbox_head.", n)
     n = re.sub(r"^backbone/", "backbone.", n)
     n = n.replace("/", ".").replace(".kernel", ".weight")
@@ -77,21 +85,27 @@ def grads_from_jax(grads,
     return params_from_jax(grads, {}, dtype)
 
 
+def _kaiming(w, gen: torch.Generator):
+    """kaiming normal, fan_out, as mmcv's kaiming_init."""
+    o, _, kh, kw = w.shape
+    w.normal_(0.0, math.sqrt(2.0 / (o * kh * kw)), generator=gen)
+
+
 def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator):
     """The reference's init per conv (``layers.conv_init`` specs)."""
     w = conv.weight
     o, i, kh, kw = w.shape
     with torch.no_grad():
-        if name.startswith("backbone."):
-            # kaiming, fan_out, as mmcv's kaiming_init
-            w.normal_(0.0, math.sqrt(2.0 / (o * kh * kw)), generator=gen)
+        if name.endswith("conv_offset"):   # FeatureAlign's and DCN's
+            w.zero_()
+        elif name.startswith("backbone.") or ".convs_scoring." in name:
+            _kaiming(w, gen)
         elif name.startswith("neck."):
             bound = math.sqrt(6.0 / ((i + o) * kh * kw))   # xavier uniform
             w.uniform_(-bound, bound, generator=gen)
-        elif name.endswith("feat_align.conv_offset"):
-            w.zero_()
         else:
-            std = 0.001 if name.endswith("sip_cof") else 0.01
+            std = {"sip_cof": 0.001, "mask_scoring": 0.001}.get(
+                name.rsplit(".", 1)[-1], 0.01)
             w.normal_(0.0, std, generator=gen)
         if conv.bias is not None:
             conv.bias.zero_()
@@ -101,15 +115,19 @@ def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights with the reference's schemes: kaiming fan_out for the
-    backbone, xavier-uniform for the FPN, normal(0.01) for the head
-    (0.001 for ``sip_cof``), the focal prior bias on ``fcos_cls``, zero
-    ``conv_offset``, identity frozen BN and GroupNorm, unit scales.
+    backbone (DCN weights included) and the rescoring convs, xavier-uniform
+    for the FPN, normal(0.01) for the head (0.001 for ``sip_cof`` and
+    ``mask_scoring``), the focal prior bias on ``fcos_cls``, zero
+    ``conv_offset`` weights and biases, identity frozen BN and GroupNorm,
+    unit scales.
     Draws from ``generator`` in module order, so a seed fixes the weights
     on any device."""
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, nn.Conv2d):
                 _conv_init(name, m, generator)
+            elif isinstance(m, DeformConvPack):
+                _kaiming(m.weight, generator)
             elif isinstance(m, GroupNorm32):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

@@ -3,16 +3,17 @@
 
 numpy only, drawing in the same order as the JAX package's ``demo_batch``, so
 the same seed gives the same arrays in both packages. ``batch_to_tensors``
-moves such a batch onto a device in the port's layout. ``train_batch`` and
-``bump_weights`` give the full-width runs on the card (``chip_smoke.py``,
-``tools/measure.py``) their batch and a randomly initialised model that
-detects.
+moves such a batch onto a device in the port's layout. ``train_batch``,
+``train_batch_for``, ``bump_weights`` and ``calibrate_frozen_bn`` give the
+full-width runs on the card (``chip_smoke.py``, ``tools/measure.py``) their
+batch and a randomly initialised model that detects.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def demo_batch(batch_size=2, height=64, width=64, max_gts=8, num_gts=None,
@@ -76,14 +77,104 @@ def train_batch(batch_size, height, width, max_gts, seed, device):
                              for k in parts[0]}, device)
 
 
-def bump_weights(model, gen):
+def train_batch_for(cfg, seed, device):
+    """``train_batch`` at a preset's training shapes: ``imgs_per_device``
+    images at ``data.train_size`` (else ``fixed_size``; else the keep-ratio
+    scale padded to ``size_divisor``, 800x1344 for the hi-acc presets), with
+    ``data.max_gts`` gt slots."""
+    d = cfg.data
+    if d.train_size is not None or d.fixed_size is not None:
+        h, w = d.train_size or d.fixed_size
+    else:
+        div = d.size_divisor
+        h, w = (-(-min(d.img_scale) // div) * div,
+                -(-max(d.img_scale) // div) * div)
+    return train_batch(cfg.train.imgs_per_device, h, w, d.max_gts, seed,
+                       device)
+
+
+def bump_weights(model, gen, training: bool = False):
     """Random non-zero conv_offset weights (a zero-init deformable conv is
     a plain 3x3 conv) and cls/reg bias bumps (at the focal prior every score
     is ~0.01, under score_thr, and no detection reaches NMS), so that boxes
-    are not degenerate and the mask loss is non-zero."""
+    are not degenerate and the mask loss is non-zero. ``training`` keeps
+    the cls bias at -2.5 for every preset: the fast-NMS bump below is for
+    serving, and in training it would score every negative point high
+    (a focal loss of ~100 at R101's first step, and a diverging second).
+
+    SipMask++ also gets: DCN conv_offset weights of std 0.25/sqrt(fan_in)
+    and biases of std 0.5 (offsets of about half a pixel on unit-scale
+    inputs, see :func:`calibrate_frozen_bn`; each DCN block's positions
+    depend on the features the earlier ones sampled, so larger offset
+    weights amplify rounding: at 1/sqrt(fan_in) f32 rounding grows to 3e-3
+    of C5's scale through R101's eight layer3 DCN blocks, at 2/sqrt(fan_in)
+    to 9e-2), a cls bias of -1 (the fast-NMS threshold
+    applies to score x centerness, about 0.13 there), and rescoring-head
+    weights of std 0.1 and bias 0.2 (at its 0.001 init every predicted mask
+    IoU is ~0 and mask_scores would all be 0)."""
     head = model.bbox_head
+    fast = (model.cfg.test.use_fast_nms or model.cfg.head.ssd_flag) and \
+        not training
     with torch.no_grad():
         w = head.feat_align.conv_offset.weight
         w.copy_(torch.randn(w.shape, generator=gen).to(w.device) * 0.5)
-        head.fcos_cls.bias.fill_(-2.5)
+        head.fcos_cls.bias.fill_(-1.0 if fast else -2.5)
         head.fcos_reg.bias.fill_(2.0)
+        for name, m in model.backbone.named_modules():
+            if name.endswith("conv2") and hasattr(m, "conv_offset"):
+                off = m.conv_offset
+                fan_in = off.weight[0].numel()
+                off.weight.copy_(torch.randn(off.weight.shape, generator=gen)
+                                 .to(w.device) * (0.25 / fan_in ** 0.5))
+                off.bias.copy_(torch.randn(off.bias.shape, generator=gen)
+                               .to(w.device) * 0.5)
+        if model.cfg.head.rescoring:
+            ms = head.mask_scoring
+            ms.weight.copy_(torch.randn(ms.weight.shape, generator=gen)
+                            .to(w.device) * 0.1)
+            ms.bias.fill_(0.2)
+
+
+@torch.no_grad()
+def calibrate_frozen_bn(backbone, images):
+    """Set every frozen BatchNorm of ``backbone`` to the batch statistics of
+    its conv's output on ``images`` (weight 1, bias 0), block by block, as a
+    pretrained backbone's BN would standardise them. With random weights
+    and identity BN the activations of a deep ResNet grow ~3x per block
+    (~5e6 at R101's C5), which saturates every score of a norm-free head.
+    Each channel's variance gets the layer's mean variance added, so that a
+    channel with almost no spread is not scaled up by orders of magnitude:
+    without that floor, f32 rounding grows ~1000x through R101.
+    """
+    from ..models.layers import FrozenBatchNorm2d
+
+    def fit(bn: FrozenBatchNorm2d, raw):
+        bn.weight.fill_(1.0)
+        bn.bias.zero_()
+        bn.running_mean.copy_(raw.mean((0, 2, 3)))
+        var = raw.var((0, 2, 3), unbiased=False)
+        bn.running_var.copy_(var + var.mean())
+        return raw
+
+    def conv(x, m):
+        return F.conv2d(x, m.weight, None, m.stride, m.padding)
+
+    bb = backbone
+    x = torch.relu(_bn(fit(bb.bn1, conv(images, bb.conv1)), bb.bn1))
+    x = F.max_pool2d(x, 3, 2, 1)
+    for stage in range(4):
+        for blk in getattr(bb, f"layer{stage + 1}"):
+            out = torch.relu(_bn(fit(blk.bn1, conv(x, blk.conv1)), blk.bn1))
+            raw2 = (blk.conv2(out) if hasattr(blk.conv2, "conv_offset")
+                    else conv(out, blk.conv2))
+            out = torch.relu(_bn(fit(blk.bn2, raw2), blk.bn2))
+            out = _bn(fit(blk.bn3, conv(out, blk.conv3)), blk.bn3)
+            if blk.downsample is not None:
+                ds = blk.downsample
+                x = _bn(fit(ds[1], conv(x, ds[0])), ds[1])
+            x = torch.relu(out + x)
+
+
+def _bn(x, bn):
+    scale, bias = bn.affine()
+    return x * scale[:, None, None] + bias[:, None, None]

@@ -296,3 +296,101 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
             x, 4, True)
     with pytest.raises(ValueError, match="stats"):
         gn_relu.gn_relu_backward(x, wt, bs, stats[:, :2], x, 4, True)
+
+
+# --------------------------------------------- K5, K5c, K6 (SipMask++ slice)
+
+def _rows_case(dev, n, h, w, cg, k, p, regime, seed=3):
+    """x_rows, pyx and a cotangent: 'random' positions over the map and its
+    borders with a third +-300 px out, or 'zero' offsets (integer
+    positions, DeformConvPack's initial state)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, h * w, cg).astype(np.float32)
+    if regime == "zero":
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        base = np.stack([yy, xx], -1).reshape(-1, 2)[:p].astype(np.float32)
+        pyx = np.broadcast_to(base, (n, k, p, 2)).copy()
+    else:
+        pyx = (rng.rand(n, k, p, 2) * np.float32([h + 3, w + 3]) - 1.5
+               ).astype(np.float32)
+        pyx[:, :, : p // 3] += rng.choice([-300.0, 300.0], (n, k, p // 3, 2))
+    g = rng.randn(n, p, k, cg).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, pyx, g)]
+
+
+@pytest.mark.parametrize("n,h,w,cg,k,regime", [
+    (2, 17, 17, 512, 9, "random"),   # layer4 at 544, Cg % 4 == 0: vectors
+    (2, 34, 34, 256, 9, "zero"),     # layer3, every position on the grid
+    (1, 9, 7, 6, 4, "random"),       # Cg % 4 != 0: the scalar path
+])
+def test_deform_rows_kernels_match_plain(dev, n, h, w, cg, k, regime):
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    p = h * w
+    x, pyx, g = _rows_case(dev, n, h, w, cg, k, p, regime)
+    before = (ds.deform_rows.launches, ds.deform_rows_backward.launches)
+    got = ds.deform_rows(x, pyx, h, w)
+    dx, dp = ds.deform_rows_backward(x, pyx, g, h, w)
+    torch.cuda.synchronize()
+    assert (ds.deform_rows.launches, ds.deform_rows_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ds.deform_rows_plain(x, pyx, h, w)
+    # the same four f32 products; the kernel may fuse them into FMAs
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    want_dx, want_dp = ds.deform_rows_backward_plain(x, pyx, g, h, w)
+    for a, e, name in ((dx, want_dx, "dx"), (dp, want_dp, "dpyx")):
+        # dx: atomics in run-to-run order; dpyx: Cg products summed across
+        # a warp
+        err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+        assert err <= 1e-5, (name, err)
+    if regime == "zero":   # the one-sided rule at integer positions
+        assert float(dp.abs().max()) > 0
+
+
+@pytest.mark.parametrize("b,h,w,n", [(2, 68, 68, 100), (1, 36, 40, 256)])
+def test_assemble_masks_kernel_matches_plain(dev, b, h, w, n):
+    from sipmask_tpu_torch.ops import mask_assembly
+    rng = np.random.RandomState(4)
+    basis = torch.from_numpy(rng.randn(b, 32, h, w).astype(np.float32)
+                             ).to(dev).permute(0, 2, 3, 1)   # an NCHW view
+    cofs = torch.from_numpy((rng.randn(b, n, 128) * 0.3).astype(np.float32)
+                            ).to(dev)
+    x1 = rng.uniform(-4, w, (b, n))
+    y1 = rng.uniform(-4, h, (b, n))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(0, w / 2, (b, n)),
+                      y1 + rng.uniform(0, h / 2, (b, n))], -1)
+    boxes[:, 0] = [-1.0, -1.0, w + 1.0, h + 1.0]
+    boxes[:, 1] = [3.0, 4.0, 3.0, 9.0]
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    before = mask_assembly.assemble_masks.launches
+    got = mask_assembly.assemble_masks(basis, cofs, boxes)
+    torch.cuda.synchronize()
+    assert mask_assembly.assemble_masks.launches == before + 1
+    want = mask_assembly.assemble_masks_plain(basis, cofs, boxes)
+    # sigmoid of a 32-term f32 dot summed in another order
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    # the crop compares the caller's split points: the same zeros
+    assert torch.equal(got == 0, want == 0)
+
+
+def test_slice_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    from sipmask_tpu_torch.ops import mask_assembly
+    x, pyx, g = _rows_case(dev, 1, 6, 5, 8, 9, 30, "random")
+    with pytest.raises(TypeError):
+        ds.deform_rows(x.double(), pyx.double(), 6, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds.deform_rows(x.transpose(1, 2).contiguous().transpose(1, 2), pyx,
+                       6, 5)
+    with pytest.raises(ValueError, match="dsampled"):
+        ds.deform_rows_backward(x, pyx, g[:, :4], 6, 5)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ds.deform_rows(x.requires_grad_(True), pyx, 6, 5)
+    basis = torch.zeros((1, 8, 8, 32), device=dev)
+    with pytest.raises(TypeError):
+        mask_assembly.assemble_masks(basis.double(),
+                                     torch.zeros((1, 3, 128), device=dev),
+                                     torch.zeros((1, 3, 4), device=dev))
+    with pytest.raises(ValueError, match="fit"):
+        mask_assembly.assemble_masks(basis,
+                                     torch.zeros((1, 3, 64), device=dev),
+                                     torch.zeros((1, 3, 4), device=dev))

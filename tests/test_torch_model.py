@@ -102,8 +102,10 @@ def test_init_weights_schemes_and_seed():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("sipmaskpp_r101_fpn_ssd_6x").model)
+    for name in ("sipmask_vis_r50", "sipmask_x101_fpn_gn_ms_2x",
+                 "sipmask_hrnet_w32_fpn_gn_1x"):
+        with pytest.raises(NotImplementedError):
+            build_model(get_config(name).model)
 
 
 def test_backbone_matches_jax(outputs):

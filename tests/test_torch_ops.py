@@ -638,18 +638,38 @@ def test_box_geometry_and_points_match_jax():
 # ------------------------------------------------------- package and build
 
 def test_import_leaves_jax_flax_cv2_and_the_jax_package_out():
+    """No module of JAX, flax, cv2 or the JAX package is imported, by name
+    or by file: no loaded module's file lies under sipmask_tpu/."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import sipmask_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'cv2', 'sipmask_tpu')]\n"
+        "assert not bad, bad\n"
+        "jax_pkg = os.path.realpath('sipmask_tpu') + os.sep\n"
+        "files = [(n, os.path.realpath(m.__file__))\n"
+        "         for n, m in list(sys.modules.items())\n"
+        "         if getattr(m, '__file__', None)]\n"
+        "bad = [(n, f) for n, f in files if f.startswith(jax_pkg)]\n"
         "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_presets_equal_the_jax_packages():
+    """The port's own copy of the presets gives the JAX package's configs,
+    field for field, for every preset."""
+    import dataclasses
+    from sipmask_tpu import config as j_config
+    from sipmask_tpu_torch import config as p_config
+    assert p_config.list_configs() == j_config.list_configs()
+    for name in j_config.list_configs():
+        assert dataclasses.asdict(p_config.get_config(name)) == \
+            dataclasses.asdict(j_config.get_config(name)), name
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

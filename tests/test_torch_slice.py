@@ -58,15 +58,38 @@ def _check_decoded(got, want):
                                atol=1e-4)
 
 
-def test_decode_matches_jax_on_the_same_head_outputs(setup):
-    """Same inputs to both decodes: any difference is the decode's own."""
-    nchw = {k: ([torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
+def _nchw_outputs(j_out):
+    """The JAX head's NHWC outputs as the port's NCHW tensors."""
+    return {k: ([torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
                  for a in v] if isinstance(v, list) else
                 torch.from_numpy(v.transpose(0, 3, 1, 2).copy()))
-            for k, v in setup["j_out"].items()}
+            for k, v in j_out.items()}
+
+
+def test_decode_matches_jax_on_the_same_head_outputs(setup):
+    """Same inputs to both decodes: any difference is the decode's own."""
+    nchw = _nchw_outputs(setup["j_out"])
     got = decode_batch(nchw, torch.from_numpy(IMG_SHAPES),
                        torch.from_numpy(SCALES), setup["cfg"].model)
     _check_decoded(got, setup["j_dec"])
+
+
+def test_fast_nms_decode_matches_jax_on_the_same_head_outputs(setup):
+    """The real-time presets' decode (``ssd_flag``: fast NMS on score x
+    centerness, as ``sipmask_r50_fpn_ssd_6x`` tests) without rescoring, on
+    the same head outputs. score_thr is lowered from the preset's 0.1 so
+    that the bumped scores (~0.08 x centerness) keep detections."""
+    from sipmask_tpu.config import _r
+    cfg = _r(setup["cfg"].model, "head", ssd_flag=True)
+    cfg = _r(cfg, "test", score_thr=0.02, use_fast_nms=True, nms_pre=1000)
+    want = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda o: j_decode_batch(o, jnp.asarray(IMG_SHAPES),
+                                 jnp.asarray(SCALES), cfg))(setup["j_out"]))
+    nchw = _nchw_outputs(setup["j_out"])
+    got = decode_batch(nchw, torch.from_numpy(IMG_SHAPES),
+                       torch.from_numpy(SCALES), cfg)
+    assert "mask_scores" not in got
+    _check_decoded(got, want)
 
 
 def test_detector_and_decode_match_jax(setup):
