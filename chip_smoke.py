@@ -20,7 +20,10 @@ the port's entry points, serving and then training each: the high-accuracy
    ``Detector.infer``, counting kernel launches;
 5. runs the batch again with the plain versions and compares;
 6. holds the training kernels (K2, K3a, K3b, K4b) against their plain
-   versions at the train step's shapes, and times both at batch 4;
+   versions at the train step's shapes, and times both at batch 4; splits
+   one K2 sweep and one K4b sweep and call into their device kernels with
+   ``torch.profiler`` (a K4b call must be two kernels), and times
+   ``torch.matmul`` on K2's two products as a yardstick of its GEMMs;
 7. runs 3 SGD steps at 800x1344, batch 4, through ``create_train_state`` /
    ``make_train_step``, counting kernel launches, and checks the losses,
    the frozen stages and the gradients;
@@ -68,10 +71,11 @@ K1_TOL = 1e-5     # abs: the same four f32 products, FMA-fused in the kernel
 K4_TOL = 1e-4     # abs: f32 sums over up to 134400 elements, reordered
 HEAD_TOL = 1e-3   # relative to max |x|: the above through up to 9 layers
 MATCH_MIN = 0.98  # share of detections the plain run must reproduce
-# relative to each output's max |value|: K2's SIMT GEMMs sum 256 or B*P
-# products in another order than cuBLAS and its dX atomics add in run-to-run
-# order; K3 sums 32-term dots over up to 268800 pixels in another order than
-# the plain matmuls; K4b sums up to 16800 elements per channel, reordered
+# relative to each output's max |value|: K2's 3xTF32 GEMMs drop the
+# small*small products and sum 256 or B*P products in another order than
+# cuBLAS, and its dX atomics add in run-to-run order; K3 sums 32-term dots
+# over up to 268800 pixels in another order than the plain matmuls; K4b sums
+# up to 16800 elements per channel, reordered
 TRAIN_KERNEL_TOL = 1e-5
 LOSS_TOL = 1e-4   # relative: forward values differ by the kernels' rounding
 # relative to each tensor's max |g|: the kernels' rounding through the
@@ -105,7 +109,8 @@ K6_TOL = 1e-5     # abs: sigmoid of a 32-term f32 dot summed in another order
 # one DCN block moves the gradients by their whole size.
 PP_LOSS_TOL = {"loss_iou": 1e-2}
 PP_GRAD_TOL, PP_BACKBONE_GRAD_TOL = 1e-2, 4e-2
-HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12   # H100 SXM data sheet
+# H100 SXM data sheet: HBM, f32 on the CUDA cores, dense TF32 tensor cores
+HBM_BYTES_PER_S, F32_FLOP_PER_S, TF32_FLOP_PER_S = 3.35e12, 67e12, 495e12
 KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
     "deform_im2col": ("deform_im2col.cu",
                       "sipmask_tpu/ops/pallas/deform_gather.py:465"),
@@ -174,12 +179,53 @@ def check_path_launches(path, launches):
         raise AssertionError(f"kernels of the {path} path never ran: {idle}")
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, tf32_flops=0.0):
     """(ms, 'bytes' or 'operations'): the least time the card could take to
     move ``nbytes`` (each input read once, each output written once) at the
-    HBM rate and do ``flops`` f32 operations at the CUDA-core rate."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    HBM rate, do ``flops`` f32 operations at the CUDA-core rate and
+    ``tf32_flops`` TF32 operations at the tensor-core rate (the two units
+    run side by side, so the larger of the two times)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = max(flops / F32_FLOP_PER_S, tf32_flops / TF32_FLOP_PER_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def launch_split(label, fn, attempts=3):
+    """Profile one fn() after a warm-up: log the launches and device ms of
+    each device kernel it runs; return ({name: (launches, ms)}, kernels).
+
+    The profiler in the card's sandbox sometimes misses kernels of a
+    session (the first one, or all), never adds any: each session starts
+    with a marker kernel, and of ``attempts`` sessions the one that saw
+    the most kernels counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        seen.append([e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "spin_kernel" not in e.name])
+    kern = max(seen, key=len)
+    split = {}
+    for e in kern:
+        n, ms = split.get(e.name, (0, 0.0))
+        split[e.name] = (n + 1, ms + e.device_time / 1e3)
+    log(f"split of {label}: {len(kern)} device kernels (sessions saw "
+        f"{[len(k) for k in seen]}), "
+        f"{sum(ms for _, ms in split.values()):.4f} ms device time: "
+        + "; ".join(f"{name[:70]} x{n} {ms:.4f} ms" for name, (n, ms) in
+                    sorted(split.items(), key=lambda kv: -kv[1][1])))
+    if not kern:
+        raise AssertionError(f"the profiler saw no device kernel of {label}")
+    return split, len(kern)
 
 
 def nbytes(*tensors):
@@ -461,20 +507,50 @@ def phase_train_kernels(dev):
         out = torch.matmul(leaves[2], deform_sample.deform_im2col_plain(
             leaves[0], leaves[1], (3, 3), 1, 1, 1, g))
         k2_in.append((x, off, w2, dy, cols, leaves, out))
+    def k2_sweep():
+        return [deform_conv.deform_conv_backward(x, off, cols, w2, dy, (3, 3),
+                                                 1, 1, 1, g)
+                for x, off, w2, dy, cols, _, _o in k2_in]
     times["deform_conv_backward"] = turns(
         f"K2 deform_conv_backward all 5 levels bs{BATCH}",
         lambda: [torch.autograd.grad(out, leaves, dy.reshape(out.shape),
                                      retain_graph=True)
-                 for *_, dy, _c, leaves, out in k2_in],
-        lambda: [deform_conv.deform_conv_backward(
-            x, off, cols, w2, dy, (3, 3), 1, 1, 1, g)
-            for x, off, w2, dy, cols, _, _o in k2_in], iters=10)
-    # K2: two GEMMs of 2*KC*O*P flops per image, col2im ~16 per cols entry
-    extra = {"deform_conv_backward": (bound(
-        sum(2 * nbytes(x, off, w2) + nbytes(dy, cols)
-            for x, off, w2, dy, cols, _, _o in k2_in),
-        sum(4 * cols.numel() * w2.shape[0] + 16 * cols.numel()
-            for x, off, w2, dy, cols, _, _o in k2_in)), None)}
+                 for *_, dy, _c, leaves, out in k2_in], k2_sweep, iters=10)
+    # K2's two GEMMs: 2*KC*O*P flops per image each; col2im ~16 per cols
+    # entry on the CUDA cores
+    gemm_flops = sum(4 * cols.numel() * w2.shape[0]
+                     for x, off, w2, dy, cols, _, _o in k2_in)
+    split, _ = launch_split(f"K2 deform_conv_backward all 5 levels "
+                            f"bs{BATCH}", k2_sweep)
+    gemm_ms = sum(ms for name, (_, ms) in split.items() if "gemm" in name)
+    log(f"K2 GEMMs: {gemm_ms:.4f} ms device time for "
+        f"{gemm_flops / 1e9:.1f} GFLOP of f32 products, "
+        f"{gemm_flops / gemm_ms / 1e9:.1f} TFLOP/s")
+    # yardstick of the GEMM part (not K2's function, so not library_ms):
+    # torch.matmul in f32, TF32 off, on the same two products
+    mm_dcols = cuda_ms(lambda: [
+        torch.matmul(w2.t(), dy.reshape(dy.shape[0], dy.shape[1], -1))
+        for x, off, w2, dy, cols, _, _o in k2_in], iters=5)
+    mm_dw2 = cuda_ms(lambda: [
+        torch.matmul(dy.reshape(dy.shape[0], dy.shape[1], -1),
+                     cols.transpose(1, 2)).sum(0)
+        for x, off, w2, dy, cols, _, _o in k2_in], iters=5)
+    log(f"yardstick, torch.matmul f32 (allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}) on K2's products, 5 "
+        f"levels bs{BATCH}: dcols {mm_dcols:.4f} ms "
+        f"({gemm_flops / 2 / mm_dcols / 1e9:.1f} TFLOP/s), dW2 "
+        f"{mm_dw2:.4f} ms ({gemm_flops / 2 / mm_dw2 / 1e9:.1f} TFLOP/s)")
+    # bound: f32-accurate products on the tensor cores are 3 TF32 products
+    # each (3xTF32); the col2im's f32 operations on the CUDA cores
+    col_flops = sum(16 * cols.numel() for *_, cols, _l, _o in k2_in)
+    k2_bound = bound(sum(2 * nbytes(x, off, w2) + nbytes(dy, cols)
+                         for x, off, w2, dy, cols, _, _o in k2_in),
+                     col_flops, 3 * gemm_flops)
+    extra = {"deform_conv_backward": (k2_bound, None)}
+    log(f"K2 bound: {k2_bound[0]:.4f} ms ({k2_bound[1]}: 3 TF32 products "
+        f"per f32 product at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s); all on "
+        f"the CUDA cores at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s: "
+        f"{(gemm_flops + col_flops) / F32_FLOP_PER_S * 1e3:.4f} ms")
     del k2_in
     args, grad = k3_inputs(BATCH, gen, dev)
 
@@ -507,12 +583,19 @@ def phase_train_kernels(dev):
         bs = torch.zeros(CHANNELS, device=dev)
         _, stats = gn_relu.gn_relu_forward(x, wt, bs, GN_GROUPS)
         k4_in.append((x, wt, bs, stats, dy))
+    def k4b_sweep():
+        return [gn_relu.gn_relu_backward(*a, GN_GROUPS, True) for a in k4_in]
     times["gn_relu_backward"] = turns(
         f"K4b gn_relu_backward all 5 levels bs{BATCH}",
         lambda: [gn_relu.gn_relu_backward_plain(*a, GN_GROUPS, True)
-                 for a in k4_in],
-        lambda: [gn_relu.gn_relu_backward(*a, GN_GROUPS, True)
-                 for a in k4_in])
+                 for a in k4_in], k4b_sweep)
+    launch_split(f"K4b gn_relu_backward all 5 levels bs{BATCH}", k4b_sweep)
+    _, n_kern = launch_split(
+        f"K4b gn_relu_backward, one call at {LEVELS[0]} bs{BATCH}",
+        lambda: gn_relu.gn_relu_backward(*k4_in[0], GN_GROUPS, True))
+    if n_kern != 2:
+        raise AssertionError(f"a K4b call ran {n_kern} device kernels, not "
+                             f"its two")
     # K4b's one-call equivalent: autograd of F.group_norm + ReLU, over
     # graphs built once
     import torch.nn.functional as F

@@ -8,9 +8,10 @@
 (``deform_conv.py:104-107``) to XLA outside the Pallas kernel; it saves
 ``cols``, as the JAX code saves ``sampT``. The backward is K2
 (:func:`deform_conv_backward`, ``csrc/deform_col2im.cu``), which computes
-every product of the TPU kernel itself: the two GEMMs, the col2im and the
-position gradients. On CPU tensors it is :func:`deform_conv2d_plain`,
-autograd through ``deform_im2col_plain``.
+every product of the TPU kernel itself: the two GEMMs (on the tensor cores
+in 3xTF32, f32-accurate; :func:`tf32_split_matmul_plain` states the
+split), the col2im and the position gradients. On CPU tensors it is
+:func:`deform_conv2d_plain`, autograd through ``deform_im2col_plain``.
 
 **The sampled route** (:func:`deform_conv2d_rows`, the SipMask++ backbone's
 ``DeformConvPack``, and :func:`modulated_deform_conv2d`): the JAX package's
@@ -92,6 +93,25 @@ def deform_conv_backward_plain(x, offsets, w2, dy, kernel_size=(3, 3),
                                    dy.reshape(out.shape))
 
 
+def tf32_round_plain(a):
+    """f32 -> the nearest TF32 value, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: add half a TF32 unit (0x1000) to the f32
+    bits and clear the 13 low mantissa bits."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_matmul_plain(a, b):
+    """a @ b in 3xTF32, K2's GEMM arithmetic: each f32 operand is split into
+    big = tf32(x) and small = tf32(x - big), and small·big + big·small is
+    accumulated before big·big, in f32. Every product of two TF32 values is
+    exact in f32, so only the dropped small·small and the f32 sums differ
+    from an f32 product. Used by the CPU tests to pin the split."""
+    a_big, b_big = tf32_round_plain(a), tf32_round_plain(b)
+    a_small, b_small = tf32_round_plain(a - a_big), tf32_round_plain(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
 def _lib():
     lib = native.load("deform_col2im")
     fn = lib.deform_conv_bwd_f32
@@ -99,7 +119,7 @@ def _lib():
         lib.deform_conv_bwd_partial_floats.restype = ctypes.c_longlong
         lib.deform_conv_bwd_partial_floats.argtypes = [ctypes.c_int] * 4
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
             ctypes.c_void_p]
     return lib
 
@@ -135,24 +155,28 @@ def deform_conv_backward(x, offsets, cols, w2, dy, kernel_size=(3, 3),
         raise ValueError("all inputs must be on one device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("x, offsets, cols, w2 and dy must be contiguous")
-    if b * g > 65535 or k > 65535:
-        raise ValueError(f"grid too large for B*G={b * g}, K={k}")
+    if b * g > 65535 or -(-p // 128) > 65535:
+        raise ValueError(f"grid too large for B*G={b * g}, P={p}")
     lib = _lib()
-    dcols = torch.empty_like(cols)
+    # scratch: x and dX as channels-last rows, dcols p-major per group,
+    # the dW2 partials
+    x_rows, dx_rows = torch.empty_like(x), torch.empty_like(x)
+    dcols = torch.empty((b * g, p, k * (c // g)), device=x.device,
+                        dtype=torch.float32)
     partial = torch.empty((lib.deform_conv_bwd_partial_floats(b, o, kc, p),),
                           device=x.device, dtype=torch.float32)
-    dx = torch.zeros_like(x)
+    dx = torch.empty_like(x)
     doffsets = torch.empty_like(offsets)
     dw2 = torch.empty_like(w2)
     if p == 0 or b == 0:
-        return dx, doffsets, dw2.zero_()
-    with torch.cuda.device(x.device):
+        return dx.zero_(), doffsets, dw2.zero_()
+    with native.device_guard(x.device):
         code = lib.deform_conv_bwd_f32(
             x.data_ptr(), offsets.data_ptr(), cols.data_ptr(), w2.data_ptr(),
-            dy.data_ptr(), dcols.data_ptr(), partial.data_ptr(),
-            dx.data_ptr(), doffsets.data_ptr(), dw2.data_ptr(), b, c, h, w, g,
-            ho, wo, kh, kw, stride, padding, dilation, o,
-            native.stream_ptr(x.device))
+            dy.data_ptr(), x_rows.data_ptr(), dcols.data_ptr(),
+            partial.data_ptr(), dx_rows.data_ptr(), dx.data_ptr(),
+            doffsets.data_ptr(), dw2.data_ptr(), b, c, h, w, g, ho, wo, kh,
+            kw, stride, padding, dilation, o, native.stream_ptr(x.device))
     native.check_launch(lib, "deform_col2im", code)
     deform_conv_backward.launches += 1
     return dx, doffsets, dw2

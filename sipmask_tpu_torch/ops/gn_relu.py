@@ -78,21 +78,36 @@ def gn_relu_plain(x, weight, bias, groups: int = 32, eps: float = 1e-5,
 def _bwd_coefficients(r1, r2, weight, stats, n: float):
     """``group_norm._vjp_bwd``'s (B, C) algebra: from r1 = sum dy_eff and
     r2 = sum dy_eff*x per (image, channel), the coefficients (a, b2, c2) of
-    dx = a*dy_eff + b2*x + c2, and d weight, d bias."""
+    dx = a*dy_eff + b2*x + c2, and d weight, d bias.
+
+    In K4b's order (``csrc/gn_relu.cu:gn_bwd_apply_kernel``), so that the
+    plain version pins the kernel's arithmetic: sdx = (r2 - mean*r1)*rstd,
+    then per (image, group) m1 = sum_j w_j*r1_j / n and m2 = sum_j
+    w_j*sdx_j / n over the group's channels j in order; a = rstd*w,
+    b2 = -(rstd*rstd)*m2, c2 = rstd*((mean*rstd)*m2 - m1); d weight and
+    d bias sum sdx and r1 over the images in order."""
     b, c = r1.shape
-    mean, rstd = stats.unbind(-1)
+    mean, rstd = stats.unbind(-1)            # (B, G)
     groups = mean.shape[1]
-    mean_c = mean.repeat_interleave(c // groups, 1)
-    rstd_c = rstd.repeat_interleave(c // groups, 1)
+    cg = c // groups
+
+    def per_channel(t):                      # (B, G) -> (B, C)
+        return t.repeat_interleave(cg, 1)
+    mean_c, rstd_c = per_channel(mean), per_channel(rstd)
     sdx = (r2 - mean_c * r1) * rstd_c        # sum dy_eff * xhat per (B, C)
-    m1_c = ((r1 * weight).reshape(b, groups, -1).sum(-1) / n
-            ).repeat_interleave(c // groups, 1)
-    m2_c = ((sdx * weight).reshape(b, groups, -1).sum(-1) / n
-            ).repeat_interleave(c // groups, 1)
+    w_r1 = (weight * r1).reshape(b, groups, cg)
+    w_sdx = (weight * sdx).reshape(b, groups, cg)
+    m1, m2 = w_r1[..., 0], w_sdx[..., 0]
+    for j in range(1, cg):
+        m1, m2 = m1 + w_r1[..., j], m2 + w_sdx[..., j]
+    m1_c, m2_c = per_channel(m1 / n), per_channel(m2 / n)
     a = rstd_c * weight[None]
     b2 = -(rstd_c * rstd_c) * m2_c
     c2 = rstd_c * (mean_c * rstd_c * m2_c - m1_c)
-    return a, b2, c2, sdx.sum(0), r1.sum(0)
+    dweight, dbias = sdx[0], r1[0]
+    for i in range(1, b):
+        dweight, dbias = dweight + sdx[i], dbias + r1[i]
+    return a, b2, c2, dweight, dbias
 
 
 def gn_relu_backward_plain(x, weight, bias, stats, dy, groups: int,
@@ -125,12 +140,10 @@ def _lib():
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
-        tail = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
-        lib.gn_relu_bwd_reduce_f32.restype = ctypes.c_int
-        lib.gn_relu_bwd_reduce_f32.argtypes = [ctypes.c_void_p] * 6 + tail
-        lib.gn_relu_bwd_apply_f32.restype = ctypes.c_int
-        lib.gn_relu_bwd_apply_f32.argtypes = [ctypes.c_void_p] * 7 + tail
+        lib.gn_relu_bwd_f32.restype = ctypes.c_int
+        lib.gn_relu_bwd_f32.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -180,7 +193,8 @@ def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
 def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
     """K4b: (dx, d weight, d bias) from the forward's ``stats``. CPU
     tensors take :func:`gn_relu_backward_plain`; CUDA tensors launch the
-    kernels."""
+    kernels: two launches, nothing between them. The wrapper only checks
+    and allocates."""
     if x.device.type == "cpu":
         return gn_relu_backward_plain(x, weight, bias, stats, dy, groups, act)
     _cuda_check(x, weight, bias, groups)
@@ -191,22 +205,19 @@ def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
         raise ValueError(f"stats {tuple(stats.shape)} must be contiguous "
                          f"({b}, {groups}, 2)")
     dy = dy.contiguous()
-    lib = _lib()
     r = torch.empty((b, c, 2), device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
-    args = (b, c, h * w, groups, int(act), native.stream_ptr(x.device))
-    with torch.cuda.device(x.device):
-        code = lib.gn_relu_bwd_reduce_f32(
+    dweight = torch.empty_like(weight)
+    dbias = torch.empty_like(bias)
+    if b == 0:
+        return dx, dweight.zero_(), dbias.zero_()
+    lib = _lib()
+    with native.device_guard(x.device):
+        code = lib.gn_relu_bwd_f32(
             x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), r.data_ptr(), *args)
-        native.check_launch(lib, "gn_relu", code)
-        a, b2, c2, dweight, dbias = _bwd_coefficients(
-            r[..., 0], r[..., 1], weight, stats,
-            float(h * w * (c // groups)))
-        co = torch.stack([a, b2, c2], -1).contiguous()      # (B, C, 3)
-        code = lib.gn_relu_bwd_apply_f32(
-            x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), co.data_ptr(), dx.data_ptr(), *args)
+            bias.data_ptr(), r.data_ptr(), dx.data_ptr(), dweight.data_ptr(),
+            dbias.data_ptr(), b, c, h * w, groups, int(act),
+            native.stream_ptr(x.device))
     native.check_launch(lib, "gn_relu", code)
     gn_relu_backward.launches += 1
     return dx, dweight, dbias

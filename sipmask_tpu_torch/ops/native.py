@@ -2,13 +2,15 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so``
-at the root of the checkout, where the hash covers the source and the flags,
-and loaded with ``ctypes``. Nothing is built when a module is imported, and
-nothing falls back: a missing ``nvcc`` or a failed build raises.
+at the root of the checkout, where the hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, and loaded with ``ctypes``. Nothing is
+built when a module is imported, and nothing falls back: a missing ``nvcc``
+or a failed build raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -50,7 +52,9 @@ def find_nvcc() -> str:
 
 def _build(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
                           ).hexdigest()[:12]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
@@ -98,3 +102,12 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
 def stream_ptr(device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on ``device``, as a C pointer."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def device_guard(device):
+    """A context in which ``device`` is the current CUDA device, for a
+    launch on its stream: a no-op when it already is, which spares the
+    common case the cost of switching devices twice a call."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

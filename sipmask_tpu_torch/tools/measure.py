@@ -1,10 +1,10 @@
 """Times of the port on one CUDA card, the numbers behind ``PERF.md``:
 
-    python -m sipmask_tpu_torch.tools.measure serve k4a train
+    python -m sipmask_tpu_torch.tools.measure serve k4a k4b train
     python -m sipmask_tpu_torch.tools.measure --config \
         sipmaskpp_r101_fpn_ssd_6x serve train
 
-from the root of the checkout, with any of the three modes, in the order
+from the root of the checkout, with any of the four modes, in the order
 given:
 
 - ``serve``: wall ms of single requests (800x1333; 544x544 for the
@@ -18,6 +18,11 @@ given:
   kernels in a ``torch.profiler`` trace; first through ``gn_relu`` (the
   model's entry point, an autograd Function), then through the bare
   launcher ``gn_relu_forward`` with and without the saved statistics;
+- ``k4b``: the GroupNorm+ReLU backward (K4b, ``gn_relu_backward``) over one
+  GN site of each of the five levels at batch 4: CUDA-event ms of the
+  sweep, the host's enqueue time of a sweep (and of one call), and the
+  device time and count of its kernels in a ``torch.profiler`` trace, so
+  that its device time and its host time can be read apart;
 - ``train``: warm train steps at the preset's training shapes (800x1344,
   batch 4; 576x576, batch 8) (median), their sections (forward, loss,
   backward, optimizer), the peak memory, and a ``torch.profiler`` trace of
@@ -67,7 +72,23 @@ def report(name, ms):
 
 def kernel_events(prof):
     from torch.autograd import DeviceType
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "spin_kernel" not in e.name]
+
+
+def profile_kernels(fn, iters):
+    """Device-kernel events of iters calls of fn() in one ``torch.profiler``
+    session, after a marker kernel: the first kernel of a session can go
+    unrecorded in the card's sandbox."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_events(prof)
 
 
 def prepare(model, cfg, images, training=False):
@@ -117,8 +138,6 @@ def serve(dev, reps, config):
 
 
 def k4a(dev, iters=20):
-    from torch.profiler import ProfilerActivity, profile
-
     from ..ops import gn_relu
 
     gen = torch.Generator().manual_seed(SEED)
@@ -144,16 +163,38 @@ def k4a(dev, iters=20):
         for name in list(ways) + list(ways)[::-1]:
             timed[name].append(event_and_host_ms(sweeps[name], iters))
         for name, sweep in sweeps.items():
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    sweep()
-                torch.cuda.synchronize()
-            device = sum(e.device_time for e in kernel_events(prof)
+            device = sum(e.device_time for e in profile_kernels(sweep, iters)
                          ) / 1e3 / iters
             (e1, h1), (e2, h2) = timed[name]
             log(f"K4a {name}, 5 levels bs{BATCH}, ms per sweep: CUDA events "
                 f"{e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / {h2:.4f}, "
                 f"kernels {device:.4f}")
+
+
+def k4b(dev, iters=20):
+    from ..ops import gn_relu
+
+    gen = torch.Generator().manual_seed(SEED)
+    wt = torch.ones(256, device=dev)
+    bs = torch.zeros(256, device=dev)
+    args = []
+    for h, w in LEVELS:
+        x = torch.randn((BATCH, 256, h, w), generator=gen).to(dev)
+        dy = torch.randn((BATCH, 256, h, w), generator=gen).to(dev)
+        _, stats = gn_relu.gn_relu_forward(x, wt, bs, 32)
+        args.append((x, wt, bs, stats, dy))
+
+    def sweep():
+        return [gn_relu.gn_relu_backward(*a, 32, True) for a in args]
+    (e1, h1), (e2, h2) = (event_and_host_ms(sweep, iters) for _ in range(2))
+    kern = profile_kernels(sweep, iters)
+    device = sum(e.device_time for e in kern) / 1e3 / iters
+    calls = iters * len(LEVELS)
+    log(f"K4b gn_relu_backward (act), 5 levels bs{BATCH}, ms per sweep: "
+        f"CUDA events {e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / "
+        f"{h2:.4f} ({(h1 + h2) / 2 / len(LEVELS) * 1e3:.1f} us a call), "
+        f"kernels {device:.4f} ({len(kern) / calls:g} device kernels a "
+        f"call)")
 
 
 def event_and_host_ms(sweep, iters):
@@ -176,7 +217,7 @@ def event_and_host_ms(sweep, iters):
 
 
 # kernel-name fragments of the port's kernels -> their ids
-OWNERS = {"deform_im2col": "K1", "sgemm_kernel": "K2", "fold_partials": "K2",
+OWNERS = {"deform_im2col": "K1", "deform_bwd": "K2", "fold_partials": "K2",
           "deform_col2im": "K2", "mask_bce": "K3", "fold_slices": "K3",
           "gn_stats": "K4a", "gn_apply": "K4a", "gn_bwd": "K4b",
           "deform_rows_fwd": "K5", "deform_rows_bwd": "K5c",
@@ -273,7 +314,8 @@ def train(dev, reps, config):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("modes", nargs="+", choices=("serve", "k4a", "train"))
+    ap.add_argument("modes", nargs="+",
+                    choices=("serve", "k4a", "k4b", "train"))
     ap.add_argument("--config", default=CONFIG,
                     help="the preset to measure")
     ap.add_argument("--reps", type=int, default=7,
@@ -289,8 +331,8 @@ def main(argv=None):
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     for mode in args.modes:
-        if mode == "k4a":
-            k4a(dev)
+        if mode in ("k4a", "k4b"):
+            {"k4a": k4a, "k4b": k4b}[mode](dev)
         else:
             {"serve": serve, "train": train}[mode](dev, args.reps,
                                                    args.config)

@@ -213,6 +213,28 @@ def test_deform_conv2d_gradients_match_jax(regime):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("depth", [256, 2048])   # O; a dW2 pixel chunk
+def test_tf32_split_matmul_plain_is_f32_accurate(depth):
+    """K2's GEMMs on the tensor cores: 3xTF32 (tf32_split_matmul_plain
+    states the split) stays within 1e-5 of the f64 product's max at K2's
+    contraction depths, as chip_smoke's TRAIN_KERNEL_TOL needs; one TF32
+    product (three decimal digits) does not."""
+    rng = np.random.RandomState(depth)
+    a = T(rng.randn(96, depth).astype(np.float32))
+    b = T(rng.randn(depth, 80).astype(np.float32))
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+
+    def err(got):
+        return float((got.double() - exact).abs().max()) / scale
+    rounded = deform_conv.tf32_round_plain(a)
+    # every value TF32: 13 low mantissa bits clear, within half a TF32 unit
+    assert not (rounded.view(torch.int32) & 0x1FFF).any()
+    assert float(((rounded - a) / a).abs().max()) <= 2.0 ** -11
+    assert err(deform_conv.tf32_split_matmul_plain(a, b)) <= 1e-5
+    assert err(rounded @ deform_conv.tf32_round_plain(b)) > 1e-5
+
+
 # ------------------------------------------------------------------- K4
 
 @pytest.mark.parametrize("act", [True, False])
@@ -235,12 +257,18 @@ def test_gn_relu_plain_matches_jax(ref, act):
                                np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,c,groups", [
+    (2, 64, 32),     # Cg 2
+    (1, 256, 32),    # the head towers' own: Cg 8
+    (2, 512, 32),    # Cg 16
+])
 @pytest.mark.parametrize("act", [True, False])
-def test_gn_relu_backward_matches_jax(act):
-    """gn_relu's CPU backward (gn_relu_backward_plain) and autograd through
-    gn_relu_plain against the VJP of group_norm_nhwc (+ relu)."""
+def test_gn_relu_backward_matches_jax(act, b, c, groups):
+    """gn_relu's CPU backward (gn_relu_backward_plain, whose per-channel
+    coefficients follow K4b's order) and autograd through gn_relu_plain
+    against the VJP of group_norm_nhwc (+ relu)."""
     rng = np.random.RandomState(10)
-    b, h, w, c, groups = 2, 9, 7, 64, 32
+    h, w = 9, 7
     x = (rng.randn(b, h, w, c) * 3.0 + 1.0).astype(np.float32)
     scale = (rng.rand(c) + 0.5).astype(np.float32)
     bias = (rng.randn(c) * 0.2).astype(np.float32)
