@@ -21,9 +21,10 @@ the port's entry points, serving and then training each: the high-accuracy
 5. runs the batch again with the plain versions and compares;
 6. holds the training kernels (K2, K3a, K3b, K4b) against their plain
    versions at the train step's shapes, and times both at batch 4; splits
-   one K2 sweep and one K4b sweep and call into their device kernels with
-   ``torch.profiler`` (a K4b call must be two kernels), and times
-   ``torch.matmul`` on K2's two products as a yardstick of its GEMMs;
+   one K2 sweep, one K3a and one K3b call, and one K4b sweep and call into
+   their device kernels with ``torch.profiler`` (a K3a call must be two
+   kernels that give the same bits twice, a K4b call two kernels), and
+   times ``torch.matmul`` on K2's two products as a yardstick of its GEMMs;
 7. runs 3 SGD steps at 800x1344, batch 4, through ``create_train_state`` /
    ``make_train_step``, counting kernel launches, and checks the losses,
    the frozen stages and the gradients;
@@ -557,9 +558,23 @@ def phase_train_kernels(dev):
     def k3a_plain():
         with torch.no_grad():
             return mask_loss.mask_bce_loss_plain(*args)
+    def k3a_call():
+        return mask_loss.mask_bce_forward(*args)
     times["mask_bce_forward"] = turns(
         f"K3a mask_bce_forward {MASK_HW} K={MAX_POS} bs{BATCH}", k3a_plain,
-        lambda: mask_loss.mask_bce_forward(*args), iters=5)
+        k3a_call, iters=5)
+    # a K3a call is its two kernels (pixel tiles, fold) and gives the same
+    # bits every time; K3b's split is logged
+    if not torch.equal(k3a_call(), k3a_call()):
+        raise AssertionError("two K3a calls gave different bits")
+    _, n_kern = launch_split(f"K3a mask_bce_forward, one call at {MASK_HW} "
+                             f"K={MAX_POS} bs{BATCH}", k3a_call)
+    if n_kern != 2:
+        raise AssertionError(f"a K3a call ran {n_kern} device kernels, not "
+                             f"its two")
+    launch_split(f"K3b mask_bce_backward, one call at {MASK_HW} K={MAX_POS} "
+                 f"bs{BATCH}", lambda: mask_loss.mask_bce_backward(*args,
+                                                                   grad))
     # the work is the in-box pixels of the valid positives: a 32-term dot
     # and a BCE (~76 flops) each forward, ~200 backward
     inbox = in_box_pixels(args[2], args[5], *MASK_HW)

@@ -20,21 +20,38 @@
 //
 // Layouts (contiguous): basis (B, NB, H, W) f32 (the head's NCHW output),
 // cofs (B, K, 4*NB) f32 [q0 | q1 | q2 | q3], boxes (B, K, 4) f32, gt
-// (B, G, H, W) uint8, gt_idx (B, K) int32, valid (B, K) uint8, g (B, K) f32.
+// (B, G, H, W) uint8 in {0, 1}, gt_idx (B, K) int64, valid (B, K) uint8,
+// g (B, K) f32.
 //
-// What bounds it on an H100: the pixels a box covers, times 32 multiply-adds
-// and 32 reads of basis each (L2 hits: one image's basis is 34 MB). The TPU
-// kernel ran every 128-positive chunk over dense 512-pixel tiles on its
-// matrix unit, behind a y1 sort and chunk flags, because the TPU has no
-// cheap gather; here each block visits only the pixels it needs:
-//   - forward and d cofs: one block per (positive, row slice, image). It
-//     walks the four quadrant rectangles of its box, clipped to the map,
-//     with the quadrant's 32 coefficients in registers; rows are dealt to
-//     kSlices blocks in turn so that a large box does not leave SMs idle
-//     while a small one finishes. Each block writes one partial; a fold
-//     kernel adds the kSlices partials in a fixed order (no atomics, so
-//     every run gives the same bits). Invalid positives, and in the
-//     backward positives whose cotangent is 0, write zeros and stop.
+// What bounds it on an H100: the (pixel, positive) pairs inside the boxes,
+// a 32-term dot and a BCE each (~76 flops). FCOS positives of one gt predict
+// nearly the same box, so the boxes of an image overlap heavily and a pixel
+// lies in ~100 of them; a kernel that visits the pairs positive by positive
+// reads each pixel's 32 basis values once per pair (13 GB at 400x672,
+// K = 512, batch 4: HBM-bound at 3.9 ms). The TPU kernel ran every
+// 128-positive chunk over dense 512-pixel tiles on its matrix unit, behind a
+// y1 sort and chunk flags, because the TPU has no cheap gather. Here:
+//   - forward: one block per 16x32 pixel tile, two rows a warp. Each thread
+//     loads its two pixels' 32 basis values once, into registers, and (for
+//     G <= 64 gt planes) their gt memberships as bits, so a (pixel,
+//     positive) pair reads no memory but shared. The block walks the
+//     positives in chunks of kFwdChunk, compacts the ones whose box touches
+//     the tile into a list in shared memory with their coefficients, and
+//     each warp skips, uniformly, a box that misses its rows; one read of a
+//     quadrant's coefficients serves the warp's two rows (shared-memory
+//     reads bound this loop: 8 float4 broadcasts a warp per positive). Each
+//     (tile, positive) pair writes one partial: shuffles within a warp, the
+//     8 warps in order. A fold kernel adds each positive's partials over the
+//     tiles its box touches; both kernels decide "touches" by tile_span, so
+//     the fold reads exactly the partials written (no memset, no atomics:
+//     every run gives the same bits).
+//   - d cofs: one block per (positive, row slice, image). It walks the four
+//     quadrant rectangles of its box, clipped to the map, with the
+//     quadrant's 32 coefficients in registers; rows are dealt to kSlices
+//     blocks in turn so that a large box does not leave SMs idle while a
+//     small one finishes. Each block writes one partial per coefficient; a
+//     fold kernel adds the kSlices partials in a fixed order. Positives that
+//     are invalid or whose cotangent is 0 write zeros and stop.
 //   - d basis: one block per 8x32 pixel tile. Each thread keeps its pixel's
 //     32 basis values and 32 gradient sums in registers and walks the
 //     positives in order, skipping (uniformly, per block) those whose box
@@ -42,8 +59,8 @@
 //     in a fixed order. Atomics from the per-positive blocks would be the
 //     other choice; they scatter 32 values per (pixel, positive) and change
 //     their order from run to run.
-// The integer loop bounds are conservative (floor/ceil of the box, clipped
-// to the map); the exact float tests above decide each pixel.
+// The integer bounds are conservative (floor/ceil of the box, clipped to the
+// map); the exact float tests above decide each pixel.
 
 #include <cuda_runtime.h>
 
@@ -54,8 +71,17 @@ namespace {
 constexpr int NB = 32;           // basis masks (HeadConfig.num_bases)
 constexpr int kThreads = 256;
 constexpr int kSlices = 8;       // row slices of a box, one block each
-constexpr int kTileH = 8, kTileW = 32;
-constexpr int kChunk = 256;      // positives staged in shared memory at once
+constexpr int kTileH = 8, kTileW = 32;      // d basis: pixel tiles
+constexpr int kChunk = 256;      // d basis: positives tested at once
+constexpr int kFwdTileH = 16, kFwdTileW = 32;  // forward: pixel tiles
+constexpr int kFwdChunk = 64;    // forward: positives staged at once
+// forward: a staged positive's coefficients, each quadrant padded from NB to
+// kQStride floats, so that the two quadrants a warp reads (left and right
+// of the split) lie in different banks
+constexpr int kQStride = NB + 4;
+static_assert(kFwdChunk == 64, "the hit list is compacted by two warps");
+static_assert(kTileH * kTileW == kThreads, "one thread per tile pixel");
+static_assert(kFwdTileH * kFwdTileW == 2 * kThreads, "two pixels a thread");
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -106,6 +132,21 @@ __device__ __forceinline__ int quadrant(const Box& bx, float ph, float pw) {
   return (ph >= bx.ym ? 2 : 0) + (pw >= bx.xm ? 1 : 0);
 }
 
+// The kFwdTileH x kFwdTileW tiles a box may touch: tile rows [ty0, ty1],
+// tile columns [tx0, tx1]. False when its integer bounds hold no pixel of the map
+// (off the map, degenerate or NaN). The forward's tile kernel and its fold
+// both decide by this function, so the fold reads exactly the partials the
+// tile kernel wrote.
+__device__ __forceinline__ bool tile_span(const Box& bx, int& ty0, int& ty1,
+                                          int& tx0, int& tx1) {
+  if (bx.c_lo > bx.c_hi || bx.r_lo > bx.r_hi) return false;
+  ty0 = bx.r_lo / kFwdTileH;
+  ty1 = bx.r_hi / kFwdTileH;
+  tx0 = bx.c_lo / kFwdTileW;
+  tx1 = bx.c_hi / kFwdTileW;
+  return true;
+}
+
 // Conservative rectangle of quadrant q (rows [r0, r1], cols [c0, c1]).
 __device__ __forceinline__ void quad_rect(const Box& bx, int q, int H, int W,
                                           int& r0, int& r1, int& c0,
@@ -120,48 +161,250 @@ __device__ __forceinline__ void quad_rect(const Box& bx, int q, int H, int W,
   c1 = (q & 1) ? bx.c_hi : min(bx.c_hi, cm_hi);
 }
 
-// Block-wide sum of v; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read from an earlier call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = 0.f;
-  if (warp == 0) {
-    v = lane < kThreads / 32 ? red[lane] : 0.f;
-    v = warp_sum(v);
-  }
-  return v;
+// A positive staged by the forward's tile kernel: its box, half-split
+// thresholds and conservative row bounds (two 16-byte shared reads).
+struct __align__(16) Staged {
+  float x1, y1, x2, y2, xm, ym;
+  int r_lo, r_hi;
+};
+
+__device__ __forceinline__ float bce_term(float s, float y) {
+  return fmaxf(s, 0.f) - s * y + log1pf(expf(-fabsf(s)));
 }
 
-// FWD = true: partial[(bk*S + s)] = this slice's BCE sum.
-// FWD = false: partial[(bk*S + s)*4*NB + q*NB + n] = this slice's
-//              sum of g*(sigmoid(s) - y)*basis[n] over quadrant q.
-// grid (kSlices, K, B)
-template <bool FWD>
+// s0 = v0 . c0 and s1 = v1 . c1 over NB terms, four partial sums each;
+// kSame: c1 is c0, read once
+template <bool kSame>
+__device__ __forceinline__ void dot2(const float4* c0, const float4* c1,
+                                     const float (&v0)[NB],
+                                     const float (&v1)[NB], float& s0,
+                                     float& s1) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
+#pragma unroll
+  for (int m = 0; m < NB / 4; ++m) {
+    const float4 c = c0[m];
+    const float4 d = kSame ? c : c1[m];
+    a0 = fmaf(v0[4 * m], c.x, a0);
+    a1 = fmaf(v0[4 * m + 1], c.y, a1);
+    a2 = fmaf(v0[4 * m + 2], c.z, a2);
+    a3 = fmaf(v0[4 * m + 3], c.w, a3);
+    b0 = fmaf(v1[4 * m], d.x, b0);
+    b1 = fmaf(v1[4 * m + 1], d.y, b1);
+    b2 = fmaf(v1[4 * m + 2], d.z, b2);
+    b3 = fmaf(v1[4 * m + 3], d.w, b3);
+  }
+  s0 = (a0 + a1) + (a2 + a3);
+  s1 = (b0 + b1) + (b2 + b3);
+}
+
+// K3a, pixel tiles. grid (ceil(W/kFwdTileW), ceil(H/kFwdTileH), B), block
+// 32 x 8: warp w holds tile rows 2w and 2w + 1, one pixel of each a lane.
+// For each valid positive k whose tile_span holds this tile t (of
+// T = gridDim.x * gridDim.y): partial[(b*K + k)*T + t] = the tile's BCE sum
+// of k. Nothing else is written. kBits (G <= 64): each thread keeps its
+// pixels' gt as bit masks over the G planes, read once; otherwise each
+// (pixel, positive) reads its gt byte.
+// 2 blocks an SM caps it at 128 registers (64 of them basis values):
+// uncapped it takes ~170 and runs 1.6x slower at 1 block an SM.
+template <bool kBits>
+__global__ void __launch_bounds__(kThreads, 2) mask_bce_fwd_tiles_kernel(
+    const float* __restrict__ basis, const float* __restrict__ cofs,
+    const float* __restrict__ boxes, const uint8_t* __restrict__ gt,
+    const int64_t* __restrict__ gt_idx, const uint8_t* __restrict__ valid,
+    float* __restrict__ partial, int K, int G, int H, int W) {
+  const int b = blockIdx.z;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const int64_t tile = (int64_t)ty * gridDim.x + tx;
+  const int64_t T = (int64_t)gridDim.x * gridDim.y;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * 32 + lane;
+  const int row0 = ty * kFwdTileH + 2 * warp, row1 = row0 + 1;
+  const int col = tx * kFwdTileW + lane;
+  const bool in0 = row0 < H && col < W, in1 = row1 < H && col < W;
+  const int64_t HW = (int64_t)H * W;
+  const int64_t p0 = in0 ? (int64_t)row0 * W + col : 0;
+  const int64_t p1 = in1 ? (int64_t)row1 * W + col : 0;
+  const float ph0 = (float)row0, ph1 = (float)row1, pw = (float)col;
+
+  __shared__ __align__(16) float s_cofs[kFwdChunk * 4 * kQStride];
+  __shared__ Staged s_box[kFwdChunk];
+  __shared__ int64_t s_gt[kFwdChunk];  // gt plane (kBits) or its offset
+  __shared__ int s_k[kFwdChunk];
+  __shared__ float red[kThreads / 32][kFwdChunk];
+  __shared__ unsigned s_ballot[2];
+
+  const float* bb = basis + (int64_t)b * NB * HW;
+  float v0[NB], v1[NB];
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    v0[n] = in0 ? __ldg(bb + n * HW + p0) : 0.f;
+    v1[n] = in1 ? __ldg(bb + n * HW + p1) : 0.f;
+  }
+  // bit g of (hi:lo): the pixel lies in gt plane g
+  uint32_t g0lo = 0u, g0hi = 0u, g1lo = 0u, g1hi = 0u;
+  if (kBits) {
+    const uint8_t* gb = gt + (int64_t)b * G * HW;
+#pragma unroll 4
+    for (int g = 0; g < G; ++g) {
+      const uint32_t y0 = (in0 && gb[g * HW + p0]) ? 1u : 0u;
+      const uint32_t y1 = (in1 && gb[g * HW + p1]) ? 1u : 0u;
+      if (g < 32) {
+        g0lo |= y0 << g;
+        g1lo |= y1 << g;
+      } else {
+        g0hi |= y0 << (g - 32);
+        g1hi |= y1 << (g - 32);
+      }
+    }
+  }
+
+  for (int k0 = 0; k0 < K; k0 += kFwdChunk) {
+    const int kn = min(kFwdChunk, K - k0);
+    __syncthreads();  // the previous chunk's staging is no longer read
+    // 1. which positives of the chunk touch this tile, compacted in order
+    bool hit = false;
+    Box bx;
+    if (tid < kn) {
+      const int64_t bk = (int64_t)b * K + k0 + tid;
+      if (valid[bk] != 0) {
+        bx = load_box(boxes + bk * 4, H, W);
+        int ty0, ty1, tx0, tx1;
+        hit = tile_span(bx, ty0, ty1, tx0, tx1) && ty0 <= ty && ty <= ty1 &&
+              tx0 <= tx && tx <= tx1;
+      }
+    }
+    if (warp < 2) {
+      const unsigned m = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) s_ballot[warp] = m;
+    }
+    __syncthreads();
+    const unsigned m0 = s_ballot[0], m1 = s_ballot[1];
+    const int nhit = __popc(m0) + __popc(m1);
+    if (nhit == 0) continue;  // uniform over the block
+    if (hit) {
+      const unsigned below = (1u << lane) - 1u;
+      const int slot = warp == 0 ? __popc(m0 & below)
+                                 : __popc(m0) + __popc(m1 & below);
+      const int64_t bk = (int64_t)b * K + k0 + tid;
+      const int64_t gi = gt_idx[bk];
+      s_k[slot] = k0 + tid;
+      s_box[slot] = {bx.x1, bx.y1, bx.x2, bx.y2, bx.xm, bx.ym, bx.r_lo,
+                     bx.r_hi};
+      // a gt index outside [0, G) reads as an empty mask
+      s_gt[slot] = !(gi >= 0 && gi < G) ? -1
+                   : kBits             ? gi
+                                       : ((int64_t)b * G + gi) * HW;
+    }
+    __syncthreads();
+    // 2. the hits' coefficients, quadrant q of hit j at (j*4 + q)*kQStride
+    for (int e = tid; e < nhit * 4 * NB; e += kThreads) {
+      const int j = e / (4 * NB), c = e - j * 4 * NB;
+      s_cofs[(j * 4 + c / NB) * kQStride + c % NB] =
+          __ldg(cofs + ((int64_t)b * K + s_k[j]) * 4 * NB + c);
+    }
+    __syncthreads();
+    // 3. each warp's sum of each hit over its 64 pixels. The two rows of a
+    // warp are on one side of the box's half-split but where it passes
+    // between them, so one read of the quadrant's coefficients serves both
+    for (int j = 0; j < nhit; ++j) {
+      const Staged sb = s_box[j];
+      const bool r0 = row0 >= sb.r_lo && row0 <= sb.r_hi;  // uniform over
+      const bool r1 = row1 >= sb.r_lo && row1 <= sb.r_hi;  // the warp
+      float t = 0.f;
+      if (r0 || r1) {
+        const int right = pw >= sb.xm ? 1 : 0;
+        const int q0 = (ph0 >= sb.ym ? 2 : 0) + right;
+        const int q1 = (ph1 >= sb.ym ? 2 : 0) + right;
+        const float4* c0 = reinterpret_cast<const float4*>(
+            s_cofs + (j * 4 + q0) * kQStride);
+        const float4* c1 = reinterpret_cast<const float4*>(
+            s_cofs + (j * 4 + q1) * kQStride);
+        float s0, s1;
+        if (q0 == q1)  // uniform over the warp
+          dot2<true>(c0, c1, v0, v1, s0, s1);
+        else
+          dot2<false>(c0, c1, v0, v1, s0, s1);
+        const bool cin = pw >= sb.x1 && pw < sb.x2;
+        const int64_t gj = s_gt[j];
+        float y0 = 0.f, y1 = 0.f;
+        if (gj >= 0) {
+          if (kBits) {
+            const bool hi = gj >= 32;
+            const int sh = (int)gj & 31;
+            y0 = (float)(((hi ? g0hi : g0lo) >> sh) & 1u);
+            y1 = (float)(((hi ? g1hi : g1lo) >> sh) & 1u);
+          } else {
+            y0 = (float)gt[gj + p0];
+            y1 = (float)gt[gj + p1];
+          }
+        }
+        float e = 0.f;
+        if (in0 && cin && ph0 >= sb.y1 && ph0 < sb.y2) e = bce_term(s0, y0);
+        if (in1 && cin && ph1 >= sb.y1 && ph1 < sb.y2) e += bce_term(s1, y1);
+        t = warp_sum(e);
+      }
+      if (lane == 0) red[warp][j] = t;
+    }
+    __syncthreads();
+    // 4. the 8 warps' sums in order: one partial per hit
+    for (int j = tid; j < nhit; j += kThreads) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) t += red[w][j];
+      partial[((int64_t)b * K + s_k[j]) * T + tile] = t;
+    }
+  }
+}
+
+// K3a, the fold: one warp per (image, positive). pre[bk] = the sum of
+// partial[bk*T + t] over the tiles t of the box's tile_span (tile ty, tx is
+// t = ty*TX + tx): lane i adds the span's tiles i, i + 32, ... in tile
+// order, then the warp's shuffle tree adds the 32 lane sums. Invalid or
+// empty positives give 0.
+__global__ void mask_bce_fold_tiles_kernel(const float* __restrict__ boxes,
+                                           const uint8_t* __restrict__ valid,
+                                           const float* __restrict__ partial,
+                                           float* __restrict__ pre,
+                                           int64_t BK, int H, int W, int TX,
+                                           int64_t T) {
+  const int64_t bk = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (bk >= BK) return;  // uniform over the warp
+  float acc = 0.f;
+  int ty0, ty1, tx0, tx1;
+  if (valid[bk] != 0 &&
+      tile_span(load_box(boxes + bk * 4, H, W), ty0, ty1, tx0, tx1)) {
+    const int nx = tx1 - tx0 + 1, n = (ty1 - ty0 + 1) * nx;
+    const float* pp = partial + bk * T;
+    for (int e = lane; e < n; e += 32) {
+      const int r = e / nx;
+      acc += pp[(int64_t)(ty0 + r) * TX + tx0 + (e - r * nx)];
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) pre[bk] = acc;
+}
+
+// K3b, d cofs: partial[(bk*S + s)*4*NB + q*NB + n] = this slice's sum of
+// g*(sigmoid(s) - y)*basis[n] over quadrant q. grid (kSlices, K, B)
 __global__ void __launch_bounds__(kThreads) mask_bce_slices_kernel(
     const float* __restrict__ basis, const float* __restrict__ cofs,
     const float* __restrict__ boxes, const uint8_t* __restrict__ gt,
-    const int* __restrict__ gt_idx, const uint8_t* __restrict__ valid,
+    const int64_t* __restrict__ gt_idx, const uint8_t* __restrict__ valid,
     const float* __restrict__ gk, float* __restrict__ partial, int K, int G,
     int H, int W) {
   const int s = blockIdx.x, k = blockIdx.y, b = blockIdx.z;
   const int64_t bk = (int64_t)b * K + k;
   const int64_t HW = (int64_t)H * W;
-  __shared__ float red[kThreads / 32];
   __shared__ float red32[kThreads / 32][NB];
 
-  const float gval = FWD ? 1.f : gk[bk];
-  const int gi = gt_idx[bk];
+  const float gval = gk[bk];
+  const int64_t gi = gt_idx[bk];
   const bool live = valid[bk] != 0 && gval != 0.f;
   if (!live) {  // uniform over the block
-    if (FWD) {
-      if (threadIdx.x == 0) partial[bk * kSlices + s] = 0.f;
-    } else {
-      for (int i = threadIdx.x; i < 4 * NB; i += kThreads)
-        partial[(bk * kSlices + s) * 4 * NB + i] = 0.f;
-    }
+    for (int i = threadIdx.x; i < 4 * NB; i += kThreads)
+      partial[(bk * kSlices + s) * 4 * NB + i] = 0.f;
     return;
   }
   const Box bx = load_box(boxes + bk * 4, H, W);
@@ -169,14 +412,13 @@ __global__ void __launch_bounds__(kThreads) mask_bce_slices_kernel(
   // a gt index outside [0, G) reads as an empty mask
   const uint8_t* gm = (gi >= 0 && gi < G) ? gt + ((int64_t)b * G + gi) * HW
                                           : nullptr;
-  float fwd_acc = 0.f;
   for (int q = 0; q < 4; ++q) {
     float c[NB];
 #pragma unroll
     for (int n = 0; n < NB; ++n) c[n] = __ldg(cofs + bk * 4 * NB + q * NB + n);
-    float acc[FWD ? 1 : NB];
+    float acc[NB];
 #pragma unroll
-    for (int n = 0; n < (FWD ? 1 : NB); ++n) acc[n] = 0.f;
+    for (int n = 0; n < NB; ++n) acc[n] = 0.f;
 
     int r0, r1, c0, c1;
     quad_rect(bx, q, H, W, r0, r1, c0, c1);
@@ -199,33 +441,23 @@ __global__ void __launch_bounds__(kThreads) mask_bce_slices_kernel(
         sl += v[n] * c[n];
       }
       const float y = gm ? (float)gm[p] : 0.f;
-      if (FWD) {
-        fwd_acc += fmaxf(sl, 0.f) - sl * y + log1pf(expf(-fabsf(sl)));
-      } else {
-        const float d = gval * (1.f / (1.f + expf(-sl)) - y);
+      const float d = gval * (1.f / (1.f + expf(-sl)) - y);
 #pragma unroll
-        for (int n = 0; n < NB; ++n) acc[n] += d * v[n];
-      }
+      for (int n = 0; n < NB; ++n) acc[n] += d * v[n];
     }
-    if (!FWD) {
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        const float t = warp_sum(acc[n]);
-        if (lane == 0) red32[warp][n] = t;
-      }
-      __syncthreads();
-      if (threadIdx.x < NB) {
-        float t = 0.f;
-        for (int w = 0; w < kThreads / 32; ++w) t += red32[w][threadIdx.x];
-        partial[(bk * kSlices + s) * 4 * NB + q * NB + threadIdx.x] = t;
-      }
-      __syncthreads();  // red32 is reused by the next quadrant
+    for (int n = 0; n < NB; ++n) {
+      const float t = warp_sum(acc[n]);
+      if (lane == 0) red32[warp][n] = t;
     }
-  }
-  if (FWD) {
-    const float t = block_sum(fwd_acc, red);
-    if (threadIdx.x == 0) partial[bk * kSlices + s] = t;
+    __syncthreads();
+    if (threadIdx.x < NB) {
+      float t = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) t += red32[w][threadIdx.x];
+      partial[(bk * kSlices + s) * 4 * NB + q * NB + threadIdx.x] = t;
+    }
+    __syncthreads();  // red32 is reused by the next quadrant
   }
 }
 
@@ -247,7 +479,7 @@ __global__ void fold_slices_kernel(const float* __restrict__ partial,
 __global__ void __launch_bounds__(kThreads) mask_bce_dbasis_kernel(
     const float* __restrict__ basis, const float* __restrict__ cofs,
     const float* __restrict__ boxes, const uint8_t* __restrict__ gt,
-    const int* __restrict__ gt_idx, const uint8_t* __restrict__ valid,
+    const int64_t* __restrict__ gt_idx, const uint8_t* __restrict__ valid,
     const float* __restrict__ gk, float* __restrict__ dbasis, int K, int G,
     int H, int W) {
   const int b = blockIdx.z;
@@ -291,7 +523,7 @@ __global__ void __launch_bounds__(kThreads) mask_bce_dbasis_kernel(
       float sl = 0.f;
 #pragma unroll
       for (int n = 0; n < NB; ++n) sl += v[n] * __ldg(c + n);
-      const int gi = gt_idx[bk];
+      const int64_t gi = gt_idx[bk];
       const float y = (gi >= 0 && gi < G)
                           ? (float)gt[((int64_t)b * G + gi) * HW + p]
                           : 0.f;
@@ -307,15 +539,9 @@ __global__ void __launch_bounds__(kThreads) mask_bce_dbasis_kernel(
   }
 }
 
-int fold(const float* partial, float* out, int64_t n, int L,
-         cudaStream_t st) {
-  const int64_t total = n * L;
-  const int blocks = (int)((total + kThreads - 1) / kThreads < 4096
-                               ? (total + kThreads - 1) / kThreads
-                               : 4096);
-  if (total == 0) return 0;
-  fold_slices_kernel<<<blocks, kThreads, 0, st>>>(partial, out, n, L);
-  return (int)cudaGetLastError();
+int64_t num_fwd_tiles(int H, int W) {
+  return (int64_t)((H + kFwdTileH - 1) / kFwdTileH) *
+         ((W + kFwdTileW - 1) / kFwdTileW);
 }
 
 }  // namespace
@@ -325,21 +551,37 @@ extern "C" {
 int mask_bce_num_bases() { return NB; }
 int mask_bce_num_slices() { return kSlices; }
 
-// pre (B, K) f32; partial: B*K*kSlices floats of scratch. Returns the
+// Floats of scratch mask_bce_fwd_f32 takes: one partial per (image,
+// positive, pixel tile).
+int64_t mask_bce_fwd_scratch(int B, int K, int H, int W) {
+  return (int64_t)B * K * num_fwd_tiles(H, W);
+}
+
+// pre (B, K) f32; partial: mask_bce_fwd_scratch(B, K, H, W) floats of
+// scratch. Two launches, the tile kernel and the fold. Returns the
 // cudaError_t of the first failed launch (0 on success).
 int mask_bce_fwd_f32(const void* basis, const void* cofs, const void* boxes,
                      const void* gt, const void* gt_idx, const void* valid,
                      void* partial, void* pre, int B, int K, int G, int H,
                      int W, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(kSlices, K, B);
-  mask_bce_slices_kernel<true><<<grid, kThreads, 0, st>>>(
+  const int tx = (W + kFwdTileW - 1) / kFwdTileW;
+  const dim3 grid(tx, (H + kFwdTileH - 1) / kFwdTileH, B);
+  auto kernel = G <= 64 ? mask_bce_fwd_tiles_kernel<true>
+                        : mask_bce_fwd_tiles_kernel<false>;
+  kernel<<<grid, dim3(32, kThreads / 32), 0, st>>>(
       (const float*)basis, (const float*)cofs, (const float*)boxes,
-      (const uint8_t*)gt, (const int*)gt_idx, (const uint8_t*)valid, nullptr,
+      (const uint8_t*)gt, (const int64_t*)gt_idx, (const uint8_t*)valid,
       (float*)partial, K, G, H, W);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return fold((const float*)partial, (float*)pre, (int64_t)B * K, 1, st);
+  const int64_t bk = (int64_t)B * K;
+  const int warps = kThreads / 32;
+  mask_bce_fold_tiles_kernel<<<(unsigned)((bk + warps - 1) / warps), kThreads,
+                               0, st>>>(
+      (const float*)boxes, (const uint8_t*)valid, (const float*)partial,
+      (float*)pre, bk, H, W, tx, num_fwd_tiles(H, W));
+  return (int)cudaGetLastError();
 }
 
 // dbasis (B, NB, H, W), dcofs (B, K, 4*NB) f32; partial: B*K*kSlices*4*NB
@@ -350,19 +592,25 @@ int mask_bce_bwd_f32(const void* basis, const void* cofs, const void* boxes,
                      int B, int K, int G, int H, int W, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(kSlices, K, B);
-  mask_bce_slices_kernel<false><<<grid, kThreads, 0, st>>>(
+  mask_bce_slices_kernel<<<grid, kThreads, 0, st>>>(
       (const float*)basis, (const float*)cofs, (const float*)boxes,
-      (const uint8_t*)gt, (const int*)gt_idx, (const uint8_t*)valid,
+      (const uint8_t*)gt, (const int64_t*)gt_idx, (const uint8_t*)valid,
       (const float*)g, (float*)partial, K, G, H, W);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int code = fold((const float*)partial, (float*)dcofs, (int64_t)B * K,
-                        4 * NB, st);
-  if (code != 0) return code;
+  const int64_t total = (int64_t)B * K * 4 * NB;
+  const int blocks = (int)((total + kThreads - 1) / kThreads < 4096
+                               ? (total + kThreads - 1) / kThreads
+                               : 4096);
+  if (total > 0)
+    fold_slices_kernel<<<blocks, kThreads, 0, st>>>(
+        (const float*)partial, (float*)dcofs, (int64_t)B * K, 4 * NB);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const dim3 tgrid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   mask_bce_dbasis_kernel<<<tgrid, dim3(kTileW, kTileH), 0, st>>>(
       (const float*)basis, (const float*)cofs, (const float*)boxes,
-      (const uint8_t*)gt, (const int*)gt_idx, (const uint8_t*)valid,
+      (const uint8_t*)gt, (const int64_t*)gt_idx, (const uint8_t*)valid,
       (const float*)g, (float*)dbasis, K, G, H, W);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,7 @@ import torch
 
 from . import native
 from .crop_split import mask_bce_loss_indexed
+from .mask_assembly import _colmix_logits
 
 
 def mask_bce_loss_plain(basis, cofs, boxes, gt_masks, gt_idx, valid):
@@ -33,6 +34,62 @@ def mask_bce_loss_plain(basis, cofs, boxes, gt_masks, gt_idx, valid):
                               boxes[i].detach(), gt_masks[i], gt_idx[i])
         for i in range(basis.shape[0])])
     return torch.where(valid, pre, torch.zeros_like(pre))
+
+
+TILE_H, TILE_W = 16, 32   # K3a's pixel tiles (kFwdTileH, kFwdTileW)
+
+
+def _clip(f, lo: int, hi: int):
+    """f clipped to [lo, hi] as the kernels' clip_floor / clip_ceil do it:
+    NaN gives lo."""
+    return torch.where(f > lo, torch.where(f >= hi, torch.full_like(f, hi),
+                                           f), torch.full_like(f, lo)).long()
+
+
+def tile_hits(boxes, valid, h: int, w: int):
+    """K3a's hit predicate, (B, K, ceil(h/16), ceil(w/32)) bool: the 16x32
+    pixel tiles whose partial the tile kernel writes and the fold adds
+    (``tile_span`` in ``csrc/mask_bce.cu``). A valid box touches the tiles
+    of its conservative integer bounds (floor of x1, y1 and ceil of x2, y2,
+    clipped to the map); off the map, degenerate and NaN boxes touch none."""
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    c_lo, c_hi = _clip(torch.floor(x1), 0, w), _clip(torch.ceil(x2), -1, w - 1)
+    r_lo, r_hi = _clip(torch.floor(y1), 0, h), _clip(torch.ceil(y2), -1, h - 1)
+    some = valid & (c_lo <= c_hi) & (r_lo <= r_hi)
+    ty = torch.arange(-(-h // TILE_H), device=boxes.device)[:, None]
+    tx = torch.arange(-(-w // TILE_W), device=boxes.device)[None, :]
+
+    def span(lo, hi, t, size):
+        return ((lo // size)[..., None, None] <= t) & (
+            t <= (hi // size)[..., None, None])
+    return (some[..., None, None] & span(r_lo, r_hi, ty, TILE_H)
+            & span(c_lo, c_hi, tx, TILE_W))
+
+
+def mask_bce_forward_tiled_plain(basis, cofs, boxes, gt_masks, gt_idx,
+                                 valid):
+    """K3a in the kernel's order, in plain PyTorch (for the tests): each
+    (positive, 16x32 tile) partial of the stable BCE, then the fold over the
+    tiles :func:`tile_hits` marks. A gt index outside [0, G) reads as an
+    empty mask. (B, K) f32, 0 where ``valid`` is False."""
+    b, nb, h, w, k, g = _check(basis, cofs, boxes, gt_masks, gt_idx, valid)
+    th, tw = -(-h // TILE_H), -(-w // TILE_W)
+    parts = []
+    for i in range(b):
+        sel, in_box = _colmix_logits(basis[i].permute(1, 2, 0), cofs[i],
+                                     boxes[i])                   # (h, w, K)
+        idx = gt_idx[i].long()
+        y = gt_masks[i][idx.clamp(0, g - 1)].permute(1, 2, 0).to(sel.dtype)
+        y = y * ((idx >= 0) & (idx < g)).to(sel.dtype)
+        bce = (sel.clamp(min=0) - sel * y + torch.log1p(torch.exp(
+            -sel.abs()))) * in_box.to(sel.dtype)
+        bce = torch.nn.functional.pad(
+            bce, (0, 0, 0, tw * TILE_W - w, 0, th * TILE_H - h))
+        parts.append(bce.reshape(th, TILE_H, tw, TILE_W, k).sum((1, 3))
+                     .permute(2, 0, 1))                          # (K, th, tw)
+    partial = torch.stack(parts)
+    hits = tile_hits(boxes, valid, h, w)
+    return torch.where(hits, partial, torch.zeros_like(partial)).sum((2, 3))
 
 
 def _check(basis, cofs, boxes, gt_masks, gt_idx, valid):
@@ -65,6 +122,8 @@ def _lib():
     if lib.mask_bce_fwd_f32.argtypes is None:
         for fn in (lib.mask_bce_num_bases, lib.mask_bce_num_slices):
             fn.restype, fn.argtypes = ctypes.c_int, []
+        lib.mask_bce_fwd_scratch.restype = ctypes.c_int64
+        lib.mask_bce_fwd_scratch.argtypes = [ctypes.c_int] * 4
         lib.mask_bce_fwd_f32.restype = ctypes.c_int
         lib.mask_bce_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -76,7 +135,7 @@ def _lib():
 
 def _cuda_operands(basis, cofs, boxes, gt_masks, gt_idx, valid):
     """Check what the kernels take; gt, gt_idx and valid in the kernels'
-    integer types."""
+    integer types (uint8, int64, uint8)."""
     if basis.device.type != "cuda":
         raise ValueError(f"no K3 kernel for device {basis.device}")
     dims = _check(basis, cofs, boxes, gt_masks, gt_idx, valid)
@@ -91,9 +150,12 @@ def _cuda_operands(basis, cofs, boxes, gt_masks, gt_idx, valid):
                          f"basis masks, got {dims[1]}")
     if dims[0] > 65535 or dims[4] > 65535:
         raise ValueError(f"grid too large for B={dims[0]}, K={dims[4]}")
+    # views where the caller's types already fit (int64 indices and bool
+    # validity, as the loss gives them): no conversion kernel a call
     return (lib, dims, gt_masks.view(torch.uint8),
-            gt_idx.to(torch.int32).contiguous(),
-            valid.to(torch.uint8).contiguous())
+            gt_idx.to(torch.int64).contiguous(),
+            valid.contiguous().view(torch.uint8) if valid.dtype == torch.bool
+            else valid.to(torch.uint8).contiguous())
 
 
 def mask_bce_forward(basis, cofs, boxes, gt_masks, gt_idx, valid):
@@ -113,7 +175,9 @@ def mask_bce_forward(basis, cofs, boxes, gt_masks, gt_idx, valid):
     pre = torch.empty((b, k), device=basis.device, dtype=torch.float32)
     if pre.numel() == 0:
         return pre
-    partial = torch.empty((b * k * lib.mask_bce_num_slices(),),
+    # one partial per (image, positive, 16x32 pixel tile); the fold reads
+    # only those the tile kernel wrote
+    partial = torch.empty((lib.mask_bce_fwd_scratch(b, k, h, w),),
                           device=basis.device, dtype=torch.float32)
     with torch.cuda.device(basis.device):
         code = lib.mask_bce_fwd_f32(

@@ -155,45 +155,78 @@ def test_deform_conv_backward_kernel_matches_plain(dev, b, c, g, h, w,
         assert not got[0].any() and not got[1].any()
 
 
-def _mask_case(dev, b, k, g, h, w, seed=3):
-    """Basis, coefficients, boxes covering 5-60% of the map (a few
-    degenerate or off the map), gt masks, gt indices and validity."""
+def _mask_case(dev, b, k, g, h, w, seed=3, regime="random"):
+    """Basis, coefficients, boxes, gt masks, gt indices and validity.
+    Boxes: 'random' ones covering 5-60% of the map (a few degenerate or off
+    the map); 'crowded', k positives jittered +-3 px around g gt boxes, as
+    FCOS positives of one gt are, each indexing its gt (hundreds of boxes
+    touch a tile); 'edges', corners at and beside multiples of 8, 16 and 32
+    (the pixel tiles' edges), at x.5 and at 0 and the map's width or
+    height."""
     rng = np.random.RandomState(seed)
     basis = torch.from_numpy(rng.randn(b, 32, h, w).astype(np.float32))
     cofs = torch.from_numpy((rng.randn(b, k, 128) * 0.3).astype(np.float32))
-    frac = np.sqrt(rng.uniform(0.05, 0.6, (b, k, 1)))
-    wh = frac * np.array([w, h], np.float32)
-    ctr = rng.uniform(0, 1, (b, k, 2)) * np.array([w, h], np.float32)
-    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(
-        np.float32)
-    boxes[:, ::17] = [5.3, 7.1, 5.2, 30.0]          # degenerate (x2 < x1)
-    boxes[:, 1::23] += np.float32(2 * w)             # off the map
+    gt_idx = None
+    if regime == "crowded":
+        gt_idx = rng.randint(0, g, (b, k))
+        frac = np.sqrt(rng.uniform(0.05, 0.6, (b, g, 1)))
+        wh = frac * np.array([w, h])
+        ctr = rng.uniform(0.2, 0.8, (b, g, 2)) * np.array([w, h])
+        gts = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+        boxes = (np.take_along_axis(gts, gt_idx[..., None], 1)
+                 + rng.uniform(-3, 3, (b, k, 4))).astype(np.float32)
+    elif regime == "edges":
+        xs = np.float32([0, 0.5, 7.5, 8, 31, 31.5, 32, 32.5, 40, 63, 64,
+                         w - 1, w - 0.5, w, w + 0.5])
+        ys = np.float32([0, 0.5, 7, 7.5, 8, 8.5, 15, 16, 24, 31, 32, h - 1,
+                         h - 0.5, h])
+        bx = np.sort(rng.choice(xs, (b, k, 2)), -1)
+        by = np.sort(rng.choice(ys, (b, k, 2)), -1)
+        boxes = np.stack([bx[..., 0], by[..., 0], bx[..., 1], by[..., 1]],
+                         -1)
+    else:
+        frac = np.sqrt(rng.uniform(0.05, 0.6, (b, k, 1)))
+        wh = frac * np.array([w, h], np.float32)
+        ctr = rng.uniform(0, 1, (b, k, 2)) * np.array([w, h], np.float32)
+        boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(
+            np.float32)
+        boxes[:, ::17] = [5.3, 7.1, 5.2, 30.0]      # degenerate (x2 < x1)
+        boxes[:, 1::23] += np.float32(2 * w)         # off the map
     gt = torch.from_numpy((rng.rand(b, g, h, w) > 0.5).astype(np.uint8))
-    gt_idx = torch.from_numpy(rng.randint(0, g, (b, k)))
+    if gt_idx is None:
+        gt_idx = rng.randint(0, g, (b, k))
+    gt_idx = torch.from_numpy(gt_idx)
     valid = torch.from_numpy(rng.rand(b, k) > 0.2)
     return [t.to(dev) for t in (basis, cofs, torch.from_numpy(boxes), gt,
                                 gt_idx, valid)]
 
 
-@pytest.mark.parametrize("b,k,g,h,w", [
-    (2, 512, 64, 400, 672),    # the flagship's basis grid, max_pos, max_gts
-    (1, 37, 5, 33, 47),
+@pytest.mark.parametrize("b,k,g,h,w,regime", [
+    # the flagship's basis grid, max_pos, max_gts
+    (2, 512, 64, 400, 672, "random"),
+    (1, 37, 5, 33, 47, "random"),      # ragged tiles; K < one chunk
+    (2, 512, 8, 400, 672, "crowded"),  # hundreds of hits a tile
+    (1, 100, 5, 64, 96, "edges"),      # K not a multiple of the chunk
+    (1, 130, 5, 61, 101, "edges"),     # and ragged tiles
+    (1, 100, 70, 64, 96, "random"),    # G > 64: gt bytes, not bit masks
 ])
-def test_mask_bce_kernels_match_plain(dev, b, k, g, h, w):
+def test_mask_bce_kernels_match_plain(dev, b, k, g, h, w, regime):
     from sipmask_tpu_torch.ops import mask_loss
-    args = _mask_case(dev, b, k, g, h, w)
+    args = _mask_case(dev, b, k, g, h, w, regime=regime)
     grad = torch.from_numpy(np.random.RandomState(4).rand(b, k).astype(
         np.float32)).to(dev)
     grad[:, ::5] = 0.0                       # skipped: zero cotangent
     f0, b0 = (mask_loss.mask_bce_forward.launches,
               mask_loss.mask_bce_backward.launches)
     pre = mask_loss.mask_bce_forward(*args)
+    pre_again = mask_loss.mask_bce_forward(*args)
     dbasis, dcofs = mask_loss.mask_bce_backward(*args, grad)
     again = mask_loss.mask_bce_backward(*args, grad)
     torch.cuda.synchronize()
-    assert mask_loss.mask_bce_forward.launches == f0 + 1
+    assert mask_loss.mask_bce_forward.launches == f0 + 2
     assert mask_loss.mask_bce_backward.launches == b0 + 2
     # fixed-order folds, no atomics: the same bits on every run
+    assert torch.equal(pre, pre_again)
     assert torch.equal(dbasis, again[0]) and torch.equal(dcofs, again[1])
     want_pre = mask_loss.mask_bce_loss_plain(*args)
     want_db, want_dc = mask_loss.mask_bce_backward_plain(*args, grad)

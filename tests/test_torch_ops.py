@@ -369,6 +369,93 @@ def test_mask_loss_wrappers_match_the_fused_kernel():
                                atol=1e-6)
 
 
+def test_mask_bce_tiled_plain_matches_plain_and_the_fused_kernel():
+    """K3a's order in plain PyTorch (a partial per positive and 16x32 pixel
+    tile, then the fold over the tiles the hit predicate marks) against the
+    plain version and the JAX Pallas kernel in interpret mode."""
+    basis, cofs, boxes, gt, gt_idx, valid = _mask_case(13, w=72)
+    want = mask_bce_loss_fused(
+        jnp.asarray(basis.transpose(0, 2, 3, 1)), jnp.asarray(cofs),
+        jnp.asarray(boxes), jnp.asarray(gt), jnp.asarray(gt_idx),
+        interpret=True, mm_dtype=jnp.float32, valid=jnp.asarray(valid))
+    args = (T(basis), T(cofs), T(boxes), T(gt), T(gt_idx), T(valid))
+    got = mask_loss.mask_bce_forward_tiled_plain(*args)
+    assert not got[~args[5]].any()
+    # f32 sums over up to 1728 pixels, in another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(
+        got.numpy(), mask_loss.mask_bce_loss_plain(*args).numpy(), rtol=1e-5,
+        atol=1e-3)
+
+
+def _regime_boxes(regime, rng, b, k, h, w):
+    """(b, k, 4) boxes: 'random' in and across the map's borders;
+    'degenerate' (x2 <= x1, y2 <= y1, or no integer inside); 'off_map'
+    (wholly or partly outside); 'nan' (one coordinate NaN); 'tile_edges'
+    (corners at and beside multiples of 8, 16 and 32, at x.5, at 0 and at w
+    or h)."""
+    x1 = rng.uniform(-5, w, (b, k))
+    y1 = rng.uniform(-5, h, (b, k))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(0.5, w, (b, k)),
+                      y1 + rng.uniform(0.5, h, (b, k))], -1)
+    if regime == "degenerate":
+        boxes[:, 0::3, 2] = boxes[:, 0::3, 0] - rng.uniform(0, 3, (b, 1))
+        boxes[:, 1::3, 3] = boxes[:, 1::3, 1]
+        boxes[:, 2::3, 0] = np.floor(boxes[:, 2::3, 0]) + 0.2
+        boxes[:, 2::3, 2] = boxes[:, 2::3, 0] + 0.6
+    elif regime == "off_map":
+        shift = rng.choice([-1.0, 1.0], (b, k, 2)) * rng.uniform(
+            0.5, 2.0, (b, k, 2)) * np.array([w, h])
+        boxes += np.concatenate([shift, shift], -1)
+    elif regime == "nan":
+        boxes[np.arange(b)[:, None], np.arange(k)[None],
+              rng.randint(0, 4, (b, k))] = np.nan
+        boxes[:, ::4] = [2.0, 3.0, 20.0, 11.0]       # some stay finite
+    elif regime == "tile_edges":
+        xs = [0, 0.5, 7.5, 8, 31, 31.5, 32, 32.5, 63, 63.5, 64, w - 1,
+              w - 0.5, w, w + 0.5]
+        ys = [0, 0.5, 7, 7.5, 8, 8.5, 15, 15.5, 16, 31, 32, h - 1, h - 0.5,
+              h, h + 0.5]
+        bx = np.sort(rng.choice(xs, (b, k, 2)), -1)
+        by = np.sort(rng.choice(ys, (b, k, 2)), -1)
+        boxes = np.stack([bx[..., 0], by[..., 0], bx[..., 1], by[..., 1]],
+                         -1)
+    return boxes.astype(np.float32)
+
+
+@pytest.mark.parametrize("regime", ["random", "degenerate", "off_map", "nan",
+                                    "tile_edges"])
+def test_mask_bce_tiles_hold_every_in_box_pixel(regime):
+    """No pixel inside a valid box (CropSplit's float rule) lies in a tile
+    that K3a's hit predicate misses, so the fold drops nothing; the tiled
+    plain version then equals the plain version."""
+    b, k, h, w = 2, 24, 40, 72            # ragged tiles in both directions
+    rng = np.random.RandomState(21)
+    basis, cofs, _, gt, gt_idx, valid = _mask_case(22, b, k, 5, h, w)
+    boxes = T(_regime_boxes(regime, rng, b, k, h, w))
+    valid = T(valid)
+    hits = mask_loss.tile_hits(boxes, valid, h, w)
+    th, tw = mask_loss.TILE_H, mask_loss.TILE_W
+    nth, ntw = -(-h // th), -(-w // tw)
+    assert hits.shape == (b, k, nth, ntw)
+    pw = torch.arange(w, dtype=torch.float32)
+    ph = torch.arange(h, dtype=torch.float32)[:, None]
+    x1, y1, x2, y2 = (boxes[..., i, None, None] for i in range(4))
+    in_box = (pw >= x1) & (pw < x2) & (ph >= y1) & (ph < y2)
+    in_box &= valid[..., None, None]
+    in_tile = torch.nn.functional.pad(
+        in_box, (0, ntw * tw - w, 0, nth * th - h)).reshape(
+            b, k, nth, th, ntw, tw).any(5).any(3)
+    assert not (in_tile & ~hits).any()
+    if regime in ("random", "tile_edges"):
+        assert in_tile.any()
+    args = (T(basis), T(cofs), boxes, T(gt), T(gt_idx), valid)
+    np.testing.assert_allclose(
+        mask_loss.mask_bce_forward_tiled_plain(*args).numpy(),
+        mask_loss.mask_bce_loss_plain(*args).numpy(), rtol=1e-5, atol=1e-3)
+
+
 # ----------------------------------------------------- targets and losses
 
 def test_fcos_targets_match_jax():
