@@ -23,7 +23,8 @@ the port's entry points, serving and then training each: the high-accuracy
    versions at the train step's shapes, and times both at batch 4; splits
    one K2 sweep, one K3a and one K3b call, and one K4b sweep and call into
    their device kernels with ``torch.profiler`` (a K3a call must be two
-   kernels that give the same bits twice, a K4b call two kernels), and
+   kernels and a K3b call three, each giving the same bits twice; a K4b
+   call two kernels), and
    times ``torch.matmul`` on K2's two products as a yardstick of its GEMMs;
 7. runs 3 SGD steps at 800x1344, batch 4, through ``create_train_state`` /
    ``make_train_step``, counting kernel launches, and checks the losses,
@@ -563,18 +564,22 @@ def phase_train_kernels(dev):
     times["mask_bce_forward"] = turns(
         f"K3a mask_bce_forward {MASK_HW} K={MAX_POS} bs{BATCH}", k3a_plain,
         k3a_call, iters=5)
-    # a K3a call is its two kernels (pixel tiles, fold) and gives the same
-    # bits every time; K3b's split is logged
+    # a K3a call is its two kernels (pixel tiles, fold), a K3b call its
+    # three (d basis tiles, d cofs tiles, fold); each gives the same bits
+    # every time
+    def k3b_call():
+        return mask_loss.mask_bce_backward(*args, grad)
     if not torch.equal(k3a_call(), k3a_call()):
         raise AssertionError("two K3a calls gave different bits")
-    _, n_kern = launch_split(f"K3a mask_bce_forward, one call at {MASK_HW} "
-                             f"K={MAX_POS} bs{BATCH}", k3a_call)
-    if n_kern != 2:
-        raise AssertionError(f"a K3a call ran {n_kern} device kernels, not "
-                             f"its two")
-    launch_split(f"K3b mask_bce_backward, one call at {MASK_HW} K={MAX_POS} "
-                 f"bs{BATCH}", lambda: mask_loss.mask_bce_backward(*args,
-                                                                   grad))
+    if not all(torch.equal(a, b) for a, b in zip(k3b_call(), k3b_call())):
+        raise AssertionError("two K3b calls gave different bits")
+    for label, call, want in (("K3a mask_bce_forward", k3a_call, 2),
+                              ("K3b mask_bce_backward", k3b_call, 3)):
+        _, n_kern = launch_split(f"{label}, one call at {MASK_HW} "
+                                 f"K={MAX_POS} bs{BATCH}", call)
+        if n_kern != want:
+            raise AssertionError(f"a {label} call ran {n_kern} device "
+                                 f"kernels, not its {want}")
     # the work is the in-box pixels of the valid positives: a 32-term dot
     # and a BCE (~76 flops) each forward, ~200 backward
     inbox = in_box_pixels(args[2], args[5], *MASK_HW)
@@ -588,7 +593,7 @@ def phase_train_kernels(dev):
     times["mask_bce_backward"] = turns(
         f"K3b mask_bce_backward {MASK_HW} K={MAX_POS} bs{BATCH}",
         lambda: torch.autograd.grad(pre_p, leaves, grad, retain_graph=True),
-        lambda: mask_loss.mask_bce_backward(*args, grad), iters=5)
+        k3b_call, iters=5)
     del args, grad, leaves, pre_p
     k4_in = []
     for h, w in LEVELS:

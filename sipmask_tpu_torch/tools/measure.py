@@ -219,10 +219,11 @@ def event_and_host_ms(sweep, iters):
 # kernel-name fragments of the port's kernels -> their ids
 OWNERS = {"deform_im2col": "K1", "deform_bwd": "K2", "fold_partials": "K2",
           "deform_col2im": "K2", "mask_bce_fwd_tiles": "K3a",
-          "mask_bce_fold_tiles": "K3a", "mask_bce_slices": "K3b",
-          "fold_slices": "K3b", "mask_bce_dbasis": "K3b", "gn_stats": "K4a",
-          "gn_apply": "K4a", "gn_bwd": "K4b", "deform_rows_fwd": "K5",
-          "deform_rows_bwd": "K5c", "assemble_masks": "K6"}
+          "mask_bce_fold_tiles": "K3a", "mask_bce_dbasis_tiles": "K3b",
+          "mask_bce_dcofs_tiles": "K3b", "mask_bce_fold_dcofs": "K3b",
+          "gn_stats": "K4a", "gn_apply": "K4a", "gn_bwd": "K4b",
+          "deform_rows_fwd": "K5", "deform_rows_bwd": "K5c",
+          "assemble_masks": "K6"}
 CUDNN = ("cudnn", "xmma", "convolve", "winograd", "implicit", "dgrad",
          "wgrad", "gemm")
 

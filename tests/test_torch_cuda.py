@@ -162,7 +162,9 @@ def _mask_case(dev, b, k, g, h, w, seed=3, regime="random"):
     FCOS positives of one gt are, each indexing its gt (hundreds of boxes
     touch a tile); 'edges', corners at and beside multiples of 8, 16 and 32
     (the pixel tiles' edges), at x.5 and at 0 and the map's width or
-    height."""
+    height; 'split', odd-width boxes whose half-split passes between two
+    columns of a tile and between the two rows of a warp; 'live', boxes
+    that cover the map, every positive valid."""
     rng = np.random.RandomState(seed)
     basis = torch.from_numpy(rng.randn(b, 32, h, w).astype(np.float32))
     cofs = torch.from_numpy((rng.randn(b, k, 128) * 0.3).astype(np.float32))
@@ -184,6 +186,17 @@ def _mask_case(dev, b, k, g, h, w, seed=3, regime="random"):
         by = np.sort(rng.choice(ys, (b, k, 2)), -1)
         boxes = np.stack([bx[..., 0], by[..., 0], bx[..., 1], by[..., 1]],
                          -1)
+    elif regime == "split":
+        r, s = rng.randint(2, 40, (b, k)), rng.randint(2, 30, (b, k))
+        cx = 32 * rng.randint(0, w // 32, (b, k)) + rng.randint(1, 31, (b, k))
+        cy = 16 * rng.randint(0, h // 16, (b, k)) + 2 * rng.randint(0, 8,
+                                                                    (b, k))
+        boxes = np.stack([cx - r, cy - s, cx + r + 1, cy + s + 1],
+                         -1).astype(np.float32)
+    elif regime == "live":
+        lo = rng.uniform(-5, 5, (b, k, 2))
+        hi = rng.uniform(-5, 5, (b, k, 2)) + np.array([w, h])
+        boxes = np.concatenate([lo, hi], -1).astype(np.float32)
     else:
         frac = np.sqrt(rng.uniform(0.05, 0.6, (b, k, 1)))
         wh = frac * np.array([w, h], np.float32)
@@ -196,7 +209,7 @@ def _mask_case(dev, b, k, g, h, w, seed=3, regime="random"):
     if gt_idx is None:
         gt_idx = rng.randint(0, g, (b, k))
     gt_idx = torch.from_numpy(gt_idx)
-    valid = torch.from_numpy(rng.rand(b, k) > 0.2)
+    valid = torch.from_numpy((rng.rand(b, k) > 0.2) | (regime == "live"))
     return [t.to(dev) for t in (basis, cofs, torch.from_numpy(boxes), gt,
                                 gt_idx, valid)]
 
@@ -235,6 +248,37 @@ def test_mask_bce_kernels_match_plain(dev, b, k, g, h, w, regime):
     # up to 268800 pixels, in another order than the plain matmuls
     for name, a, e in (("pre", pre, want_pre), ("dbasis", dbasis, want_db),
                        ("dcofs", dcofs, want_dc)):
+        err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("case", ["zero_grad", "split", "live"])
+def test_mask_bce_backward_kernels_where_they_branch(dev, case):
+    """K3b's tile kernels where their paths branch: an all-zero cotangent
+    (every hit dropped at staging: exact zeros); half-splits through a
+    warp's columns and between its two rows (a reduce-scatter for each
+    quadrant of a warp); K = 200 positives that all touch every tile with
+    a live cotangent (four staging chunks, each folding its d cofs sums in
+    eight sub-chunks of the shared buffer)."""
+    from sipmask_tpu_torch.ops import mask_loss
+    b, k, g, h, w = 2, 200 if case == "live" else 150, 5, 80, 128
+    args = _mask_case(dev, b, k, g, h, w,
+                      regime="random" if case == "zero_grad" else case)
+    grad = torch.from_numpy(np.random.RandomState(4).rand(b, k).astype(
+        np.float32) + 0.1).to(dev)
+    if case == "zero_grad":
+        grad.zero_()
+    if case == "live":
+        assert mask_loss.tile_hits(args[2].cpu(), args[5].cpu(), h, w).all()
+    dbasis, dcofs = mask_loss.mask_bce_backward(*args, grad)
+    again = mask_loss.mask_bce_backward(*args, grad)
+    torch.cuda.synchronize()
+    assert torch.equal(dbasis, again[0]) and torch.equal(dcofs, again[1])
+    if case == "zero_grad":
+        assert not dbasis.any() and not dcofs.any()
+        return
+    want_db, want_dc = mask_loss.mask_bce_backward_plain(*args, grad)
+    for name, a, e in (("dbasis", dbasis, want_db), ("dcofs", dcofs, want_dc)):
         err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
         assert err <= 1e-5, (name, err)
 

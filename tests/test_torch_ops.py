@@ -394,7 +394,7 @@ def _regime_boxes(regime, rng, b, k, h, w):
     'degenerate' (x2 <= x1, y2 <= y1, or no integer inside); 'off_map'
     (wholly or partly outside); 'nan' (one coordinate NaN); 'tile_edges'
     (corners at and beside multiples of 8, 16 and 32, at x.5, at 0 and at w
-    or h)."""
+    or h); 'split_edges' (half-splits on and just inside tile edges)."""
     x1 = rng.uniform(-5, w, (b, k))
     y1 = rng.uniform(-5, h, (b, k))
     boxes = np.stack([x1, y1, x1 + rng.uniform(0.5, w, (b, k)),
@@ -412,6 +412,14 @@ def _regime_boxes(regime, rng, b, k, h, w):
         boxes[np.arange(b)[:, None], np.arange(k)[None],
               rng.randint(0, 4, (b, k))] = np.nan
         boxes[:, ::4] = [2.0, 3.0, 20.0, 11.0]       # some stay finite
+    elif regime == "split_edges":
+        # half-splits exactly on tile edges and on the last column or row
+        # of a tile: x1 + (x2 - x1 + 0.1)/2 rounds to the target in f32
+        xm = rng.choice([15.0, 31.0, 32.0, 47.0, 63.0], (b, k))
+        ym = rng.choice([7.0, 15.0, 16.0, 31.0], (b, k))
+        x1 = np.floor(xm - rng.uniform(1, 30, (b, k)))
+        y1 = np.floor(ym - rng.uniform(1, 15, (b, k)))
+        boxes = np.stack([x1, y1, 2 * xm - x1 - 0.1, 2 * ym - y1 - 0.1], -1)
     elif regime == "tile_edges":
         xs = [0, 0.5, 7.5, 8, 31, 31.5, 32, 32.5, 63, 63.5, 64, w - 1,
               w - 0.5, w, w + 0.5]
@@ -454,6 +462,76 @@ def test_mask_bce_tiles_hold_every_in_box_pixel(regime):
     np.testing.assert_allclose(
         mask_loss.mask_bce_forward_tiled_plain(*args).numpy(),
         mask_loss.mask_bce_loss_plain(*args).numpy(), rtol=1e-5, atol=1e-3)
+
+
+def test_mask_bce_tiled_backward_matches_plain_and_the_fused_kernel():
+    """K3b's order in plain PyTorch (d basis per tile pixel; d cofs as a
+    segment per positive, quadrant and 16x32 tile, kept where the segment
+    predicate marks it and folded in tile order) against the plain version
+    and the JAX Pallas kernel's vjp in interpret mode; positives with a
+    zero cotangent get exactly zero d cofs."""
+    basis, cofs, boxes, gt, gt_idx, valid = _mask_case(13, w=72)
+    g = np.random.RandomState(14).rand(*gt_idx.shape).astype(np.float32)
+    g[:, ::5] = 0.0
+    _, vjp = jax.vjp(lambda bs, cf: mask_bce_loss_fused(
+        bs, cf, jnp.asarray(boxes), jnp.asarray(gt), jnp.asarray(gt_idx),
+        interpret=True, mm_dtype=jnp.float32, valid=jnp.asarray(valid)),
+        jnp.asarray(basis.transpose(0, 2, 3, 1)), jnp.asarray(cofs))
+    jdb, jdc = vjp(jnp.asarray(g))
+    args = (T(basis), T(cofs), T(boxes), T(gt), T(gt_idx), T(valid), T(g))
+    dbasis, dcofs = mask_loss.mask_bce_backward_tiled_plain(*args)
+    want_db, want_dc = mask_loss.mask_bce_backward_plain(*args)
+    assert not dcofs[T(g) == 0].any() and not dcofs[~args[5]].any()
+    # f32 sums over up to 1728 pixels, in another order
+    for want in (np.asarray(jdb).transpose(0, 3, 1, 2), want_db.numpy()):
+        np.testing.assert_allclose(dbasis.numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
+    for want in (np.asarray(jdc), want_dc.numpy()):
+        np.testing.assert_allclose(dcofs.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("regime", ["random", "degenerate", "off_map", "nan",
+                                    "tile_edges", "split_edges"])
+def test_mask_bce_quadrant_tiles_hold_every_in_box_pixel(regime):
+    """No pixel of quadrant q inside a valid box (CropSplit's float rule and
+    half-split) lies in a tile that K3b's segment predicate misses for q, so
+    the d cofs fold drops nothing; the tiled plain backward then equals the
+    plain version."""
+    b, k, h, w = 2, 24, 40, 72            # ragged tiles in both directions
+    rng = np.random.RandomState(23)
+    basis, cofs, _, gt, gt_idx, valid = _mask_case(24, b, k, 5, h, w)
+    boxes = T(_regime_boxes(regime, rng, b, k, h, w))
+    valid = T(valid)
+    grad = T(rng.rand(b, k).astype(np.float32))
+    grad[:, ::5] = 0.0
+    hits = mask_loss.quad_tile_hits(boxes, valid, grad, h, w)
+    th, tw = mask_loss.TILE_H, mask_loss.TILE_W
+    nth, ntw = -(-h // th), -(-w // tw)
+    assert hits.shape == (b, k, 4, nth, ntw)
+    assert not (hits & ~mask_loss.tile_hits(boxes, valid, h, w)[:, :, None]
+                ).any()
+    assert not hits[grad == 0].any()
+    pw = torch.arange(w, dtype=torch.float32)
+    ph = torch.arange(h, dtype=torch.float32)[:, None]
+    x1, y1, x2, y2 = (boxes[..., i, None, None] for i in range(4))
+    in_box = (pw >= x1) & (pw < x2) & (ph >= y1) & (ph < y2)
+    in_box &= (valid & (grad != 0))[..., None, None]
+    quad = ((pw >= x1 + (x2 - x1 + 0.1) / 2).long()
+            + 2 * (ph >= y1 + (y2 - y1 + 0.1) / 2).long())
+    in_quad = torch.stack([in_box & (quad == q) for q in range(4)], 2)
+    in_tile = torch.nn.functional.pad(
+        in_quad, (0, ntw * tw - w, 0, nth * th - h)).reshape(
+            b, k, 4, nth, th, ntw, tw).any(6).any(4)
+    assert not (in_tile & ~hits).any()
+    if regime in ("random", "tile_edges", "split_edges"):
+        assert in_tile.any()
+    args = (T(basis), T(cofs), boxes, T(gt), T(gt_idx), valid, grad)
+    got = mask_loss.mask_bce_backward_tiled_plain(*args)
+    want = mask_loss.mask_bce_backward_plain(*args)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=1e-5,
+                               atol=1e-4)
 
 
 # ----------------------------------------------------- targets and losses
