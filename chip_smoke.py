@@ -14,7 +14,8 @@ the port's entry points, serving and then training each: the high-accuracy
 2. builds the kernels from ``sipmask_tpu_torch/csrc`` with nvcc, one nvcc
    per source, all at once;
 3. holds the serving kernels (K1, K4a) against their plain PyTorch versions
-   at the slice's shapes, and times both at the batch-4 shapes;
+   at the slice's shapes, and times both at the batch-4 shapes (K4a's
+   device time beside its event time; a K4a call must be two kernels);
 4. answers 3 requests of one 800x1333 image through ``init_detector`` /
    ``inference_detector`` and runs one batch of 4 at 800x1344 twice through
    ``Detector.infer``, counting kernel launches;
@@ -34,7 +35,9 @@ the port's entry points, serving and then training each: the high-accuracy
 9. holds SipMask++'s kernels (K5 p-major deformable sampling, K5c its
    backward, K6 SP mask assembly) against their plain versions at the
    slice's shapes (the R101 DCN stages at 544x544 and at 576x576, batch 8;
-   the decode's and the rescoring loss's mask grids), and times them;
+   the decode's and the rescoring loss's mask grids; K5c's d positions the
+   same bits twice), and times them (K5c also at 576x576, with its device
+   kernels by launch: a call must be its kernel after the zeroing of dx);
 10. serves SipMask++: 3 requests of one 544x544 image and a batch of 8 twice
     through ``Detector.infer``, counting launches, then the batch with the
     plain versions (head outputs, detections and mask_scores compared);
@@ -349,6 +352,19 @@ def phase_kernels(dev):
     }
     times = {name: turns(name + f" all 5 levels bs{BATCH}", plain, kernel)
              for name, (kernel, plain) in runs.items()}
+    # K4a's event time is mostly its host's enqueue: its device time beside
+    # it, and a call must be two kernels
+    split, _ = launch_split(f"K4a gn_relu all 5 levels bs{BATCH}",
+                            runs["gn_relu"][0])
+    log(f"K4a gn_relu all 5 levels bs{BATCH}: CUDA events "
+        f"{times['gn_relu'][0]:.4f} ms, device "
+        f"{sum(ms for _, ms in split.values()):.4f} ms")
+    _, n_kern = launch_split(
+        f"K4a gn_relu, one call at {LEVELS[0]} bs{BATCH}",
+        lambda: gn_relu.gn_relu(k4_in[0][0], wt, bs, GN_GROUPS))
+    if n_kern != 2:
+        raise AssertionError(f"a K4a call ran {n_kern} device kernels, not "
+                             f"its two")
 
     # bounds and one-call library equivalents, on the same inputs
     from sipmask_tpu_torch.ops import deform_sample as ds
@@ -927,6 +943,10 @@ def phase_pp_kernels(dev):
             g = torch.randn((PP_BATCH, h * w, 9, c), generator=gen).to(dev)
             got = ds.deform_rows(x, pyx, h, w)
             dx, dp = ds.deform_rows_backward(x, pyx, g, h, w)
+            if not torch.equal(dp, ds.deform_rows_backward(x, pyx, g, h,
+                                                           w)[1]):
+                raise AssertionError("two K5c calls gave different d "
+                                     "positions")
             want = ds.deform_rows_plain(x, pyx, h, w)
             wdx, wdp = ds.deform_rows_backward_plain(x, pyx, g, h, w)
             torch.cuda.synchronize()
@@ -984,6 +1004,35 @@ def phase_pp_kernels(dev):
         lambda: [ds.deform_rows_backward(x, pyx, g, h, w)
                  for (x, pyx, h, w), g in zip(k5_in, k5c_g)], iters=10)
     del graphs
+    # K5c at the train step's shapes, and one call split into its device
+    # kernels: the kernel after the zeroing of dx
+    k5c_train = []
+    for c, h, w in PP_DCN_TRAIN:
+        x, pyx = pp_positions(PP_BATCH, c, h, w, gen, dev)
+        k5c_train.append((x, pyx, torch.randn((PP_BATCH, h * w, 9, c),
+                                              generator=gen).to(dev), h, w))
+    def k5c_train_sweep():
+        return [ds.deform_rows_backward(*a) for a in k5c_train]
+    log(f"time K5c deform_rows_backward, one DCN conv of each stage at "
+        f"{PP_TRAIN_HW} bs{PP_BATCH}: kernel {cuda_ms(k5c_train_sweep):.4f}"
+        f" / {cuda_ms(k5c_train_sweep):.4f} ms")
+    for label, sweep in (("serving", lambda: [
+            ds.deform_rows_backward(x, pyx, g, h, w)
+            for (x, pyx, h, w), g in zip(k5_in, k5c_g)]),
+                         ("training", k5c_train_sweep)):
+        launch_split(f"K5c deform_rows_backward, {label} shapes "
+                     f"bs{PP_BATCH}", sweep)
+    # the profiler may miss the kernel that zeroes dx (at this size it did
+    # in every session of one run), and never adds one
+    split, n_kern = launch_split(
+        f"K5c deform_rows_backward, one call at {PP_DCN_TRAIN[0]} "
+        f"bs{PP_BATCH}", lambda: ds.deform_rows_backward(*k5c_train[0]))
+    n_k5c = sum(n for name, (n, _) in split.items()
+                if "deform_rows_bwd_kernel" in name)
+    if n_k5c != 1 or n_kern - n_k5c > 1:
+        raise AssertionError(f"a K5c call ran {n_kern} device kernels, not "
+                             f"its kernel after the zeroing of dx: {split}")
+    del k5c_train
     k6_in = k6_inputs(PP_BATCH, 272, 272, 100, gen, dev)
     times["assemble_masks"] = turns(
         f"K6 assemble_masks 272x272 N=100 bs{PP_BATCH}",
@@ -1006,8 +1055,8 @@ def phase_pp_kernels(dev):
         "deform_rows": (bound(sum(nbytes(x, pyx) for x, pyx, *_ in k5_in)
                               + 4 * out_elems, 7 * out_elems),
                         cuda_ms(lambda: [c() for c, *_ in libs])),
-        # reads x, pyx and dsampled; writes dx (4 atomic adds an element)
-        # and dpyx; ~18 flops an element
+        # reads x, pyx and dsampled; writes dx (up to 4 adds an element,
+        # vector atomics) and dpyx; ~18 flops an element
         "deform_rows_backward": (bound(
             sum(2 * nbytes(x, pyx) for x, pyx, *_ in k5_in)
             + 4 * out_elems, 18 * out_elems), cuda_ms(

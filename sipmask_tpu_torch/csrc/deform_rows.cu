@@ -26,23 +26,33 @@
 //                           one (B*P, K*C) x (K*C, O) matmul contracts
 //   dx       like x_rows (zeroed by the caller); dpyx like pyx.
 //
-// What bounds it on an H100: bytes. The forward writes sampled, K = 9 times
-// the size of x (at the SipMask++ layer2 DCN at 544x544, batch 8: 170 MB,
-// about 0.05 ms at 3.35 TB/s), and reads four corners per element, mostly
-// L2 hits since neighbouring pixels share corners. The backward reads
-// sampled's cotangent and x, and scatters four atomic adds per element into
-// dx. The design follows from that:
-//   - one warp per (n, p, tap) item, lanes along the Cg contiguous channels,
-//     so every corner read, sampled write and dx atomic of a warp touches
-//     one contiguous run of channels (16-byte vectors when Cg % 4 == 0);
-//   - the corners, weights and bounds of an item are worked out once per
-//     warp and reused over its channels;
-//   - each corner's bounds are tested on the float position before any
-//     address is formed, so offsets hundreds of pixels out never read
-//     outside x;
-//   - the backward reduces d position over the channels in registers and
-//     then across the warp with shuffles: no atomics for dpyx, and dx takes
-//     the only atomics (the only sum whose order changes from run to run).
+// What bounds it on an H100. The forward: bytes. It writes sampled, K = 9
+// times the size of x (at the SipMask++ layer2 DCN at 544x544, batch 8:
+// 170 MB, about 0.05 ms at 3.35 TB/s), and reads four corners per element,
+// mostly L2 hits since neighbouring pixels share corners. One warp per
+// (n, p, tap) item, lanes along the Cg contiguous channels, so every corner
+// read and sampled write of a warp touches one contiguous run of channels
+// (16-byte vectors when Cg % 4 == 0); the corners, weights and bounds of an
+// item are worked out once per warp and reused over its channels; each
+// corner's bounds are tested on the float position before any address is
+// formed, so offsets hundreds of pixels out never read outside x.
+//
+// The backward reads sampled's cotangent and x and scatters four adds an
+// element into dx. Taps of neighbouring output pixels land on the same x
+// pixels (about 36 contributions an x element at small offsets), so the
+// scatter is bound by the L2's atomic throughput, not by bytes. One warp per
+// (n, p, tap) item, lanes along the channels, as the forward; each corner's
+// contribution is one 16-byte vector reduction a lane (atomicAdd on float4,
+// sm_90: 512 contiguous bytes a warp instruction) when Cg % 4 == 0, scalar
+// atomics otherwise; a corner whose bilinear weight is exactly 0 (integer
+// positions, every position at zero offsets) adds nothing and is skipped.
+// d position is reduced over the channels in registers and across the warp
+// with shuffles, in a fixed order: dpyx gives the same bits on every call,
+// and only dx's sums change order from run to run. A tile design that
+// accumulates dx in shared memory (tools/k5c_tiles.cu) ran 3x slower on an
+// H100: its shared float atomics are compare-and-swap loops, and a warp
+// item of 32 channels pays the corner math that this kernel spreads over
+// Cg.
 
 #include <cuda_runtime.h>
 
@@ -121,6 +131,15 @@ __global__ void __launch_bounds__(kThreads) deform_rows_fwd_kernel(
   }
 }
 
+// d*w into dx: one scalar atomic, or one 16-byte vector reduction.
+__device__ __forceinline__ void scatter(float* dst, float d, float w) {
+  atomicAdd(dst, d * w);
+}
+__device__ __forceinline__ void scatter(float4* dst, const float4& d,
+                                        float w) {
+  atomicAdd(dst, make_float4(d.x * w, d.y * w, d.z * w, d.w * w));
+}
+
 template <int VEC>
 __global__ void __launch_bounds__(kThreads) deform_rows_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ pyx,
@@ -138,10 +157,13 @@ __global__ void __launch_bounds__(kThreads) deform_rows_bwd_kernel(
   const Corners c = corners(pyx[pos_off], pyx[pos_off + 1], H, W);
   const int64_t base = (int64_t)n * H * W * Cg;
   const T* xn = reinterpret_cast<const T*>(x + base);
-  float* dxn = dx + base;
+  T* dxn = reinterpret_cast<T*>(dx + base);
   const T* g = reinterpret_cast<const T*>(dsampled + item * Cg);
   const int cv = Cg / VEC;
   const T zero{};
+  // warp-uniform: which corners add anything
+  const bool s00 = c.v00 && c.w00 != 0.f, s01 = c.v01 && c.w01 != 0.f;
+  const bool s10 = c.v10 && c.w10 != 0.f, s11 = c.v11 && c.w11 != 0.f;
   float gy = 0.f, gx = 0.f;
   for (int v = lane; v < cv; v += 32) {
     const T d = g[v];
@@ -149,14 +171,13 @@ __global__ void __launch_bounds__(kThreads) deform_rows_bwd_kernel(
     const T a01 = c.v01 ? xn[c.q01 * cv + v] : zero;
     const T a10 = c.v10 ? xn[c.q10 * cv + v] : zero;
     const T a11 = c.v11 ? xn[c.q11 * cv + v] : zero;
+    if (s00) scatter(dxn + c.q00 * cv + v, d, c.w00);
+    if (s01) scatter(dxn + c.q01 * cv + v, d, c.w01);
+    if (s10) scatter(dxn + c.q10 * cv + v, d, c.w10);
+    if (s11) scatter(dxn + c.q11 * cv + v, d, c.w11);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float di = V::get(d, i);
-      const int64_t ch = (int64_t)v * VEC + i;
-      if (c.v00) atomicAdd(dxn + c.q00 * Cg + ch, di * c.w00);
-      if (c.v01) atomicAdd(dxn + c.q01 * Cg + ch, di * c.w01);
-      if (c.v10) atomicAdd(dxn + c.q10 * Cg + ch, di * c.w10);
-      if (c.v11) atomicAdd(dxn + c.q11 * Cg + ch, di * c.w11);
       const float b00 = V::get(a00, i), b01 = V::get(a01, i);
       const float b10 = V::get(a10, i), b11 = V::get(a11, i);
       gy += di * ((b10 - b00) * c.hx + (b11 - b01) * c.lx);
@@ -202,7 +223,8 @@ int deform_rows_fwd_f32(const void* x, const void* pyx, void* out, int N,
 }
 
 // Backward of deform_rows_fwd_f32 for the cotangent dsampled (N, P, K, Cg):
-// dx (N, H*W, Cg; zeroed by the caller) and dpyx (N, K, P, 2).
+// dx (N, H*W, Cg; zeroed by the caller) and dpyx (N, K, P, 2). vec4 as for
+// the forward.
 int deform_rows_bwd_f32(const void* x, const void* pyx, const void* dsampled,
                         void* dx, void* dpyx, int N, int H, int W, int Cg,
                         int K, int P, int vec4, void* stream) {

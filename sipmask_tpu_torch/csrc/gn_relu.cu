@@ -22,13 +22,25 @@
 //
 // What bounds it on an H100: bytes: two reads of x and one write of y, with
 // a few flops per element. The design keeps every pass streaming and the
-// card full:
-//   - pass 1 cuts each slab into chunks of kChunk elements, one block each,
-//     and writes one (s1, s2) partial per chunk: thousands of blocks at the
-//     tower shapes instead of one per group;
+// card full, and a call costs the host one C call:
+//   - pass 1 cuts each slab into chunks of kChunk elements, one block each
+//     with all its loads in flight at once, and writes one (s1, s2) partial
+//     per chunk: thousands of blocks at the tower shapes instead of one per
+//     group;
 //   - pass 2 runs on the same chunks; each block first folds its group's
 //     partials in a fixed order (no atomics, so the result is the same on
-//     every run), then applies the affine and the ReLU.
+//     every run), then applies the affine and the ReLU; each thread loads
+//     its elements of the chunk before the fold, so the two round trips
+//     overlap, and forms the channel and its (sc, bi) only where its
+//     elements cross into the next channel, not once an element;
+//   - pass 2 walks the slabs in the reverse of pass 1's order, so that its
+//     first reads find what pass 1 read last still in L2 (a P3 call's x,
+//     69 MB at batch 4, is larger than the 50 MB L2);
+//   - both passes read 16-byte vectors where Cg*hw % 4 == 0 (every tower
+//     level), and pass 2 splits the rare vector that straddles two
+//     channels;
+//   - the partials and the statistics share one scratch that the caller
+//     allocates (gn_relu_f32 checks its size).
 // The backward's work is bound by bytes too: pass 1 reads x and dy, pass 2
 // reads them again and writes dx (20 bytes an element against the bound's
 // 12). A call of it was bound by the host instead: the (B, C) coefficient
@@ -45,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -65,19 +78,46 @@ __device__ __forceinline__ void affine(float mean, float rstd, float gamma,
   bi = __fsub_rn(beta, __fmul_rn(__fmul_rn(mean, rstd), gamma));
 }
 
+// Vectors of VEC floats: float4 when every slab starts on a 16-byte
+// boundary and holds whole vectors (Cg*hw % 4 == 0), else float.
+template <int VEC>
+using VecT = typename std::conditional<VEC == 4, float4, float>::type;
+template <int VEC>
+constexpr int kLoads = kChunk / kThreads / VEC;   // vectors a thread
+
+// Thread t's vectors of chunk [lo, hi) of a slab, lo / VEC + t + i*kThreads
+// for i < N, loaded at once (zero past hi).
+template <int VEC, int N>
+__device__ __forceinline__ void load_chunk(const VecT<VEC>* xs, int64_t e0,
+                                           int64_t e_end,
+                                           VecT<VEC> (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = e0 + i * kThreads < e_end ? xs[e0 + i * kThreads] : VecT<VEC>{};
+}
+
 // grid (S, B*G): block s sums elements [s*kChunk, (s+1)*kChunk) of slab bg.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads) gn_stats_kernel(
     const float* __restrict__ x, float* __restrict__ partial, int64_t slab,
     int S) {
   const int64_t bg = blockIdx.y;
-  const float* xs = x + bg * slab;
   const int64_t lo = (int64_t)blockIdx.x * kChunk;
   const int64_t hi = lo + kChunk < slab ? lo + kChunk : slab;
+  VecT<VEC> v[kLoads<VEC>];
+  load_chunk<VEC>(reinterpret_cast<const VecT<VEC>*>(x + bg * slab),
+                  lo / VEC + threadIdx.x, hi / VEC, v);
   float s1 = 0.f, s2 = 0.f;
-  for (int64_t e = lo + threadIdx.x; e < hi; e += kThreads) {
-    const float v = xs[e];
-    s1 += v;
-    s2 += v * v;
+#pragma unroll
+  for (int i = 0; i < kLoads<VEC>; ++i) {
+    if constexpr (VEC == 4) {
+      s1 += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+      s2 += (v[i].x * v[i].x + v[i].y * v[i].y) +
+            (v[i].z * v[i].z + v[i].w * v[i].w);
+    } else {
+      s1 += v[i];
+      s2 += v[i] * v[i];
+    }
   }
   __shared__ float sh1[kThreads / 32], sh2[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -100,14 +140,40 @@ __global__ void __launch_bounds__(kThreads) gn_stats_kernel(
   }
 }
 
-// grid (S, B*G), same chunks as gn_stats_kernel.
+// The channel of slab element q and its (sc, bi): formed only where a
+// thread's elements cross into the next channel, not once an element.
+struct Channel {
+  int64_t next = 0;   // first element past the current channel
+  float sc = 0.f, bi = 0.f;
+  __device__ __forceinline__ void at(int64_t q, int64_t hw, int c0,
+                                     float mean, float rstd,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ beta) {
+    if (q < next) return;
+    const int64_t j = q / hw;
+    next = (j + 1) * hw;
+    affine(mean, rstd, gamma[c0 + j], beta[c0 + j], sc, bi);
+  }
+};
+
+// grid (S, B*G), the chunks of gn_stats_kernel in the reverse order. Each
+// thread loads its elements of the chunk before it waits for the group's
+// statistics, so that the loads overlap the fold of the partials.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads) gn_apply_kernel(
     const float* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const float* __restrict__ partial,
     float* __restrict__ y, float* __restrict__ stats, int64_t slab,
     int64_t hw, int S, int G, int Cg, float eps, int act) {
   __shared__ float stat[2];
-  const int64_t bg = blockIdx.y;
+  const int64_t bg = gridDim.y - 1 - blockIdx.y;
+  const int s = S - 1 - (int)blockIdx.x;
+  const int64_t lo = (int64_t)s * kChunk;
+  const int64_t hi = lo + kChunk < slab ? lo + kChunk : slab;
+  const int64_t e0 = lo / VEC + threadIdx.x, e_end = hi / VEC;
+  VecT<VEC> v[kLoads<VEC>];
+  load_chunk<VEC>(reinterpret_cast<const VecT<VEC>*>(x + bg * slab), e0,
+                  e_end, v);
   if (threadIdx.x < 32) {
     float s1 = 0.f, s2 = 0.f;
     for (int k = threadIdx.x; k < S; k += 32) {
@@ -122,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) gn_apply_kernel(
       const float var = s2 / n - mean * mean;
       stat[0] = mean;
       stat[1] = rsqrtf(var + eps);
-      if (stats != nullptr && blockIdx.x == 0) {  // for the backward
+      if (stats != nullptr && s == 0) {  // for the backward
         stats[bg * 2] = stat[0];
         stats[bg * 2 + 1] = stat[1];
       }
@@ -131,17 +197,35 @@ __global__ void __launch_bounds__(kThreads) gn_apply_kernel(
   __syncthreads();
   const float mean = stat[0], rstd = stat[1];
   const int c0 = (int)(bg % G) * Cg;
-  const float* xs = x + bg * slab;
-  float* ys = y + bg * slab;
-  const int64_t lo = (int64_t)blockIdx.x * kChunk;
-  const int64_t hi = lo + kChunk < slab ? lo + kChunk : slab;
-  for (int64_t e = lo + threadIdx.x; e < hi; e += kThreads) {
-    const int c = c0 + (int)(e / hw);
-    float sc, bi;
-    affine(mean, rstd, gamma[c], beta[c], sc, bi);
-    float v = fmaf(xs[e], sc, bi);
-    if (act) v = fmaxf(v, 0.f);
-    ys[e] = v;
+  VecT<VEC>* ys = reinterpret_cast<VecT<VEC>*>(y + bg * slab);
+  Channel ch;
+#pragma unroll
+  for (int i = 0; i < kLoads<VEC>; ++i) {
+    const int64_t e = e0 + i * kThreads;
+    if (e >= e_end) break;
+    const int64_t q = e * VEC;   // its first element
+    ch.at(q, hw, c0, mean, rstd, gamma, beta);
+    if constexpr (VEC == 4) {
+      float in[4] = {v[i].x, v[i].y, v[i].z, v[i].w}, o[4];
+      if (q + 3 < ch.next) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = fmaf(in[k], ch.sc, ch.bi);
+      } else {   // the vector straddles channels (hw % 4 != 0)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          ch.at(q + k, hw, c0, mean, rstd, gamma, beta);
+          o[k] = fmaf(in[k], ch.sc, ch.bi);
+        }
+      }
+      if (act) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = fmaxf(o[k], 0.f);
+      }
+      ys[e] = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+      const float o = fmaf(v[i], ch.sc, ch.bi);
+      ys[e] = act ? fmaxf(o, 0.f) : o;
+    }
   }
 }
 
@@ -313,30 +397,41 @@ __global__ void __launch_bounds__(kThreads) gn_bwd_apply_kernel(
 
 extern "C" {
 
-// Number of (s1, s2) partials per (image, group): the caller allocates
-// B*G*S*2 floats of scratch for them.
-int gn_relu_num_partials(long long slab) {
-  return (int)((slab + kChunk - 1) / kChunk);
-}
-
-// Returns the cudaError_t of the first launch that failed (0 on success).
-// stats (B*G*2 floats) receives each group's (mean, rstd) unless it is null.
+// K4a: y (B, C, H, W) from x in two launches. scratch (scratch_floats
+// floats) holds each group's (mean, rstd) in its first B*G*2 floats when
+// keep_stats, then B*G*S*2 (s1, s2) partials, S = ceil(Cg*hw / kChunk).
+// Returns the cudaError_t of the first launch that failed (0 on success;
+// cudaErrorInvalidValue for a scratch too small).
 int gn_relu_f32(const void* x, const void* gamma, const void* beta,
-                void* partial, void* y, void* stats, int B, int C,
-                long long hw, int G, float eps, int act, void* stream) {
+                void* scratch, long long scratch_floats, void* y, int B,
+                int C, long long hw, int G, float eps, int act,
+                int keep_stats, void* stream) {
   const int Cg = C / G;
   const long long slab = (long long)Cg * hw;
-  const int S = gn_relu_num_partials(slab);
+  const int S = (int)((slab + kChunk - 1) / kChunk);
+  const long long n_stats = keep_stats ? (long long)B * G * 2 : 0;
+  if (scratch_floats < n_stats + (long long)B * G * S * 2)
+    return (int)cudaErrorInvalidValue;
+  float* stats = keep_stats ? (float*)scratch : nullptr;
+  float* partial = (float*)scratch + n_stats;
   const dim3 grid(S, B * G);
   cudaStream_t st = (cudaStream_t)stream;
-  gn_stats_kernel<<<grid, kThreads, 0, st>>>((const float*)x, (float*)partial,
-                                             slab, S);
+  const float* xf = (const float*)x;
+  const float *gf = (const float*)gamma, *bf = (const float*)beta;
+  // 16-byte vectors when every slab starts on a 16-byte boundary
+  const bool vec = slab % 4 == 0 && ((uintptr_t)x | (uintptr_t)y) % 16 == 0;
+  if (vec)
+    gn_stats_kernel<4><<<grid, kThreads, 0, st>>>(xf, partial, slab, S);
+  else
+    gn_stats_kernel<1><<<grid, kThreads, 0, st>>>(xf, partial, slab, S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gn_apply_kernel<<<grid, kThreads, 0, st>>>(
-      (const float*)x, (const float*)gamma, (const float*)beta,
-      (const float*)partial, (float*)y, (float*)stats, slab, hw, S, G, Cg,
-      eps, act);
+  if (vec)
+    gn_apply_kernel<4><<<grid, kThreads, 0, st>>>(
+        xf, gf, bf, partial, (float*)y, stats, slab, hw, S, G, Cg, eps, act);
+  else
+    gn_apply_kernel<1><<<grid, kThreads, 0, st>>>(
+        xf, gf, bf, partial, (float*)y, stats, slab, hw, S, G, Cg, eps, act);
   return (int)cudaGetLastError();
 }
 

@@ -303,7 +303,9 @@ def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
     """K5c: (dx_rows (N, h*w, Cg), dpyx (N, K, P, 2)) of :func:`deform_rows`
     for the cotangent ``dsampled`` (N, P, K, Cg). The position derivative is
     the one-sided floor rule of ``deform_gather._dtent``. CPU tensors take
-    :func:`deform_rows_backward_plain`; CUDA tensors launch the kernel."""
+    :func:`deform_rows_backward_plain`; CUDA tensors zero dx and launch the
+    kernel: dpyx gives the same bits on every call, dx's sums change order
+    (atomics)."""
     if x_rows.device.type == "cpu":
         return deform_rows_backward_plain(x_rows, pyx, dsampled, h, w)
     n, cg, k, p = _check_rows(x_rows, pyx, h, w)
@@ -318,7 +320,7 @@ def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
     if dsampled.numel() == 0:
         return dx, dpyx.zero_()
     lib = _rows_lib()
-    with torch.cuda.device(x_rows.device):
+    with native.device_guard(x_rows.device):
         code = lib.deform_rows_bwd_f32(
             x_rows.data_ptr(), pyx.data_ptr(), dsampled.data_ptr(),
             dx.data_ptr(), dpyx.data_ptr(), n, h, w, cg, k, p, vec4,

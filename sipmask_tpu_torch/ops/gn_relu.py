@@ -132,14 +132,13 @@ def gn_relu_backward_plain(x, weight, bias, stats, dy, groups: int,
 def _lib():
     lib = native.load("gn_relu")
     if lib.gn_relu_f32.argtypes is None:
-        lib.gn_relu_num_partials.restype = ctypes.c_int
-        lib.gn_relu_num_partials.argtypes = [ctypes.c_longlong]
         lib.gn_relu_f32.restype = ctypes.c_int
         lib.gn_relu_f32.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_void_p])
         lib.gn_relu_bwd_f32.restype = ctypes.c_int
         lib.gn_relu_bwd_f32.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -159,32 +158,36 @@ def _cuda_check(x, weight, bias, groups):
         raise ValueError(f"grid too large for B={b}, C={c}")
 
 
+# elements of a slab per block of K4a (kChunk in csrc/gn_relu.cu): sizes
+# the scratch of its partials, which the launcher checks
+_CHUNK = 256 * 16
+
+
 def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
                     act: bool = True, keep_stats: bool = True):
     """K4a: (y, stats), stats None unless ``keep_stats``. CPU tensors take
     the plain arithmetic; CUDA tensors launch the kernels (contiguous f32
-    only) and raise on anything they do not take. Records no gradient:
-    :func:`gn_relu` does."""
+    only): two launches, nothing between them; the wrapper only checks and
+    allocates y and one scratch (stats is a view of it). Raises on anything
+    the kernels do not take. Records no gradient: :func:`gn_relu` does."""
     if x.device.type == "cpu":
         y, stats = _forward_plain(x, weight, bias, groups, eps, act)
         return y, (stats if keep_stats else None)
     _cuda_check(x, weight, bias, groups)
     b, c, h, w = x.shape
+    n_stats = b * groups * 2 if keep_stats else 0
+    n_scratch = n_stats + b * groups * 2 * -(-(c // groups * h * w) // _CHUNK)
     y = torch.empty_like(x)
-    stats = (torch.empty((b, groups, 2), device=x.device, dtype=torch.float32)
-             if keep_stats else None)
+    scratch = torch.empty((n_scratch,), device=x.device, dtype=torch.float32)
+    stats = scratch[:n_stats].view(b, groups, 2) if keep_stats else None
     if y.numel() == 0:
         return y, stats
     lib = _lib()
-    parts = lib.gn_relu_num_partials(c // groups * h * w)
-    partial = torch.empty((b * groups * parts * 2,), device=x.device,
-                          dtype=torch.float32)
-    with torch.cuda.device(x.device):
+    with native.device_guard(x.device):
         code = lib.gn_relu_f32(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            partial.data_ptr(), y.data_ptr(),
-            None if stats is None else stats.data_ptr(), b, c, h * w,
-            groups, eps, int(act), native.stream_ptr(x.device))
+            scratch.data_ptr(), n_scratch, y.data_ptr(), b, c, h * w, groups,
+            eps, int(act), int(keep_stats), native.stream_ptr(x.device))
     native.check_launch(lib, "gn_relu", code)
     gn_relu.launches += 1
     return y, stats
@@ -228,9 +231,8 @@ gn_relu_backward.launches = 0
 
 class _GNReLU(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, groups, eps, act, keep_stats):
-        y, stats = gn_relu_forward(x, weight, bias, groups, eps, act,
-                                   keep_stats)
+    def forward(ctx, x, weight, bias, groups, eps, act):
+        y, stats = gn_relu_forward(x, weight, bias, groups, eps, act)
         ctx.save_for_backward(x, weight, bias, stats)
         ctx.groups, ctx.act = groups, act
         return y
@@ -240,7 +242,7 @@ class _GNReLU(torch.autograd.Function):
         x, weight, bias, stats = ctx.saved_tensors
         dx, dweight, dbias = gn_relu_backward(x, weight, bias, stats, dy,
                                               ctx.groups, ctx.act)
-        return dx, dweight, dbias, None, None, None, None
+        return dx, dweight, dbias, None, None, None
 
 
 def gn_relu(x, weight, bias, groups: int = 32, eps: float = 1e-5,
@@ -250,10 +252,12 @@ def gn_relu(x, weight, bias, groups: int = 32, eps: float = 1e-5,
     their plain versions on CPU tensors."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no K4 kernel for device {x.device}")
-    # the statistics are kept only for a backward that can happen
-    keep_stats = torch.is_grad_enabled() and (
-        x.requires_grad or weight.requires_grad or bias.requires_grad)
-    return _GNReLU.apply(x, weight, bias, groups, eps, act, keep_stats)
+    # the statistics are kept, and the autograd Function entered, only for
+    # a backward that can happen
+    if torch.is_grad_enabled() and (
+            x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return _GNReLU.apply(x, weight, bias, groups, eps, act)
+    return gn_relu_forward(x, weight, bias, groups, eps, act, False)[0]
 
 
 gn_relu.launches = 0

@@ -99,9 +99,13 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
                            f"{code} ({msg})")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``, as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as a C pointer (an int,
+    read without building a ``torch.cuda.Stream``: a few microseconds of a
+    small kernel's host time)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def device_guard(device):

@@ -2,9 +2,9 @@
 
     python -m sipmask_tpu_torch.tools.measure serve k4a k4b train
     python -m sipmask_tpu_torch.tools.measure --config \
-        sipmaskpp_r101_fpn_ssd_6x serve train
+        sipmaskpp_r101_fpn_ssd_6x serve k5c train
 
-from the root of the checkout, with any of the four modes, in the order
+from the root of the checkout, with any of the five modes, in the order
 given:
 
 - ``serve``: wall ms of single requests (800x1333; 544x544 for the
@@ -15,14 +15,20 @@ given:
 - ``k4a``: the GroupNorm+ReLU forward (K4a) over one GN site of each of the
   five levels at batch 4, as in serving (no gradient): CUDA-event ms of the
   sweep, the host's enqueue time of a sweep, and the device time of its
-  kernels in a ``torch.profiler`` trace; first through ``gn_relu`` (the
-  model's entry point, an autograd Function), then through the bare
-  launcher ``gn_relu_forward`` with and without the saved statistics;
+  kernels in a ``torch.profiler`` trace, also by level; first through
+  ``gn_relu`` (the model's entry point), then through the bare launcher
+  ``gn_relu_forward`` with and without the saved statistics;
 - ``k4b``: the GroupNorm+ReLU backward (K4b, ``gn_relu_backward``) over one
   GN site of each of the five levels at batch 4: CUDA-event ms of the
   sweep, the host's enqueue time of a sweep (and of one call), and the
   device time and count of its kernels in a ``torch.profiler`` trace, so
   that its device time and its host time can be read apart;
+- ``k5c``: the row-sampling backward (K5c, ``deform_rows_backward``) over
+  the SipMask++ train step's three DCN convs (one of each R101 stage at
+  576x576, batch 8: offsets ~2 px, a third of the pixels +-300 px out):
+  CUDA-event ms of the sweep, the host's enqueue time of a sweep, and the
+  device time of its kernels in a ``torch.profiler`` trace, by kernel and
+  by conv, with the device kernels a call (the fill of dx included);
 - ``train``: warm train steps at the preset's training shapes (800x1344,
   batch 4; 576x576, batch 8) (median), their sections (forward, loss,
   backward, optimizer), the peak memory, and a ``torch.profiler`` trace of
@@ -38,6 +44,7 @@ and power limit.
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
 import subprocess
 import time
@@ -49,6 +56,9 @@ CONFIG = "sipmask_r50_fpn_gn_1x"
 SEED = 0
 BATCH = 4   # k4a: the hi-acc serving batch
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # 800x1344
+# k5c: SipMask++'s DCN conv2 of each R101 stage at 576x576, (Cg, h, w)
+PP_DCN_TRAIN = [(128, 72, 72), (256, 36, 36), (512, 18, 18)]
+PP_BATCH = 8
 
 
 def log(*args):
@@ -146,7 +156,7 @@ def k4a(dev, iters=20):
     wt = torch.ones(256, device=dev)
     bs = torch.zeros(256, device=dev)
     ways = {
-        "gn_relu (autograd Function, no statistics kept)":
+        "gn_relu (no gradient, no statistics kept)":
             lambda x: gn_relu.gn_relu(x, wt, bs, 32),
         "gn_relu_forward, keep_stats=False":
             lambda x: gn_relu.gn_relu_forward(x, wt, bs, 32,
@@ -169,6 +179,8 @@ def k4a(dev, iters=20):
             log(f"K4a {name}, 5 levels bs{BATCH}, ms per sweep: CUDA events "
                 f"{e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / {h2:.4f}, "
                 f"kernels {device:.4f}")
+        by_call(profile_kernels(sweeps[name], iters), iters,
+                [f"{h}x{w}" for h, w in LEVELS])
 
 
 def k4b(dev, iters=20):
@@ -195,6 +207,56 @@ def k4b(dev, iters=20):
         f"{h2:.4f} ({(h1 + h2) / 2 / len(LEVELS) * 1e3:.1f} us a call), "
         f"kernels {device:.4f} ({len(kern) / calls:g} device kernels a "
         f"call)")
+
+
+def k5c(dev, iters=20):
+    from ..ops import deform_sample as ds
+
+    gen = torch.Generator().manual_seed(SEED)
+    args = []
+    for c, h, w in PP_DCN_TRAIN:
+        x = torch.randn((PP_BATCH, h * w, c), generator=gen).to(dev)
+        off = torch.randn((PP_BATCH, 18, h, w), generator=gen) * 2.0
+        off.view(PP_BATCH, 18, h * w)[:, :, : (h * w) // 3] *= 150.0
+        pyx = ds.positions(off.to(dev), 3, 3, 1, 1, 1, 1).contiguous()
+        g = torch.randn((PP_BATCH, h * w, 9, c), generator=gen).to(dev)
+        args.append((x, pyx, g, h, w))
+
+    def sweep():
+        return [ds.deform_rows_backward(*a) for a in args]
+    (e1, h1), (e2, h2) = (event_and_host_ms(sweep, iters) for _ in range(2))
+    kern = profile_kernels(sweep, iters)
+    log(f"K5c deform_rows_backward, 3 DCN convs at 576x576 bs{PP_BATCH}, "
+        f"ms per sweep: CUDA events {e1:.4f} / {e2:.4f}, host enqueue "
+        f"{h1:.4f} / {h2:.4f}, kernels "
+        f"{sum(e.device_time for e in kern) / 1e3 / iters:.4f} "
+        f"({len(kern) / (iters * len(args)):g} device kernels a call)")
+    by_call(kern, iters, [f"Cg={c} {h}x{w}" for c, h, w in PP_DCN_TRAIN])
+
+
+def by_call(kern, iters, calls):
+    """Log the device ms of each kernel of each call of a sweep, from the
+    kernels of ``iters`` sweeps in launch order."""
+    kern = sorted(kern, key=lambda e: e.time_range.start)
+    per = len(kern) // (iters * len(calls))
+    if per * iters * len(calls) != len(kern):
+        log(f"  ({len(kern)} kernels are not {iters} sweeps of "
+            f"{len(calls)} calls: no split by call)")
+        return
+    for i, call in enumerate(calls):
+        parts = {}
+        for s in range(iters):
+            for e in kern[(s * len(calls) + i) * per:][:per]:
+                parts[e.name] = parts.get(e.name, 0.0) + e.device_time
+        log(f"  {call}: " + "; ".join(
+            f"{kernel_name(name)} {t / 1e3 / iters:.4f}"
+            for name, t in parts.items()))
+
+
+def kernel_name(name):
+    """A device kernel's name without its namespace and arguments."""
+    m = re.search(r"([A-Za-z_]\w*)(<[^(]*>)?\(", name)
+    return (m.group(1) + (m.group(2) or ""))[:50] if m else name[:50]
 
 
 def event_and_host_ms(sweep, iters):
@@ -317,7 +379,7 @@ def train(dev, reps, config):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("modes", nargs="+",
-                    choices=("serve", "k4a", "k4b", "train"))
+                    choices=("serve", "k4a", "k4b", "k5c", "train"))
     ap.add_argument("--config", default=CONFIG,
                     help="the preset to measure")
     ap.add_argument("--reps", type=int, default=7,
@@ -333,8 +395,8 @@ def main(argv=None):
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     for mode in args.modes:
-        if mode in ("k4a", "k4b"):
-            {"k4a": k4a, "k4b": k4b}[mode](dev)
+        if mode in ("k4a", "k4b", "k5c"):
+            {"k4a": k4a, "k4b": k4b, "k5c": k5c}[mode](dev)
         else:
             {"serve": serve, "train": train}[mode](dev, args.reps,
                                                    args.config)

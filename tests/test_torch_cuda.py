@@ -71,14 +71,82 @@ def test_gn_relu_kernel_matches_plain(dev, shape, act):
     before = gn_relu.gn_relu.launches
     got = gn_relu.gn_relu(x, wt, bs, 32, 1e-5, act)   # keeps no statistics
     again, stats = gn_relu.gn_relu_forward(x, wt, bs, 32, 1e-5, act)
+    third, stats2 = gn_relu.gn_relu_forward(x, wt, bs, 32, 1e-5, act)
     torch.cuda.synchronize()
-    assert gn_relu.gn_relu.launches == before + 2
-    assert torch.equal(got, again)       # fixed reduction order, no atomics
+    assert gn_relu.gn_relu.launches == before + 3
+    # fixed reduction order, no atomics: the same bits on every call
+    assert torch.equal(got, again) and torch.equal(got, third)
+    assert torch.equal(stats, stats2)
     want, want_stats = gn_relu.gn_relu_forward(x.cpu(), wt.cpu(), bs.cpu(),
                                                32, 1e-5, act)
     # f32 sums over up to 134400 elements per group, in another order
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(stats.cpu(), want_stats, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 50, 84), (2, 256, 13, 21)])
+def test_gn_relu_forward_then_backward_match_plain(dev, shape, act):
+    """K4a then K4b through the autograd Function (the statistics saved as
+    a view of K4a's scratch) against the plain forward, and against the
+    plain backward of the kernel's statistics."""
+    rng = np.random.RandomState(8)
+    c = shape[1]
+    x = torch.from_numpy((rng.randn(*shape) * 3 + 1).astype(np.float32)
+                         ).to(dev).requires_grad_(True)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    wt = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)
+                          ).to(dev).requires_grad_(True)
+    bs = torch.from_numpy((rng.randn(c) * 0.2).astype(np.float32)
+                          ).to(dev).requires_grad_(True)
+    before = (gn_relu.gn_relu.launches, gn_relu.gn_relu_backward.launches)
+    y = gn_relu.gn_relu(x, wt, bs, 32, 1e-5, act)
+    got = torch.autograd.grad(y, (x, wt, bs), dy)
+    torch.cuda.synchronize()
+    assert (gn_relu.gn_relu.launches, gn_relu.gn_relu_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    xd, wd, bd = (t.detach() for t in (x, wt, bs))
+    want_y, _ = gn_relu.gn_relu_forward(xd.cpu(), wd.cpu(), bd.cpu(), 32,
+                                        1e-5, act)
+    # f32 sums over up to 33600 elements per group, in another order
+    torch.testing.assert_close(y.detach().cpu(), want_y, rtol=1e-4,
+                               atol=1e-4)
+    _, stats = gn_relu.gn_relu_forward(xd, wd, bd, 32, 1e-5, act)
+    want = gn_relu.gn_relu_backward_plain(xd, wd, bd, stats, dy, 32, act)
+    for name, a, e in zip(("dx", "dweight", "dbias"), got, want):
+        err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 100, 168), (4, 256, 7, 11)])
+def test_gn_relu_forward_is_two_device_kernels(dev, shape):
+    """One K4a call runs its two kernels and no other device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    wt = torch.ones(shape[1], device=dev)
+    bs = torch.zeros(shape[1], device=dev)
+    gn_relu.gn_relu_forward(x, wt, bs, 32)   # builds
+    torch.cuda.synchronize()
+    # a marker kernel starts each session, and one of three sessions must
+    # see both kernels (the card's profiler sometimes misses some)
+    sessions = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            gn_relu.gn_relu_forward(x, wt, bs, 32)
+            torch.cuda.synchronize()
+        sessions.append(sorted(e.name for e in prof.events()
+                               if e.device_type == DeviceType.CUDA
+                               and "spin_kernel" not in e.name))
+    assert all(len(names) <= 2 for names in sessions), sessions
+    names = max(sessions, key=len)
+    assert len(names) == 2, sessions
+    assert "gn_apply_kernel" in names[0], names
+    assert "gn_stats_kernel" in names[1], names
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -431,26 +499,41 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def _rows_case(dev, n, h, w, cg, k, p, regime, seed=3):
     """x_rows, pyx and a cotangent: 'random' positions over the map and its
-    borders with a third +-300 px out, or 'zero' offsets (integer
-    positions, DeformConvPack's initial state)."""
+    borders with a third +-300 px out, 'zero' offsets (integer positions,
+    DeformConvPack's initial state), or '6px': a 3x3 conv's taps (k = 9,
+    p = h*w) moved by offsets of up to +-6 px."""
     rng = np.random.RandomState(seed)
     x = rng.randn(n, h * w, cg).astype(np.float32)
     if regime == "zero":
         yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
         base = np.stack([yy, xx], -1).reshape(-1, 2)[:p].astype(np.float32)
         pyx = np.broadcast_to(base, (n, k, p, 2)).copy()
+    elif regime == "6px":
+        off = rng.uniform(-6.0, 6.0, (n, 2 * k, h, w)).astype(np.float32)
+        pyx = deform_sample.positions(torch.from_numpy(off), 3, 3, 1, 1, 1,
+                                      1).numpy()
     else:
         pyx = (rng.rand(n, k, p, 2) * np.float32([h + 3, w + 3]) - 1.5
                ).astype(np.float32)
         pyx[:, :, : p // 3] += rng.choice([-300.0, 300.0], (n, k, p // 3, 2))
     g = rng.randn(n, p, k, cg).astype(np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (x, pyx, g)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (x, pyx, g)]
 
 
 @pytest.mark.parametrize("n,h,w,cg,k,regime", [
     (2, 17, 17, 512, 9, "random"),   # layer4 at 544, Cg % 4 == 0: vectors
     (2, 34, 34, 256, 9, "zero"),     # layer3, every position on the grid
     (1, 9, 7, 6, 4, "random"),       # Cg % 4 != 0: the scalar path
+    # the SipMask++ train step's DCN convs (576x576)
+    (2, 72, 72, 128, 9, "random"),
+    (2, 72, 72, 128, 9, "zero"),
+    (2, 36, 36, 256, 9, "random"),
+    (2, 36, 36, 256, 9, "zero"),
+    (2, 18, 18, 512, 9, "random"),
+    (2, 18, 18, 512, 9, "zero"),
+    (2, 36, 36, 256, 9, "6px"),
+    (1, 9, 7, 6, 9, "6px"),          # Cg = 6: scalar atomics
 ])
 def test_deform_rows_kernels_match_plain(dev, n, h, w, cg, k, regime):
     from sipmask_tpu_torch.ops import deform_sample as ds
@@ -459,9 +542,10 @@ def test_deform_rows_kernels_match_plain(dev, n, h, w, cg, k, regime):
     before = (ds.deform_rows.launches, ds.deform_rows_backward.launches)
     got = ds.deform_rows(x, pyx, h, w)
     dx, dp = ds.deform_rows_backward(x, pyx, g, h, w)
+    again = ds.deform_rows_backward(x, pyx, g, h, w)[1]
     torch.cuda.synchronize()
     assert (ds.deform_rows.launches, ds.deform_rows_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1] + 2)
     want = ds.deform_rows_plain(x, pyx, h, w)
     # the same four f32 products; the kernel may fuse them into FMAs
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -471,8 +555,42 @@ def test_deform_rows_kernels_match_plain(dev, n, h, w, cg, k, regime):
         # a warp
         err = float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
         assert err <= 1e-5, (name, err)
+    # dpyx is summed in a fixed order: the same bits on every call
+    assert torch.equal(dp, again)
     if regime == "zero":   # the one-sided rule at integer positions
         assert float(dp.abs().max()) > 0
+
+
+@pytest.mark.parametrize("cg", [64, 6])
+def test_deform_rows_backward_is_one_kernel_after_the_fill(dev, cg):
+    """A K5c call is its kernel after the zeroing of dx (a fill kernel at
+    this size), and no other device work, with 16-byte vectors
+    (Cg % 4 == 0) or without."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    h = w = 18
+    x, pyx, g = _rows_case(dev, 2, h, w, cg, 9, h * w, "random", seed=7)
+    ds.deform_rows_backward(x, pyx, g, h, w)   # builds
+    torch.cuda.synchronize()
+    # a marker kernel starts each session, and one of three sessions must
+    # see both kernels (the card's profiler sometimes misses some)
+    sessions = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            ds.deform_rows_backward(x, pyx, g, h, w)
+            torch.cuda.synchronize()
+        sessions.append([e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and "spin_kernel" not in e.name])
+    assert all(len(names) <= 2 for names in sessions), sessions
+    names = max(sessions, key=len)
+    assert len(names) == 2, sessions
+    assert sum("deform_rows_bwd_kernel" in n for n in names) == 1, names
+    assert sum("FillFunctor" in n for n in names) == 1, names
 
 
 @pytest.mark.parametrize("b,h,w,n", [(2, 68, 68, 100), (1, 36, 40, 256)])
