@@ -14,8 +14,11 @@ the port's entry points, serving and then training each: the high-accuracy
 2. builds the kernels from ``sipmask_tpu_torch/csrc`` with nvcc, one nvcc
    per source, all at once;
 3. holds the serving kernels (K1, K4a) against their plain PyTorch versions
-   at the slice's shapes, and times both at the batch-4 shapes (K4a's
-   device time beside its event time; a K4a call must be two kernels);
+   at the slice's shapes, and times both at the batch-4 shapes (K1's and
+   K4a's device time by kernel beside their event time; a K1 call must be
+   its two kernels, the transpose of x into channels-last rows and the
+   gather, a K4a call two kernels, and a K6 call at the decode's shapes at
+   most one, its own);
 4. answers 3 requests of one 800x1333 image through ``init_detector`` /
    ``inference_detector`` and runs one batch of 4 at 800x1344 twice through
    ``Detector.infer``, counting kernel launches;
@@ -35,9 +38,11 @@ the port's entry points, serving and then training each: the high-accuracy
 9. holds SipMask++'s kernels (K5 p-major deformable sampling, K5c its
    backward, K6 SP mask assembly) against their plain versions at the
    slice's shapes (the R101 DCN stages at 544x544 and at 576x576, batch 8;
-   the decode's and the rescoring loss's mask grids; K5c's d positions the
-   same bits twice), and times them (K5c also at 576x576, with its device
-   kernels by launch: a call must be its kernel after the zeroing of dx);
+   the decode's and the rescoring loss's mask grids, K6's masks a
+   detection-major view with the plain version's zeros; K5c's d positions
+   the same bits twice), and times them (K5c also at 576x576, with its
+   device kernels by launch: a call must be its kernel after the zeroing
+   of dx; K6 at both mask grids);
 10. serves SipMask++: 3 requests of one 544x544 image and a batch of 8 twice
     through ``Detector.infer``, counting launches, then the batch with the
     plain versions (head outputs, detections and mask_scores compared);
@@ -365,6 +370,39 @@ def phase_kernels(dev):
     if n_kern != 2:
         raise AssertionError(f"a K4a call ran {n_kern} device kernels, not "
                              f"its two")
+    # K1's device time by kernel, and a call must be its two kernels: the
+    # transpose of x into channels-last rows, then the gather
+    split, _ = launch_split(f"K1 deform_im2col all 5 levels bs{BATCH}",
+                            runs["deform_im2col"][0])
+    log(f"K1 deform_im2col all 5 levels bs{BATCH}: CUDA events "
+        f"{times['deform_im2col'][0]:.4f} ms, device "
+        f"{sum(ms for _, ms in split.values()):.4f} ms")
+    split, n_kern = launch_split(
+        f"K1 deform_im2col, one call at {LEVELS[0]} bs{BATCH}",
+        lambda: deform_sample.deform_im2col(*k1_in[0], (3, 3), 1, 1, 1,
+                                            DEFORM_GROUPS), attempts=5)
+    names = list(split)
+    if n_kern != 2 or not (
+            any("deform_im2col_rows_kernel" in n for n in names) and
+            any("deform_im2col_kernel" in n for n in names)):
+        raise AssertionError(f"a K1 call ran {n_kern} device kernels, not "
+                             f"its transpose and gather: {names}")
+    # a K6 call at the decode's shapes must be its kernel and no other
+    # device work. Checked here: late in the run (phase 9) the card's
+    # profiler dropped K6's kernel from most sessions, where the checks of
+    # this phase lost none. 4 calls a session: every kernel seen must be
+    # K6's, at most one a call.
+    from sipmask_tpu_torch.ops import mask_assembly as ma
+    k6_in = k6_inputs(PP_BATCH, 272, 272, 100,
+                      torch.Generator().manual_seed(SEED + 3), dev)
+    split, n_kern = launch_split(
+        f"K6 assemble_masks, 4 calls at 272x272 N=100 bs{PP_BATCH}",
+        lambda: [ma.assemble_masks(*k6_in) for _ in range(4)], attempts=8)
+    if not (1 <= n_kern <= 4 and all("assemble_masks_kernel" in name
+                                     for name in split)):
+        raise AssertionError(f"4 K6 calls ran {n_kern} device kernels, not "
+                             f"one each: {list(split)}")
+    del k6_in
 
     # bounds and one-call library equivalents, on the same inputs
     from sipmask_tpu_torch.ops import deform_sample as ds
@@ -975,11 +1013,17 @@ def phase_pp_kernels(dev):
         torch.cuda.synchronize()
         ab = errors(got, want)[0]
         same_zeros = bool(torch.equal(got == 0, want == 0))
+        # detection-major: the callers' (B, N, h, w) masks with no copy
+        nchw = got.permute(0, 3, 1, 2)
+        in_place = nchw.is_contiguous() and \
+            nchw.contiguous().data_ptr() == got.data_ptr()
         log(f"K6 assemble_masks {hw} N={n} bs{PP_BATCH}: max_abs_err "
-            f"{ab:.3e} (tol abs {K6_TOL}), same zeros {same_zeros}")
-        if not (ab <= K6_TOL and same_zeros):
+            f"{ab:.3e} (tol abs {K6_TOL}), same zeros {same_zeros}, "
+            f"(B, N, h, w) in place {in_place}")
+        if not (ab <= K6_TOL and same_zeros and in_place):
             raise AssertionError(f"K6 disagrees with its plain version at "
-                                 f"{hw}: {ab}, same zeros {same_zeros}")
+                                 f"{hw}: {ab}, same zeros {same_zeros}, "
+                                 f"(B, N, h, w) in place {in_place}")
         errs["assemble_masks"] = max(errs["assemble_masks"], ab)
         del args, got, want
 
@@ -1033,6 +1077,12 @@ def phase_pp_kernels(dev):
         raise AssertionError(f"a K5c call ran {n_kern} device kernels, not "
                              f"its kernel after the zeroing of dx: {split}")
     del k5c_train
+    # K6 at the rescoring loss's mask grid (288x288, K = 256), then at the
+    # decode's (the unit of the kernels line)
+    k6_in = k6_inputs(PP_BATCH, 288, 288, PP_MAX_POS, gen, dev)
+    turns(f"K6 assemble_masks 288x288 N={PP_MAX_POS} bs{PP_BATCH}",
+          lambda: ma.assemble_masks_plain(*k6_in),
+          lambda: ma.assemble_masks(*k6_in), iters=10)
     k6_in = k6_inputs(PP_BATCH, 272, 272, 100, gen, dev)
     times["assemble_masks"] = turns(
         f"K6 assemble_masks 272x272 N=100 bs{PP_BATCH}",

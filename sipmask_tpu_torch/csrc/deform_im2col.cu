@@ -5,117 +5,280 @@
 // body _fwd_sep_t_kernel) and _sample_pallas_t (:546, body _fwd_t_kernel),
 // and the dense XLA tier sample_dense_t beside them. The TPU turned the
 // bilinear gather into a banded one-hot matmul because its gathers are slow;
-// Hopper gathers natively, so this one kernel reads the four corners.
+// Hopper gathers natively, so this kernel reads the four corners.
 //
 // Semantics: sample_ref (deform_gather.py:99-130) on the positions of
 // _sample_positions (sipmask_tpu/ops/deform_conv.py:45-69). Corners are
 // floor(p) and floor(p)+1; a corner outside [0, H-1] x [0, W-1] contributes
-// 0; weights are f32 products of (1 - frac) and frac.
+// 0; weights are f32 products of (1 - frac) and frac (deform_corners.cuh).
 //
 // Layouts (all contiguous f32):
 //   x        (B, C, H, W)           C = G * Cg, group g owns channels g*Cg..
 //   offsets  (B, G*K*2, Ho, Wo)     channel g*2K + 2*(i*kw + j) + {0: dy, 1: dx}
+//   x_rows   (B*G, H*W, Cg)         scratch: x channels-last, as the TPU
+//                                   kernel reads it (x_rows at :465)
 //   cols     (B, G*K*Cg, Ho*Wo)     row g*K*Cg + (i*kw + j)*Cg + c
 // so out (B, O, Ho*Wo) = W2 (O, G*K*Cg) @ cols, one torch.matmul.
 //
-// What bounds it on an H100: bytes. Each output element is four corner reads
-// (mostly L2 hits, since neighbouring pixels share corners) and one 4-byte
-// write, and cols is K = 9 times the size of x: the write stream dominates
-// (batch 4 at the P3 level of an 800x1344 image: 155M floats, 620 MB, about
-// 0.19 ms at 3.35 TB/s). The design follows from that:
-//   - threads run along output pixels, so the offset reads and the cols
-//     writes of a warp are coalesced and its corner reads share lines;
-//   - a thread works out its tap's corners and weights once and reuses them
-//     over a chunk of channels;
-//   - each corner's bounds are tested on the float position before any
-//     address is formed, so offsets hundreds of pixels out (common early in
-//     training, when they come from raw box predictions) never read outside x.
+// What bounds it on an H100: bytes. cols is K = 9 times the size of x (826
+// MB over the five FeatureAlign levels of an 800x1344 batch of 4, about
+// 0.25 ms at 3.35 TB/s), and each of its elements is four corner reads,
+// mostly L1 and L2 hits since neighbouring pixels and taps share corners.
+// A call is two kernels:
+//   1. deform_im2col_rows_kernel transposes x into x_rows through 32x32
+//      tiles of shared memory (x read and x_rows written once: 2/9 of the
+//      cols bytes more), so that a corner's Cg channels are one contiguous
+//      row;
+//   2. deform_im2col_kernel: one block per tile of kTile output pixels of
+//      one (image, group), all K taps, so that corner rows shared by
+//      neighbouring taps are L1 hits. The block works out each (pixel,
+//      tap)'s corners and weights once, into shared memory, with each
+//      corner's bounds tested on the float position before any address is
+//      formed (offsets hundreds of pixels out never read outside x). Then,
+//      tap by tap, threads with consecutive indices take consecutive 16-byte
+//      vectors of one pixel's corner rows (Cg % 4 == 0; scalars otherwise),
+//      so a warp's gathers read whole rows; the values go into a (pixel,
+//      channel) tile in shared memory (rows padded to an odd stride, so the
+//      write-out reads 32 banks), and the block writes the tap's Cg rows of
+//      cols with lanes along the pixels (float4 where P % 4 == 0). A thread
+//      issues the corner loads of its next kIt items (the next tap's, where
+//      a tap is one round) before it fills and writes out the current tile,
+//      so those loads are in flight across the barrier and the write-out;
+//      registers are capped for 4 blocks an SM. Cg = 64, FeatureAlign's,
+//      is a compile-time constant: the index arithmetic is then shifts and
+//      masks.
+// A design with one tap and 32 channels a block of 128 pixels, which writes
+// longer runs of each row (tools/k1_tiles.cu), ran slower: its blocks share
+// no corner rows across taps.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "deform_corners.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // output pixels per block
-constexpr int kChanChunk = 16;  // channels per thread
+constexpr int kThreads = 256;
+constexpr int kTile = 32;        // output pixels a gather block
+constexpr int kT = 32;           // transpose tile: channels x pixels
+constexpr int kIt = 2;           // gather items a thread has in flight
 
-__global__ void __launch_bounds__(kThreads) deform_im2col_kernel(
-    const float* __restrict__ x, const float* __restrict__ offsets,
-    float* __restrict__ cols, int C, int H, int W, int G, int Ho, int Wo,
-    int kh, int kw, int stride, int pad, int dil, int n_chunks) {
-  const int P = Ho * Wo;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const int K = kh * kw;
-  const int Cg = C / G;
-  const int t = blockIdx.y / n_chunks;                 // tap i*kw + j
-  const int c_lo = (blockIdx.y - t * n_chunks) * kChanChunk;
-  const int c_hi = min(c_lo + kChanChunk, Cg);
-  const int bg = blockIdx.z;                           // b*G + g
-  const int b = bg / G;
-  const int g = bg - b * G;
-  const int ho = p / Wo;
-  const int wo = p - ho * Wo;
-  const int i = t / kw;
-  const int j = t - i * kw;
-
-  const float* off = offsets + ((int64_t)bg * K * 2 + 2 * t) * P + p;
-  // the integer base is exact in f32, so this is the same sum as the
-  // reference's (base + tap) + offset
-  const float py = (float)(ho * stride - pad + i * dil) + off[0];
-  const float px = (float)(wo * stride - pad + j * dil) + off[P];
-
-  const float y0 = floorf(py);
-  const float x0 = floorf(px);
-  const float ly = py - y0;
-  const float lx = px - x0;
-  const float hy = 1.f - ly;
-  const float hx = 1.f - lx;
-  const float w00 = hy * hx, w01 = hy * lx, w10 = ly * hx, w11 = ly * lx;
-
-  const float ymax = (float)(H - 1), xmax = (float)(W - 1);
-  const bool vy0 = y0 >= 0.f && y0 <= ymax;
-  const bool vy1 = y0 + 1.f >= 0.f && y0 + 1.f <= ymax;
-  const bool vx0 = x0 >= 0.f && x0 <= xmax;
-  const bool vx1 = x0 + 1.f >= 0.f && x0 + 1.f <= xmax;
-  const bool v00 = vy0 && vx0, v01 = vy0 && vx1;
-  const bool v10 = vy1 && vx0, v11 = vy1 && vx1;
-  // float -> int only for positions already known to lie in the map
-  const int64_t q00 = v00 ? (int64_t)y0 * W + (int64_t)x0 : 0;
-  const int64_t q01 = v01 ? (int64_t)y0 * W + (int64_t)x0 + 1 : 0;
-  const int64_t q10 = v10 ? ((int64_t)y0 + 1) * W + (int64_t)x0 : 0;
-  const int64_t q11 = v11 ? ((int64_t)y0 + 1) * W + (int64_t)x0 + 1 : 0;
-
-  const int64_t HW = (int64_t)H * W;
-  const float* xg = x + ((int64_t)b * C + (int64_t)g * Cg) * HW;
-  float* out = cols + ((int64_t)bg * K * Cg + (int64_t)t * Cg) * P + p;
-  for (int c = c_lo; c < c_hi; ++c) {
-    const float* xc = xg + c * HW;
-    const float a00 = v00 ? __ldg(xc + q00) : 0.f;
-    const float a01 = v01 ? __ldg(xc + q01) : 0.f;
-    const float a10 = v10 ? __ldg(xc + q10) : 0.f;
-    const float a11 = v11 ? __ldg(xc + q11) : 0.f;
-    out[(int64_t)c * P] = a00 * w00 + a01 * w01 + a10 * w10 + a11 * w11;
+__global__ void __launch_bounds__(kThreads) deform_im2col_rows_kernel(
+    const float* __restrict__ x, float* __restrict__ x_rows, int Cg,
+    int HW) {
+  __shared__ float tile[kT][kT + 1];
+  const int64_t bg = blockIdx.z;
+  const int p0 = blockIdx.x * kT, c0 = blockIdx.y * kT;
+  const float* src = x + bg * Cg * HW;
+  float* dst = x_rows + bg * HW * Cg;
+  const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
+  for (int r = ty; r < kT; r += kThreads / kT) {
+    const int c = c0 + r, p = p0 + tx;
+    if (c < Cg && p < HW) tile[r][tx] = src[(int64_t)c * HW + p];
   }
+  __syncthreads();
+  for (int r = ty; r < kT; r += kThreads / kT) {
+    const int p = p0 + r, c = c0 + tx;
+    if (c < Cg && p < HW) dst[(int64_t)p * Cg + c] = tile[tx][r];
+  }
+}
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  using T = float;
+  __device__ static float get(const T& v, int) { return v; }
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static float get(const T& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+};
+
+// Shared memory of a gather block: each (tap, pixel)'s weights (float4) and
+// corner rows (int4, -1 outside the map), and two (pixel, channel) tiles
+// with rows of Cg | 1 floats.
+__host__ __device__ __forceinline__ int gather_smem_floats(int K, int Cg) {
+  return 8 * K * kTile + 2 * kTile * (Cg | 1);
+}
+
+// VEC: channels a gather load reads; VOUT: pixels a thread writes at once;
+// CG: Cg when it is known at compile time, else 0.
+template <int VEC, int VOUT, int CG>
+__global__ void __launch_bounds__(kThreads, 4) deform_im2col_kernel(
+    const float* __restrict__ x_rows, const float* __restrict__ offsets,
+    float* __restrict__ cols, int H, int W, int Cg_, int Ho, int Wo, int kh,
+    int kw, int stride, int pad, int dil) {
+  using V = Vec<VEC>;
+  using T = typename V::T;
+  extern __shared__ __align__(16) float smem[];
+  const int Cg = CG ? CG : Cg_;
+  const int K = kh * kw, P = Ho * Wo;
+  const int RS = Cg | 1;     // an odd row stride: conflict-free write-out
+  float4* cw = reinterpret_cast<float4*>(smem);
+  int4* cq = reinterpret_cast<int4*>(smem + 4 * K * kTile);
+  float* tiles = smem + 8 * K * kTile;
+  const int64_t bg = blockIdx.y;
+  const int p0 = blockIdx.x * kTile;
+
+  for (int i = threadIdx.x; i < K * kTile; i += kThreads) {
+    const int t = i / kTile, j = i - t * kTile;
+    const int p = p0 + j;
+    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+    int4 q = make_int4(-1, -1, -1, -1);
+    if (p < P) {
+      const int ho = p / Wo, wo = p - ho * Wo;
+      const int ti = t / kw, tj = t - ti * kw;
+      const float* off = offsets + (bg * K * 2 + 2 * t) * P + p;
+      // the integer base is exact in f32, so this is the same sum as the
+      // reference's (base + tap) + offset
+      const float py = (float)(ho * stride - pad + ti * dil) + off[0];
+      const float px = (float)(wo * stride - pad + tj * dil) + off[P];
+      const dcn::Corners c = dcn::corners(py, px, H, W);
+      w = make_float4(c.w00, c.w01, c.w10, c.w11);
+      q = make_int4(c.v00 ? (int)c.q00 : -1, c.v01 ? (int)c.q01 : -1,
+                    c.v10 ? (int)c.q10 : -1, c.v11 ? (int)c.q11 : -1);
+    }
+    cw[i] = w;
+    cq[i] = q;
+  }
+  __syncthreads();
+
+  const int cv = Cg / VEC;   // vectors a row
+  const int items = kTile * cv;
+  // a tap's items in rounds of kIt a thread: item r * kIt * kThreads +
+  // u * kThreads + threadIdx.x is pixel i / cv, vector i % cv
+  const int rounds = (items + kIt * kThreads - 1) / (kIt * kThreads);
+  const T* xb = reinterpret_cast<const T*>(x_rows + bg * H * W * Cg);
+  const T zero{};
+  T a[kIt][4];   // the corner vectors of the items in flight
+  auto issue = [&](int t, int r) {
+#pragma unroll
+    for (int u = 0; u < kIt; ++u) {
+      const int i = (r * kIt + u) * kThreads + threadIdx.x;
+      const int j = i / cv, v = i - j * cv;
+      const int4 q = i < items ? cq[t * kTile + j]
+                               : make_int4(-1, -1, -1, -1);
+      a[u][0] = q.x >= 0 ? xb[(int64_t)q.x * cv + v] : zero;
+      a[u][1] = q.y >= 0 ? xb[(int64_t)q.y * cv + v] : zero;
+      a[u][2] = q.z >= 0 ? xb[(int64_t)q.z * cv + v] : zero;
+      a[u][3] = q.w >= 0 ? xb[(int64_t)q.w * cv + v] : zero;
+    }
+  };
+  issue(0, 0);
+  for (int t = 0; t < K; ++t) {
+    float* tile = tiles + (t & 1) * kTile * RS;
+    for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+      for (int u = 0; u < kIt; ++u) {
+        const int i = (r * kIt + u) * kThreads + threadIdx.x;
+        if (i >= items) break;
+        const int j = i / cv, v = i - j * cv;
+        const float4 w = cw[t * kTile + j];
+        float* row = tile + j * RS + v * VEC;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          row[e] = V::get(a[u][0], e) * w.x + V::get(a[u][1], e) * w.y +
+                   V::get(a[u][2], e) * w.z + V::get(a[u][3], e) * w.w;
+      }
+      if (r + 1 < rounds)
+        issue(t, r + 1);
+      else if (t + 1 < K)
+        issue(t + 1, 0);
+    }
+    // one barrier a tap: the tile written above is read below, and the
+    // other tile, read in the last tap, is written in the next
+    __syncthreads();
+    float* ob = cols + (bg * K + t) * Cg * P + p0;
+    constexpr int kLanes = kTile / VOUT;   // threads a row of the tile
+    for (int i = threadIdx.x; i < Cg * kLanes; i += kThreads) {
+      const int c = i / kLanes, j = (i - c * kLanes) * VOUT;
+      if (p0 + j >= P) continue;
+      if constexpr (VOUT == 4) {   // P % 4 == 0: the vector lies in the row
+        *reinterpret_cast<float4*>(ob + (int64_t)c * P + j) = make_float4(
+            tile[j * RS + c], tile[(j + 1) * RS + c],
+            tile[(j + 2) * RS + c], tile[(j + 3) * RS + c]);
+      } else {
+        ob[(int64_t)c * P + j] = tile[j * RS + c];
+      }
+    }
+  }
+}
+
+template <int VEC, int VOUT, int CG>
+cudaError_t launch_gather(const float* x_rows, const float* offsets,
+                          float* cols, int BG, int H, int W, int Cg, int Ho,
+                          int Wo, int kh, int kw, int stride, int pad,
+                          int dil, cudaStream_t stream) {
+  const int smem = gather_smem_floats(kh * kw, Cg) * (int)sizeof(float);
+  auto kernel = deform_im2col_kernel<VEC, VOUT, CG>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((Ho * Wo + kTile - 1) / kTile, BG);
+  kernel<<<grid, kThreads, smem, stream>>>(x_rows, offsets, cols, H, W, Cg,
+                                           Ho, Wo, kh, kw, stride, pad, dil);
+  return cudaGetLastError();
+}
+
+template <int VEC, int CG>
+cudaError_t launch_gather(bool out4, const float* x_rows,
+                          const float* offsets, float* cols, int BG, int H,
+                          int W, int Cg, int Ho, int Wo, int kh, int kw,
+                          int stride, int pad, int dil, cudaStream_t s) {
+  return out4 ? launch_gather<VEC, 4, CG>(x_rows, offsets, cols, BG, H, W,
+                                          Cg, Ho, Wo, kh, kw, stride, pad,
+                                          dil, s)
+              : launch_gather<VEC, 1, CG>(x_rows, offsets, cols, BG, H, W,
+                                          Cg, Ho, Wo, kh, kw, stride, pad,
+                                          dil, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success). The caller checks
-// shapes, dtypes and contiguity, and allocates cols.
-int deform_im2col_f32(const void* x, const void* offsets, void* cols, int B,
-                      int C, int H, int W, int G, int Ho, int Wo, int kh,
-                      int kw, int stride, int pad, int dil, void* stream) {
-  const int P = Ho * Wo;
-  const int n_chunks = (C / G + kChanChunk - 1) / kChanChunk;
-  const dim3 grid((P + kThreads - 1) / kThreads, kh * kw * n_chunks, B * G);
-  deform_im2col_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)offsets, (float*)cols, C, H, W, G, Ho,
-      Wo, kh, kw, stride, pad, dil, n_chunks);
-  return (int)cudaGetLastError();
+// Bytes of shared memory a gather block takes.
+int deform_im2col_smem_bytes(int K, int Cg) {
+  return gather_smem_floats(K, Cg) * (int)sizeof(float);
+}
+
+// x (B, C, H, W), offsets (B, G*K*2, Ho, Wo) -> x_rows (B*G, H*W, Cg)
+// scratch, then cols (B, G*K*Cg, Ho*Wo); all contiguous f32, x_rows and
+// cols 16-byte aligned. vec4: Cg % 4 == 0. Returns the cudaError_t of the
+// launches (0 on success). The caller checks shapes, dtypes, contiguity
+// and the grid's limits, and allocates x_rows and cols.
+int deform_im2col_f32(const void* x, const void* offsets, void* x_rows,
+                      void* cols, int B, int C, int H, int W, int G, int Ho,
+                      int Wo, int kh, int kw, int stride, int pad, int dil,
+                      int vec4, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int Cg = C / G, HW = H * W, BG = B * G;
+  const dim3 tgrid((HW + kT - 1) / kT, (Cg + kT - 1) / kT, BG);
+  deform_im2col_rows_kernel<<<tgrid, kThreads, 0, s>>>(
+      (const float*)x, (float*)x_rows, Cg, HW);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool out4 = (Ho * Wo) % 4 == 0;
+  const float* xr = (const float*)x_rows;
+  const float* off = (const float*)offsets;
+  float* out = (float*)cols;
+  if (vec4 && Cg == 64)
+    err = launch_gather<4, 64>(out4, xr, off, out, BG, H, W, Cg, Ho, Wo, kh,
+                               kw, stride, pad, dil, s);
+  else if (vec4 && Cg % 4 == 0)
+    err = launch_gather<4, 0>(out4, xr, off, out, BG, H, W, Cg, Ho, Wo, kh,
+                              kw, stride, pad, dil, s);
+  else
+    err = launch_gather<1, 0>(out4, xr, off, out, BG, H, W, Cg, Ho, Wo, kh,
+                              kw, stride, pad, dil, s);
+  return (int)err;
 }
 
 const char* deform_im2col_error_string(int code) {

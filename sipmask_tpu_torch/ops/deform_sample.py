@@ -120,12 +120,75 @@ def deform_im2col_plain(x, offsets, kernel_size=(3, 3), stride: int = 1,
     return out.permute(0, 1, 3, 2, 4).reshape(b, g * k * cg, p)
 
 
+IM2COL_TILE = 32     # output pixels a K1 gather block (kTile)
+TRANSPOSE_TILE = 32  # K1's transpose tile, channels x pixels (kT)
+
+
+def im2col_schedule(b: int, g: int, cg: int, k: int, p: int, hw: int):
+    """K1's tile schedule in plain PyTorch (for the tests): how many times
+    the kernels write each element, as ``csrc/deform_im2col.cu`` cuts the
+    work. Returns (x_rows (B*G, hw, Cg), tile (B*G, tiles, K, kTile, Cg),
+    cols (B, G*K*Cg, P)) int64 counts: the transpose's 32x32 tiles, the
+    gather's (pixel, channel) tile of each tap (16-byte vectors where
+    Cg % 4 == 0, in rounds of two items a thread), and the write-out of
+    each tap's rows (4 pixels a thread where P % 4 == 0). Pixels past P in
+    the last tile are gathered as zeros and written nowhere."""
+    def span(n, size):
+        return -(-n // size)
+    bgs = b * g
+    # the transpose: block (pixel tile, channel tile); thread (ty, tx) walks
+    # rows r = ty, ty + 8, ...: pixel p0 + r, channel c0 + tx
+    pt, ct = torch.meshgrid(torch.arange(span(hw, TRANSPOSE_TILE)),
+                            torch.arange(span(cg, TRANSPOSE_TILE)),
+                            indexing="ij")
+    r = torch.arange(TRANSPOSE_TILE)
+    pix = (pt[..., None, None] * TRANSPOSE_TILE + r[:, None]).expand(
+        *pt.shape, TRANSPOSE_TILE, TRANSPOSE_TILE)
+    chan = (ct[..., None, None] * TRANSPOSE_TILE + r[None, :]).expand_as(pix)
+    keep = (pix < hw) & (chan < cg)
+    x_rows = torch.bincount(pix[keep] * cg + chan[keep], minlength=hw * cg)
+    x_rows = x_rows.reshape(1, hw, cg).expand(bgs, hw, cg)
+    # the gather of one tap, in rounds of kIt = 2 items a thread: item
+    # i = (r * 2 + u) * 256 + thread -> pixel i // cv, vector i % cv
+    vec = 4 if cg % 4 == 0 else 1
+    cv = cg // vec
+    items = IM2COL_TILE * cv
+    rounds = span(items, 2 * 256)
+    i = ((torch.arange(rounds)[:, None, None] * 2
+          + torch.arange(2)[:, None]) * 256 + torch.arange(256)).reshape(-1)
+    i = i[i < items]
+    j, v = i // cv, i % cv
+    tile = torch.bincount((j[:, None] * cg + v[:, None] * vec
+                           + torch.arange(vec)).reshape(-1),
+                          minlength=IM2COL_TILE * cg).reshape(
+                              IM2COL_TILE, cg)
+    tiles = span(p, IM2COL_TILE)
+    tile = tile.expand(bgs, tiles, k, IM2COL_TILE, cg)
+    # the write-out of one tap: item i -> channel row i // lanes, pixels
+    # from (i % lanes) * vout, where the first lies in the map
+    vout = 4 if p % 4 == 0 else 1
+    lanes = IM2COL_TILE // vout
+    i = torch.arange(cg * lanes)
+    c, j = i // lanes, (i % lanes) * vout
+    first = torch.arange(tiles)[:, None] * IM2COL_TILE + j   # (tiles, items)
+    pix = (first[..., None] + torch.arange(vout)).expand(tiles, cg * lanes,
+                                                         vout)
+    chan = c[None, :, None].expand_as(pix)
+    keep = (first < p)[..., None].expand_as(pix)
+    per_tap = torch.bincount(chan[keep] * p + pix[keep], minlength=cg * p)
+    cols = per_tap.reshape(1, 1, cg, p).expand(b, g * k, cg, p).reshape(
+        b, g * k * cg, p)
+    return x_rows, tile, cols
+
+
 def _lib():
     lib = native.load("deform_im2col")
     fn = lib.deform_im2col_f32
     if fn.argtypes is None:
+        lib.deform_im2col_smem_bytes.restype = ctypes.c_int
+        lib.deform_im2col_smem_bytes.argtypes = [ctypes.c_int] * 2
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [
             ctypes.c_void_p]
     return lib
 
@@ -136,9 +199,11 @@ def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
     """Deformable im2col: (x, offsets) -> cols, layouts in the module note.
 
     CPU tensors take :func:`deform_im2col_plain`; CUDA tensors launch the
-    K1 kernel (contiguous f32 only) and raise on anything it does not take.
-    The kernel records no gradient, so on CUDA it also raises when one is
-    wanted: the deformable convolution differentiates through
+    K1 kernels (contiguous f32 only: a transpose of x into channels-last
+    rows, a scratch the size of x, then the gather; two device kernels a
+    call) and raise on anything they do not take. The kernels record no
+    gradient, so on CUDA the call also raises when one is wanted: the
+    deformable convolution differentiates through
     ``deform_conv.deform_conv2d``, whose backward is kernel K2.
     """
     if x.device.type == "cpu":
@@ -158,18 +223,24 @@ def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
     if not (x.is_contiguous() and offsets.is_contiguous()):
         raise ValueError("x and offsets must be contiguous")
     cg = c // g
-    if b * g > 65535 or k * -(-cg // 16) > 65535:  # 16: kChanChunk
-        raise ValueError(f"grid too large for B*G={b * g}, K={k}, Cg={cg}")
+    if b * g > 65535 or -(-cg // TRANSPOSE_TILE) > 65535 or h * w >= 2 ** 31:
+        raise ValueError(f"grid too large for B*G={b * g}, Cg={cg}, "
+                         f"{h}x{w}")
+    lib = _lib()
+    if lib.deform_im2col_smem_bytes(k, cg) > 227 * 1024:
+        raise ValueError(f"{k} taps of {cg} channels exceed the kernel's "
+                         f"shared memory")
     cols = torch.empty((b, g * k * cg, ho * wo), device=x.device,
                        dtype=torch.float32)
     if cols.numel() == 0:
         return cols
-    lib = _lib()
-    with torch.cuda.device(x.device):
+    x_rows = torch.empty((b * g, h * w, cg), device=x.device,
+                         dtype=torch.float32)
+    with native.device_guard(x.device):
         code = lib.deform_im2col_f32(
-            x.data_ptr(), offsets.data_ptr(), cols.data_ptr(), b, c, h, w, g,
-            ho, wo, kh, kw, stride, padding, dilation,
-            native.stream_ptr(x.device))
+            x.data_ptr(), offsets.data_ptr(), x_rows.data_ptr(),
+            cols.data_ptr(), b, c, h, w, g, ho, wo, kh, kw, stride, padding,
+            dilation, int(cg % 4 == 0), native.stream_ptr(x.device))
     native.check_launch(lib, "deform_im2col", code)
     deform_im2col.launches += 1
     return cols

@@ -16,7 +16,8 @@ when ph >= y1 + (y2 - y1 + 0.1)/2; coefficient planes are ordered
 is 0. Forward only: nothing differentiates through assembly.
 
 Layouts (f32, the JAX kernel's): basis (B, h, w, nb), cofs (B, N, 4*nb),
-boxes (B, N, 4) xyxy in mask (stride-2) coordinates; result (B, h, w, N).
+boxes (B, N, 4) xyxy in mask (stride-2) coordinates; result (B, h, w, N),
+which the kernel's wrapper returns as a view of (B, N, h, w) masks.
 """
 
 from __future__ import annotations
@@ -87,24 +88,55 @@ def assemble_masks_plain(basis, cofs, boxes):
     return torch.stack(out)
 
 
-def quadrant_params(boxes):
-    """(B, N, 4) boxes -> (B, 6, N) [x1, y1, x2, y2, rx, by] f32, the split
-    points in the f32 expressions of :func:`_quadrant_bounds`."""
-    bx = boxes.float()
-    x1, y1, x2, y2 = bx[..., 0], bx[..., 1], bx[..., 2], bx[..., 3]
-    rx = x1 + (x2 - x1 + 0.1) / 2
-    by = y1 + (y2 - y1 + 0.1) / 2
-    return torch.stack([x1, y1, x2, y2, rx, by], 1).contiguous()
+SEGMENT = 32   # pixels of the flattened h*w plane a K6 warp writes at once
+
+
+def _ceil_clip(v, n: int, if_nan: int):
+    """ceil(v) clipped to [0, n] as ``ceil_clip`` in ``csrc/mask_assembly.cu``
+    takes it: NaN gives ``if_nan``."""
+    f = torch.ceil(v).clamp(0, n)
+    return torch.where(torch.isnan(f), torch.full_like(f, if_nan), f).long()
+
+
+def pixel_bounds(boxes, h: int, w: int):
+    """The exact integer pixel bounds of (..., 4) boxes, as the K6 kernel
+    stages them: (first col, last col, first row, last row). Integer col c
+    satisfies c >= x1 and c < x2 iff ceil(x1) <= c <= ceil(x2) - 1, so these
+    pick the pixels of CropSplit's float rule; empty when first > last."""
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    return (_ceil_clip(x1, w, w), _ceil_clip(x2, w, 0) - 1,
+            _ceil_clip(y1, h, h), _ceil_clip(y2, h, 0) - 1)
+
+
+def segment_hits(boxes, h: int, w: int):
+    """K6's warp-uniform cull, (B, N, ceil(h*w/32)) bool: the 32-pixel
+    segments of the flattened plane in which the kernel computes box n's
+    dots (``segment_hit`` in ``csrc/mask_assembly.cu``); every other segment
+    it fills with zeros. A segment may wrap from one row into the next (and
+    over several rows where w < 32)."""
+    c_lo, c_hi, r_lo, r_hi = (t[..., None] for t in pixel_bounds(boxes, h, w))
+    start = torch.arange(0, h * w, SEGMENT, device=boxes.device)
+    last = (start + SEGMENT - 1).clamp(max=h * w - 1)
+    ra, ca, rb, cb = start // w, start % w, last // w, last % w
+
+    def in_rows(r):
+        return (r >= r_lo) & (r <= r_hi)
+    one_row = in_rows(ra) & (torch.maximum(ca, c_lo)
+                             <= torch.minimum(cb, c_hi))
+    wrapped = ((in_rows(ra) & (c_hi >= ca)) | (in_rows(rb) & (c_lo <= cb))
+               | (torch.maximum(ra + 1, r_lo) <= torch.minimum(rb - 1, r_hi)))
+    some = (c_lo <= c_hi) & (r_lo <= r_hi)
+    return some & torch.where(ra == rb, one_row, wrapped)
 
 
 def _lib():
     lib = native.load("mask_assembly")
     fn = lib.assemble_masks_f32
     if fn.argtypes is None:
-        lib.assemble_masks_smem_bytes.restype = ctypes.c_int
-        lib.assemble_masks_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.assemble_masks_num_bases.restype = ctypes.c_int
+        lib.assemble_masks_num_bases.argtypes = []
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
     return lib
 
@@ -113,9 +145,14 @@ def assemble_masks(basis, cofs, boxes):
     """K6: SP mask assembly, (B, h, w, nb), (B, N, 4*nb), (B, N, 4) ->
     (B, h, w, N) sigmoid probabilities, 0 outside the boxes.
 
-    CPU tensors take :func:`assemble_masks_plain`; CUDA tensors launch the
-    kernel (f32; the basis is read channel-major, so the permuted view of
-    an NCHW basis is read in place) and raise on anything it does not take.
+    CPU tensors take :func:`assemble_masks_plain` (a contiguous result);
+    CUDA tensors launch the kernel (f32, 32 bases) and raise on anything it
+    does not take. The kernel reads the basis channel-major, so the
+    permuted view of an NCHW basis is read in place, and writes the masks
+    detection-major: the result is the (B, h, w, N) view of a contiguous
+    (B, N, h, w) tensor, whose ``permute(0, 3, 1, 2).contiguous()`` is that
+    tensor, with no copy. With an NCHW basis view, contiguous cofs and f32
+    boxes a call is one device kernel.
     """
     if basis.device.type == "cpu":
         return assemble_masks_plain(basis, cofs, boxes)
@@ -125,22 +162,27 @@ def assemble_masks(basis, cofs, boxes):
     if not basis.dtype == cofs.dtype == torch.float32:
         raise TypeError(f"float32 only, got {basis.dtype} and {cofs.dtype}")
     lib = _lib()
-    if lib.assemble_masks_smem_bytes(nb, n) > 227 * 1024:
-        raise ValueError(f"{n} detections of {nb} bases exceed the kernel's "
-                         f"shared memory")
-    basis_c = basis.permute(0, 3, 1, 2).contiguous()      # (B, nb, h, w)
-    cq = cofs.detach().reshape(b, n, 4, nb).permute(0, 2, 3, 1).contiguous()
-    params = quadrant_params(boxes.detach())
-    out = torch.empty((b, h, w, n), device=basis.device, dtype=torch.float32)
+    if nb != lib.assemble_masks_num_bases():
+        raise ValueError(f"the K6 kernel takes "
+                         f"{lib.assemble_masks_num_bases()} basis masks, got "
+                         f"{nb}")
+    if b > 65535:
+        raise ValueError(f"grid too large for B={b}")
+    basis_c = basis.detach().permute(0, 3, 1, 2).contiguous()  # (B, nb, h, w)
+    cofs_c = cofs.detach().contiguous()
+    if cofs_c.data_ptr() % 16:     # staged as float4
+        cofs_c = cofs_c.clone()
+    boxes_c = boxes.detach().float().contiguous()
+    out = torch.empty((b, n, h, w), device=basis.device, dtype=torch.float32)
     if out.numel() == 0:
-        return out
-    with torch.cuda.device(basis.device):
+        return out.permute(0, 2, 3, 1)
+    with native.device_guard(basis.device):
         code = lib.assemble_masks_f32(
-            basis_c.data_ptr(), cq.data_ptr(), params.data_ptr(),
-            out.data_ptr(), b, h, w, nb, n, native.stream_ptr(basis.device))
+            basis_c.data_ptr(), cofs_c.data_ptr(), boxes_c.data_ptr(),
+            out.data_ptr(), b, h, w, n, native.stream_ptr(basis.device))
     native.check_launch(lib, "mask_assembly", code)
     assemble_masks.launches += 1
-    return out
+    return out.permute(0, 2, 3, 1)
 
 
 assemble_masks.launches = 0

@@ -11,7 +11,8 @@ given:
   fixed-size presets) through ``inference_detector`` and of batches of
   ``imgs_per_device`` (4; 8) through ``Detector.infer``, each ending in a
   synchronise, then a ``torch.profiler`` trace of two batches: kernel time
-  by owner and the device's idle share;
+  by owner (and the copy kernels' share of it) and the device's idle
+  share;
 - ``k4a``: the GroupNorm+ReLU forward (K4a) over one GN site of each of the
   five levels at batch 4, as in serving (no gradient): CUDA-event ms of the
   sweep, the host's enqueue time of a sweep, and the device time of its
@@ -32,7 +33,8 @@ given:
 - ``train``: warm train steps at the preset's training shapes (800x1344,
   batch 4; 576x576, batch 8) (median), their sections (forward, loss,
   backward, optimizer), the peak memory, and a ``torch.profiler`` trace of
-  two steps: kernel time by owner and the device's idle share of the wall.
+  two steps: kernel time by owner (and the copy kernels' share of it) and
+  the device's idle share of the wall.
 
 ``--config`` names the preset, ``sipmask_r50_fpn_gn_1x`` by default; full
 width, random weights from seed 0, bumped as ``chip_smoke.py`` bumps them
@@ -311,6 +313,11 @@ def owners(prof, wall, unit):
     log(f"kernel ms (launches) per {unit} by owner: " + ", ".join(
         f"{k} {ms:.3f} ({n // 2})" for k, (ms, n) in sorted(
             by_owner.items(), key=lambda kv: -kv[1][0])))
+    copies = [e for e in kern if "copy" in e.name.lower()]
+    log(f"  of which copies (kernel names holding 'copy': permutes made "
+        f"contiguous, stacks, casts): "
+        f"{sum(e.device_time for e in copies) / 2e3:.3f} ms "
+        f"({len(copies) // 2}) per {unit}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:20]:
         log(f"  {ms:9.3f} ms/{unit} {n // 2:5d} launches/{unit}  "

@@ -58,6 +58,46 @@ def test_deform_im2col_kernel_matches_plain(dev, b, c, g, h, w, stride, dil,
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _device_kernels(fn, attempts=5):
+    """Names of the device kernels of one fn() in each of ``attempts``
+    profiler sessions (each behind a marker kernel: the card's profiler
+    sometimes misses a session's kernels, the first or all, and never adds
+    one, so the fullest session counts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()   # builds
+    torch.cuda.synchronize()
+    sessions = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        sessions.append([e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and "spin_kernel" not in e.name])
+    return sessions
+
+
+@pytest.mark.parametrize("b,c,g,h,w", [(2, 256, 4, 100, 168),   # P3
+                                       (1, 20, 4, 13, 9)])      # Cg = 5
+def test_deform_im2col_is_two_device_kernels(dev, b, c, g, h, w):
+    """A K1 call is its transpose of x into channels-last rows and its
+    gather, and no other device work."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(dev)
+    off = torch.from_numpy(_offsets(rng, b, g * 18, h, w, True)).to(dev)
+    sessions = _device_kernels(
+        lambda: deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g))
+    assert all(len(names) <= 2 for names in sessions), sessions
+    names = max(sessions, key=len)
+    assert len(names) == 2, sessions
+    assert sum("deform_im2col_rows_kernel" in n for n in names) == 1, names
+    assert sum("deform_im2col_kernel" in n for n in names) == 1, names
+
+
 @pytest.mark.parametrize("act", [True, False])
 @pytest.mark.parametrize("shape", [(2, 256, 100, 168), (2, 256, 25, 42),
                                    (1, 64, 7, 11)])
@@ -615,8 +655,70 @@ def test_assemble_masks_kernel_matches_plain(dev, b, h, w, n):
     want = mask_assembly.assemble_masks_plain(basis, cofs, boxes)
     # sigmoid of a 32-term f32 dot summed in another order
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    # the crop compares the caller's split points: the same zeros
+    # the crop compares the split points of CropSplit's f32 expressions:
+    # the same zeros
     assert torch.equal(got == 0, want == 0)
+    # detection-major: the callers' (B, N, h, w) masks, with no copy
+    assert got.shape == (b, h, w, n)
+    nchw = got.permute(0, 3, 1, 2)
+    assert nchw.is_contiguous()
+    assert nchw.contiguous().data_ptr() == got.data_ptr()
+
+
+@pytest.mark.parametrize("h,w", [(13, 30), (40, 72), (8, 3)])
+def test_assemble_masks_kernel_at_box_edges(dev, h, w):
+    """Boxes on pixel edges, fractional, negative, past the grid, of zero
+    width, infinite and NaN, on grids whose width is not a multiple of the
+    kernel's 32-pixel segments: the plain version's values and zeros."""
+    from sipmask_tpu_torch.ops import mask_assembly
+    rng = np.random.RandomState(12)
+    b, n = 2, 48
+    basis = torch.from_numpy(rng.randn(b, 32, h, w).astype(np.float32)
+                             ).to(dev).permute(0, 2, 3, 1)
+    cofs = torch.from_numpy((rng.randn(b, n, 128) * 0.3).astype(np.float32)
+                            ).to(dev)
+    edges = np.array([-3.0, -0.5, 0.0, 0.5, 1.0, 2.5, 7.0, 7.5, 31.0, 32.0,
+                      w - 1.0, w - 0.5, w, w + 0.5, w + 9.0])
+    xs = np.sort(rng.choice(edges, (b, n, 2)), -1)
+    ys = np.sort(rng.choice(edges * h / w, (b, n, 2)), -1)
+    boxes = np.stack([xs[..., 0], ys[..., 0], xs[..., 1], ys[..., 1]], -1)
+    boxes[:, 0] = [-np.inf, -np.inf, np.inf, np.inf]
+    boxes[:, 1] = [np.nan, 0.0, w, h]
+    boxes[:, 2] = [2.0, 1.0, 2.0, h]               # zero width
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    got = mask_assembly.assemble_masks(basis, cofs, boxes)
+    want = mask_assembly.assemble_masks_plain(basis, cofs, boxes)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got == 0, want == 0)
+    assert bool((got[..., 0] > 0).all())
+    assert not got[..., 1:3].any()
+
+
+@pytest.mark.parametrize("b,h,w,n", [(8, 272, 272, 100), (1, 36, 40, 256)])
+def test_assemble_masks_is_one_device_kernel(dev, b, h, w, n):
+    """A K6 call on an NCHW basis view, contiguous cofs and f32 boxes is
+    at most its kernel and no other device work."""
+    from sipmask_tpu_torch.ops import mask_assembly
+    rng = np.random.RandomState(8)
+    basis = torch.from_numpy(rng.randn(b, 32, h, w).astype(np.float32)
+                             ).to(dev).permute(0, 2, 3, 1)
+    cofs = torch.from_numpy((rng.randn(b, n, 128) * 0.3).astype(np.float32)
+                            ).to(dev)
+    x1 = rng.uniform(-4, w, (b, n))
+    y1 = rng.uniform(-4, h, (b, n))
+    boxes = torch.from_numpy(np.stack(
+        [x1, y1, x1 + rng.uniform(0, w / 2, (b, n)),
+         y1 + rng.uniform(0, h / 2, (b, n))], -1).astype(np.float32)).to(dev)
+    # late in a long run the card's profiler dropped this kernel from most
+    # sessions: 4 calls a session, and every kernel seen must be K6's, at
+    # most one a call
+    sessions = _device_kernels(
+        lambda: [mask_assembly.assemble_masks(basis, cofs, boxes)
+                 for _ in range(4)], attempts=8)
+    assert all(len(names) <= 4 for names in sessions), sessions
+    assert all("assemble_masks_kernel" in n for names in sessions
+               for n in names), sessions
+    assert max(len(names) for names in sessions) >= 1, sessions
 
 
 def test_slice_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -640,4 +742,8 @@ def test_slice_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="fit"):
         mask_assembly.assemble_masks(basis,
                                      torch.zeros((1, 3, 64), device=dev),
+                                     torch.zeros((1, 3, 4), device=dev))
+    with pytest.raises(ValueError, match="32 basis masks"):
+        mask_assembly.assemble_masks(torch.zeros((1, 8, 8, 8), device=dev),
+                                     torch.zeros((1, 3, 32), device=dev),
                                      torch.zeros((1, 3, 4), device=dev))
