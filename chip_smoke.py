@@ -50,19 +50,37 @@ the port's entry points, serving and then training each: the high-accuracy
     launches, checks losses (loss_iou included), frozen stages and every
     DCN offset conv's gradient, then runs the first step again twice, with
     the kernels and with the plain versions, the backbone's ReLUs pinned
-    to one set of masks in both, and compares them.
+    to one set of masks in both, and compares them;
+12. writes a synthetic COCO set of 8 PNG images (640x480, 640x427,
+    500x375, 612x612, twice each, 8-16 instances, polygons and RLE) with
+    ``tools/synth_coco.py``, times the loader's host work per batch, and
+    trains the flagship through ``train_detector`` (batch 4, 800x1344
+    buckets, 2 steps an epoch): 4 steps from bumped weights given as
+    ``load_from``, then a resume that must start at step 4 from epoch_2
+    with its weights and momentum and end at step 6; checks the losses
+    (finite, loss_mask > 0), the frozen stages, the train log and
+    last_checkpoint; profiles the resumed steps (the device's idle share)
+    and times the driver's steps against a bare ``make_train_step`` on the
+    same batches;
+13. runs ``run_inference`` over the set at batch 4 from the last
+    checkpoint and ``evaluate_coco`` (bbox, segm), and holds every image's
+    results against ``inference_detector`` (boxes, labels, pasted masks,
+    RLEs that decode).
 
-Each path (phases 4, 7, 10, 11) is driven with every launch count set to 0
-just before it and read just after; a kernel of the path that did not
-launch fails the run. Any failure raises (non-zero exit, no result). The
-second-to-last line is a JSON object of the kernels (launches summed over
-the four paths, with each path's count beside them; errors and times from
+Each path (phases 4, 7, 10, 11, 12, 13) is driven with every launch count
+set to 0 just before it and read just after; a kernel of the path that did
+not launch fails the run. Any failure raises (non-zero exit, no result).
+The second-to-last line is a JSON object of the kernels (launches summed
+over the six paths, with each path's count beside them; errors and times
+from
 phases 3, 6 and 9; each kernel's bound and a one-call PyTorch equivalent's
 time where there is one); the last is the device line.
 """
 
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -150,6 +168,10 @@ PATH_KERNELS = {   # the kernels each driven path must launch
                            "mask_bce_forward", "mask_bce_backward",
                            "deform_rows", "deform_rows_backward",
                            "assemble_masks"),
+    "hi-acc train driver": ("deform_im2col", "deform_conv_backward",
+                            "mask_bce_forward", "mask_bce_backward",
+                            "gn_relu", "gn_relu_backward"),
+    "hi-acc test driver": ("deform_im2col", "gn_relu", "assemble_masks"),
 }
 
 
@@ -1435,6 +1457,296 @@ def pinned_relus(backbone, masks):
                              f"{len(masks)} a forward")
 
 
+# ------------------------------------------------ the train and test drivers
+
+def loader_host_ms(dataset, cfg, batch):
+    """Host ms a loader batch: each batch of the set made on one thread
+    (image reads, annotations with their polygon fills and RLE decodes,
+    transforms, the stack), and the mean ms between batches that
+    ``build_train_loader`` delivers with the config's worker threads once
+    its queue is drained (6 batches after 2)."""
+    from sipmask_tpu_torch.data.loader import _stack_batch, build_train_loader
+    from sipmask_tpu_torch.data.transforms import TrainTransform
+    transform = TrainTransform(cfg.data, SEED)
+    one = []
+    for start in range(0, len(dataset) - batch + 1, batch):
+        t0 = time.perf_counter()
+        _stack_batch([transform(dataset.load_image(i), *dataset.get_ann(i),
+                                image_id=dataset.image_id(i))
+                      for i in range(start, start + batch)])
+        one.append((time.perf_counter() - t0) * 1e3)
+    loader, _ = build_train_loader(dataset, transform, batch, seed=SEED,
+                                   num_workers=cfg.data.num_workers)
+    try:
+        for _ in range(2):
+            next(loader)
+        t0 = time.perf_counter()
+        for _ in range(6):
+            next(loader)
+        threaded = (time.perf_counter() - t0) * 1e3 / 6
+    finally:
+        loader.close()
+    return one, threaded
+
+
+@contextlib.contextmanager
+def timed_driver(record):
+    """Within the context, each of ``train_detector``'s steps calls
+    record["before"](state), runs, synchronises when it ends an even step
+    (so that two-step windows end on the device's clock), calls
+    record["after"](state), and appends (step, host start, host end) to
+    record["steps"], its metrics to record["metrics"] and a clone of its
+    batch to record["batches"]."""
+    from sipmask_tpu_torch.apis import train as drv
+    real = drv.make_train_step
+
+    def make_train_step(state, cfg):
+        step = real(state, cfg)
+
+        def run(batch):
+            record["before"](state)
+            record["batches"].append({k: v.clone() for k, v in batch.items()})
+            t0 = time.perf_counter()
+            metrics = step(batch)
+            if state.step % 2 == 0:
+                torch.cuda.synchronize()
+            record["steps"].append((state.step, t0, time.perf_counter()))
+            record["metrics"].append(metrics)
+            record["after"](state)
+            return metrics
+        return run
+    drv.make_train_step = make_train_step
+    try:
+        yield
+    finally:
+        drv.make_train_step = real
+
+
+def device_busy_ms(prof):
+    """Summed device time of the profiled CUDA kernels and copies, ms."""
+    from torch.autograd import DeviceType
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name) / 1e3
+
+
+def phase_train_driver(dev, name, smi, work):
+    """Phase 12: ``train_detector`` on a synthetic COCO set at full width
+    (800x1344 buckets, batch 4), 4 steps from bumped weights through
+    ``load_from``, then a resume from epoch_2 to step 6; against a bare
+    ``make_train_step`` on the same batches."""
+    from sipmask_tpu_torch.apis.train import train_detector
+    from sipmask_tpu_torch.config import _r, get_config
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.tools.synth_coco import make_dataset
+    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    from sipmask_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                    save_checkpoint)
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _r(get_config(CONFIG), "train", log_interval=1)
+    ann, images = make_dataset(os.path.join(work, "coco"), seed=SEED)
+    ds = CocoDataset(ann, images)
+    n_gts = [len(ds.get_ann(i)[1]) for i in range(len(ds))]
+    if len(ds) != 2 * BATCH or min(n_gts) < 8:
+        raise AssertionError(f"synthetic set: {len(ds)} images, gts {n_gts}")
+    host, threaded = loader_host_ms(ds, cfg, BATCH)
+    sizes = [(im["width"], im["height"]) for im in ds.images]
+    log(f"synthetic COCO set: {len(ds)} PNG images {sizes}, gts {n_gts}; "
+        f"loader host ms per batch of {BATCH} on one thread (read, fill, "
+        f"transform, stack): " + ", ".join(f"{m:.1f}" for m in host)
+        + f"; delivered by build_train_loader with "
+        f"{cfg.data.num_workers} threads: {threaded:.1f} ms a batch")
+
+    state = create_train_state(cfg, dev, seed=SEED)
+    bump_weights(state.model, torch.Generator().manual_seed(SEED))
+    bumped = os.path.join(work, "weights", "bumped.pth")
+    save_checkpoint(bumped, state)
+    frozen = {n: p.detach().clone() for n, p in
+              state.model.named_parameters() if not p.requires_grad}
+    del state
+    wd = os.path.join(work, "work_dir")
+    record = dict(steps=[], metrics=[], batches=[],
+                  before=lambda state: None, after=lambda state: None)
+
+    # ---- 12a. 4 steps, 2 epochs of 2, a checkpoint each
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_driver(record):
+        state = train_detector(cfg, ann, images, wd, load_from=bumped,
+                               max_steps=4, device=dev)
+    first_s = time.perf_counter() - t0
+    epoch2 = latest_checkpoint(wd)
+    if state.step != 4 or epoch2 != os.path.join(wd, "epoch_2.pth"):
+        raise AssertionError(f"step {state.step}, last checkpoint {epoch2}")
+    for n, v in frozen.items():
+        if not torch.equal(dict(state.model.named_parameters())[n], v):
+            raise AssertionError(f"frozen parameter {n} moved")
+    saved = torch.load(epoch2, map_location=dev, weights_only=False)
+    del state
+
+    # ---- 12b. the resume: epoch_2's weights and momentum at step 4, its
+    # two steps profiled from the first one's start to the last one's sync
+    prof = profile(activities=[ProfilerActivity.CUDA])   # no host tracing
+    seen = {}
+
+    def before(state):
+        if seen:
+            return
+        sd = state.model.state_dict()
+        bad = [k for k in sd if not torch.equal(sd[k],
+                                                saved["state_dict"][k])]
+        mom = state.optimizer.state_dict()["state"]
+        bad += [f"momentum {k}" for k in mom if not torch.equal(
+            mom[k]["momentum_buffer"],
+            saved["optimizer"]["state"][k]["momentum_buffer"])]
+        if state.step != 4 or bad or len(mom) != len(
+                saved["optimizer"]["state"]):
+            raise AssertionError(f"resumed at step {state.step}, differing "
+                                 f"from epoch_2: {bad[:5]}")
+        seen["step"] = state.step
+        torch.cuda.synchronize()
+        prof.start()
+        # a marker: the profiler may miss a session's first kernel
+        torch.cuda._sleep(1000)
+        seen["t0"] = time.perf_counter()
+
+    def after(state):
+        if state.step == 6:
+            seen["wall"] = (time.perf_counter() - seen["t0"]) * 1e3
+            prof.stop()
+    record.update(before=before, after=after)
+    t0 = time.perf_counter()
+    with timed_driver(record):
+        state = train_detector(cfg, ann, images, wd, max_steps=6, device=dev)
+    second_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_path_launches("hi-acc train driver", launches)
+    last = latest_checkpoint(wd)
+    if state.step != 6 or last != os.path.join(wd, "epoch_3.pth"):
+        raise AssertionError(f"resume ended at step {state.step}, {last}")
+    wall, busy = seen["wall"], device_busy_ms(prof)
+    idle = 1 - busy / wall
+    log(f"train_detector: 4 steps in {first_s:.1f} s, resumed at step "
+        f"{seen['step']} from epoch_2 and ran to step 6 in {second_s:.1f} s "
+        f"(model build, loader start and checkpoints included); profiled "
+        f"steps 5-6 to the last synchronise: wall {wall:.1f} ms, device time "
+        f"{busy:.1f} ms, device idle share {idle:.3f} on {name} ({smi})")
+    for i, m in enumerate(record["metrics"]):
+        vals = {k: float(v) for k, v in m.items()}
+        log(f"driver step {i + 1}: " + ", ".join(f"{k} {v:.6f}"
+                                                for k, v in vals.items()))
+        if not all(np.isfinite(v) for v in vals.values()) or \
+                not vals["loss_mask"] > 0:
+            raise AssertionError(f"driver step {i + 1}: losses {vals}")
+    with open(os.path.join(wd, "train.log.json")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["step"] for r in lines] != list(range(1, 7)) or not all(
+            np.isfinite(r["loss_total"]) and r["lr"] > 0 for r in lines):
+        raise AssertionError(f"train log: {lines}")
+    for n, v in frozen.items():
+        if not torch.equal(dict(state.model.named_parameters())[n], v):
+            raise AssertionError(f"frozen parameter {n} moved")
+    del state, saved
+
+    # ---- 12c. bare make_train_step on the same 6 batches
+    state = create_train_state(cfg, dev, seed=SEED)
+    state.model.load_state_dict(
+        torch.load(bumped, map_location=dev, weights_only=False)
+        ["state_dict"])
+    step = make_train_step(state, cfg)
+    bare = []
+    for i, batch in enumerate(record["batches"]):
+        t0 = time.perf_counter()
+        step(batch)
+        if i % 2:
+            torch.cuda.synchronize()
+        bare.append((state.step, t0, time.perf_counter()))
+    # windows of two steps each, from a step's start to the sync after the
+    # next one; the driver's with its loader fetch and copy in between
+    drv_ms = [(b[2] - a[1]) * 1e3 / 2 for a, b in
+              zip(record["steps"][2::2], record["steps"][3::2])]
+    bare_ms = [(b[2] - a[1]) * 1e3 / 2 for a, b in
+               zip(bare[2::2], bare[3::2])]
+    log(f"ms a step (host clock, two-step windows ending in a synchronise, "
+        f"steps 3-4 and 5-6): train_detector {drv_ms[0]:.1f} / "
+        f"{drv_ms[1]:.1f}, bare make_train_step on the same batches "
+        f"{bare_ms[0]:.1f} / {bare_ms[1]:.1f} (steps 5-6 of the driver ran "
+        f"under the profiler); the loader delivers a batch every "
+        f"{threaded:.1f} ms, on {name} ({smi})")
+    del state, step, record
+    torch.cuda.empty_cache()
+    return launches, dict(ann=ann, images=images, last=last)
+
+
+def phase_test_driver(dev, name, smi, ann, images, ckpt):
+    """Phase 13: ``run_inference`` over the synthetic set at batch 4 from
+    the last checkpoint, against ``inference_detector`` image by image,
+    then ``evaluate_coco``."""
+    from sipmask_tpu_torch.apis.inference import (inference_detector,
+                                                  init_detector)
+    from sipmask_tpu_torch.apis.test import evaluate_coco, run_inference
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.eval.rle import decode_mask, rle_area
+    from sipmask_tpu_torch.utils.checkpoint import load_weights
+
+    det = init_detector(CONFIG, dev, seed=SEED)
+    load_weights(ckpt, det.model)
+    ds = CocoDataset(ann, images, test_mode=True)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_inference(det, ds, batch_size=BATCH, progress=False)
+    infer_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_path_launches("hi-acc test driver", launches)
+    t0 = time.perf_counter()
+    stats = evaluate_coco(results, ann)
+    eval_s = time.perf_counter() - t0
+    log(f"run_inference: {len(ds)} images, {len(results)} results in "
+        f"{infer_s:.2f} s, {len(ds) / infer_s:.2f} images/s (host paste and "
+        f"RLE included); evaluate_coco (bbox, segm) {eval_s:.2f} s, on "
+        f"{name} ({smi})")
+    for it, s in stats.items():
+        if not all(np.isfinite(v) and -1 <= v <= 1 for v in s.values()):
+            raise AssertionError(f"{it} stats {s}")
+    cat2label = {c: lab - 1 for lab, c in ds.label2cat.items()}
+    for i in range(len(ds)):
+        mine = [r for r in results if r["image_id"] == ds.image_id(i)]
+        ref = inference_detector(det, ds.load_image(i))
+        if not mine:
+            raise AssertionError(f"image {i}: no results")
+        masks = np.stack([decode_mask(r["segmentation"]) for r in mine])
+        oh, ow = ds.images[i]["height"], ds.images[i]["width"]
+        if masks.shape != (len(mine), oh, ow):
+            raise AssertionError(f"image {i}: masks {masks.shape}")
+        for r, m in zip(mine, masks):
+            if int(m.sum()) != rle_area(r["segmentation"]):
+                raise AssertionError(f"image {i}: an RLE does not decode")
+        boxes = torch.tensor([[x, y, x + w, y + h] for x, y, w, h in
+                              (r["bbox"] for r in mine)])
+        labels = torch.tensor([cat2label[r["category_id"]] for r in mine])
+        near = (((boxes[:, None] - torch.from_numpy(ref["boxes"])[None])
+                 .abs().amax(-1) <= 1e-3)
+                & (labels[:, None] == torch.from_numpy(ref["labels"])[None]))
+        share = min(float(near.any(1).float().mean()),
+                    float(near.any(0).float().mean()))
+        pairs = [(a, int(near[a].nonzero()[0])) for a in range(len(mine))
+                 if near[a].any()]
+        same = np.mean([(masks[a] == ref["masks"][b]).mean()
+                        for a, b in pairs])
+        log(f"image {i} ({oh}x{ow}): {len(mine)} results, "
+            f"{len(ref['labels'])} from inference_detector; matched "
+            f"(label, box within 1e-3) {share:.3f}, matched masks' pixels "
+            f"equal {same:.5f}")
+        if len(mine) != len(ref["labels"]) or share < MATCH_MIN \
+                or same < 0.99:
+            raise AssertionError(f"image {i}: run_inference and "
+                                 "inference_detector disagree")
+    return launches
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -1508,6 +1820,19 @@ def main():
     # ---- 10 and 11. SipMask++ serving and training
     paths["sipmask++ serving"] = phase_pp_serving(dev, name, smi)
     paths["sipmask++ training"] = phase_pp_train(dev, name, smi)
+
+    # ---- 12 and 13. the train and test drivers on a synthetic COCO set,
+    # written under build/ (gitignored) and removed after
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_drivers")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        paths["hi-acc train driver"], drv = phase_train_driver(
+            dev, name, smi, work)
+        paths["hi-acc test driver"] = phase_test_driver(
+            dev, name, smi, drv["ann"], drv["images"], drv["last"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"sipmask_tpu_torch/csrc/{src}",

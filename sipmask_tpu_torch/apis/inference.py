@@ -1,12 +1,12 @@
 """Single-image inference API, the port of
 ``sipmask_tpu/apis/inference.py`` (init_detector / inference_detector).
 
-Preprocessing uses numpy and torch only: caffe BGR mean subtraction and
-zero padding to a multiple of ``size_divisor``, as the reference's test
-pipeline does. Images must already be at the configured test scale (a
-keep-ratio scale factor of 1, or exactly ``data.fixed_size``, 544x544 for
-the real-time and SipMask++ presets); a resize that matches cv2's is not
-ported yet. The mask paste runs on the device with ``F.interpolate``.
+Preprocessing is the port's ``TestTransform`` (numpy): the keep-ratio (or
+fixed-size) resize with cv2's uint8 bilinear, caffe BGR mean subtraction
+and zero padding to the static bucket, as the JAX ``Detector`` does. The
+mask paste runs on the device with cv2's bilinear map at fx = 2 / scale
+factor (``imgops.bilinear_f32_map``), as the JAX package's ``cv2.resize``
+does on the host.
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ from typing import Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import SipMaskConfig, get_config
+from ..data.imgops import bilinear_f32_map, scaled_size
+from ..data.transforms import TestTransform
 from ..models.decode import decode_batch
 from ..models.detector import build_model
 from ..utils.convert import init_weights
@@ -57,48 +58,37 @@ def init_detector(config: Union[str, SipMaskConfig], device="cuda",
 
 
 def preprocess(img: np.ndarray, cfg: SipMaskConfig):
-    """(H, W, 3) BGR uint8 -> (padded (Hp, Wp, 3) f32, img_shape (2,),
-    scale_factor (4,)). Raises unless the image is already at the test
-    scale."""
-    d = cfg.data
-    h, w = img.shape[:2]
-    if d.fixed_size is not None:
-        out_h, out_w = d.fixed_size
-        sx, sy = out_w / w, out_h / h
-    else:  # mmcv.imrescale's scalar factor and size, scale = (long, short)
-        f = min(max(d.img_scale) / max(h, w), min(d.img_scale) / min(h, w))
-        out_h, out_w = int(h * f + 0.5), int(w * f + 0.5)
-        sx = sy = f
-    if (out_h, out_w) != (h, w):
-        raise NotImplementedError(
-            f"image {h}x{w} needs a resize to {out_h}x{out_w}: resizing is "
-            "not ported yet; pass images at the test scale")
-    norm = (img.astype(np.float32) - np.asarray(d.mean, np.float32)) / \
-        np.asarray(d.std, np.float32)
-    div = d.size_divisor
-    ph, pw = -(-h // div) * div, -(-w // div) * div
-    padded = np.zeros((ph, pw, 3), np.float32)
-    padded[:h, :w] = norm
-    return (padded, np.array([h, w], np.float32),
-            np.array([sx, sy, sx, sy], np.float32))
+    """(H, W, 3) BGR uint8 -> (padded (Hp, Wp, 3) f32 at the bucket shape,
+    img_shape (2,), scale_factor (4,)): the port's ``TestTransform``."""
+    s = TestTransform(cfg.data)(img)
+    return s.image, s.img_shape, s.scale_factor
 
 
 def paste_masks(masks, scale_factor, ori_shape, thr: float):
     """Stride-2 masks (D, Hm, Wm) -> (D, oh, ow) bool at the original image
-    size: bilinear by 2/scale (half-pixel centres, as cv2.resize), crop,
-    threshold."""
+    size, on the masks' device: ``cv2.resize(m, None, fx, fy)`` with
+    fx = 2 / scale_factor[0] and fy = 2 / scale_factor[1] (float32, as the
+    JAX package computes them), its bilinear map and its output size
+    ``round(w * fx)``, then a crop to the image and the threshold."""
     oh, ow = ori_shape
     d, mh, mw = masks.shape
-    if d == 0:
-        return torch.zeros((0, oh, ow), dtype=torch.bool,
-                           device=masks.device)
-    size = (int(round(mh * 2.0 / float(scale_factor[1]))),
-            int(round(mw * 2.0 / float(scale_factor[0]))))
-    up = F.interpolate(masks[:, None], size=size, mode="bilinear",
-                       align_corners=False)[:, 0]
     full = torch.zeros((d, oh, ow), dtype=torch.bool, device=masks.device)
-    hh, ww = min(oh, size[0]), min(ow, size[1])
-    full[:, :hh, :ww] = up[:, :hh, :ww] > thr
+    if d == 0:
+        return full
+    sf = np.asarray(scale_factor, np.float32)
+    fx, fy = np.float32(2) / sf[0], np.float32(2) / sf[1]
+    out_h, out_w = scaled_size(mh, mw, fx, fy)
+    (y0, y1, wy), (x0, x1, wx) = bilinear_f32_map(mh, mw, out_h, out_w,
+                                                  fx, fy)
+    hh, ww = min(oh, out_h), min(ow, out_w)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(masks.device)
+    horiz = (masks[:, :, dev(x0[:ww])] * dev(np.float32(1) - wx[:ww])
+             + masks[:, :, dev(x1[:ww])] * dev(wx[:ww]))
+    up = (horiz[:, dev(y0[:hh])] * dev(np.float32(1) - wy[:hh])[:, None]
+          + horiz[:, dev(y1[:hh])] * dev(wy[:hh])[:, None])
+    full[:, :hh, :ww] = up > thr
     return full
 
 

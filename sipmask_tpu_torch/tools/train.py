@@ -1,0 +1,51 @@
+"""Train a SipMask preset with the port on one device:
+
+    python -m sipmask_tpu_torch.tools.train sipmask_r50_fpn_gn_1x \\
+        --ann ANN.json --img-prefix IMAGES --work-dir WORK_DIR --max-steps 4
+
+The arguments of the JAX package's ``tools/train.py`` without the
+distributed ones, and ``--device`` (``cuda`` by default).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Train a SipMask preset.")
+    ap.add_argument("config", help="preset name (sipmask_tpu_torch.config)")
+    ap.add_argument("--ann", required=True)
+    ap.add_argument("--img-prefix", required=True)
+    ap.add_argument("--work-dir", required=True)
+    ap.add_argument("--load-from", default=None)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--val-ann", default=None,
+                    help="evaluate on this val json after each epoch")
+    ap.add_argument("--val-img-prefix", default=None)
+    ap.add_argument("--cfg-options", nargs="+", default=None,
+                    help="dotted config overrides, e.g. train.optim.lr=0.005")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from ..apis.train import make_coco_eval_hook, train_detector
+    from ..config import _r, apply_overrides, get_config
+
+    cfg = apply_overrides(get_config(args.config), args.cfg_options)
+    if args.seed is not None:
+        cfg = _r(cfg, "train", seed=args.seed)
+    eval_hook = None
+    if args.val_ann:
+        eval_hook = make_coco_eval_hook(
+            cfg, args.val_ann, args.val_img_prefix or args.img_prefix)
+    return train_detector(cfg, args.ann, args.img_prefix, args.work_dir,
+                          resume=not args.no_resume,
+                          load_from=args.load_from,
+                          max_steps=args.max_steps, eval_hook=eval_hook,
+                          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,8 @@ decay. Frozen parameters (``requires_grad`` False: the backbone stem and the
 first ``frozen_stages`` stages) are in no group. The schedule is mmcv's
 warmup ('constant' or 'linear') then x0.1 at each epoch milestone; the
 caller sets every group's lr from it before each step
-(:func:`set_lr`).
+(:func:`set_lr`). With ``grad_clip`` set, :func:`clip_gradients` scales the
+gradients by one global factor before the update.
 """
 
 from __future__ import annotations
@@ -38,8 +39,6 @@ def lr_schedule(cfg, steps_per_epoch: int):
 def make_optimizer(cfg, model) -> torch.optim.SGD:
     """``torch.optim.SGD`` over the trainable parameters of ``model`` in two
     groups, 'default' and 'bias', each with its ``lr_mult``."""
-    if cfg.grad_clip is not None:
-        raise NotImplementedError("gradient clipping is not ported")
     groups = {"default": [], "bias": []}
     for name, p in model.named_parameters():
         if p.requires_grad:
@@ -58,3 +57,15 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Give every group ``lr`` times its ``lr_mult``."""
     for group in optimizer.param_groups:
         group["lr"] = lr * group["lr_mult"]
+
+
+def clip_gradients(optimizer: torch.optim.Optimizer, max_norm: float) -> None:
+    """Scale every gradient of ``optimizer``'s parameters by
+    min(1, max_norm / (norm + 1e-6)), with norm their global L2 norm in f32
+    (the JAX package's ``grad_clip``). Reads nothing back to the host."""
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(scale)

@@ -1,12 +1,12 @@
 """The train step, the port of ``sipmask_tpu/train/step.py``: forward,
 ``compute_losses`` (with SipMask++'s rescoring head, whose ``loss_iou``
-joins the sum), backward of the summed ``loss*`` terms, then the SGD update
-with the scheduled lr."""
+joins the sum), backward of the summed ``loss*`` terms, the gradient clip
+when the config sets one, then the SGD update with the scheduled lr."""
 
 from __future__ import annotations
 
 from ..models.loss import compute_losses
-from .optim import set_lr
+from .optim import clip_gradients, set_lr
 from .state import TrainState
 
 
@@ -19,6 +19,7 @@ def make_train_step(state: TrainState, cfg):
     loss, and loss_total): the step reads nothing back to the host.
     """
     head_cfg = cfg.model.head
+    clip = cfg.train.optim.grad_clip
 
     def train_step(batch):
         set_lr(state.optimizer, state.schedule(state.step))
@@ -29,6 +30,8 @@ def make_train_step(state: TrainState, cfg):
         total = sum(v for k, v in losses.items() if k.startswith("loss"))
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if clip is not None:
+            clip_gradients(state.optimizer, clip)
         state.optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}

@@ -57,10 +57,20 @@ def demo_batch(batch_size=2, height=64, width=64, max_gts=8, num_gts=None,
 
 
 def batch_to_tensors(batch, device="cpu"):
-    """A ``demo_batch``-style dict of numpy arrays -> tensors on ``device``,
-    images NHWC -> NCHW (contiguous)."""
-    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in batch.items()}
+    """A ``demo_batch``-style dict of numpy arrays (or a loader's batch)
+    -> tensors on ``device``, images NHWC -> NCHW (contiguous, made on the
+    device). To a GPU each array is copied from pinned memory without
+    blocking the host. A loader batch's host-only keys (image ids,
+    original shapes) stay behind."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if k in ("image_ids", "ori_shapes"):
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
     out["images"] = out["images"].permute(0, 3, 1, 2).contiguous()
     return out
 

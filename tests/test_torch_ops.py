@@ -831,15 +831,15 @@ def test_box_geometry_and_points_match_jax():
 # ------------------------------------------------------- package and build
 
 def test_import_leaves_jax_flax_cv2_and_the_jax_package_out():
-    """No module of JAX, flax, cv2 or the JAX package is imported, by name
-    or by file: no loaded module's file lies under sipmask_tpu/."""
+    """No module of JAX, flax, cv2, PIL or the JAX package is imported, by
+    name or by file: no loaded module's file lies under sipmask_tpu/."""
     code = (
         "import importlib, os, pkgutil, sys\n"
         "import sipmask_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'cv2', 'sipmask_tpu')]\n"
+        "       ('jax', 'flax', 'cv2', 'PIL', 'sipmask_tpu')]\n"
         "assert not bad, bad\n"
         "jax_pkg = os.path.realpath('sipmask_tpu') + os.sep\n"
         "files = [(n, os.path.realpath(m.__file__))\n"

@@ -116,15 +116,40 @@ def test_inference_detector_matches_jax(setup):
     assert (got["masks"] != want["masks"]).mean() < 1e-4
 
 
-def test_preprocess_pads_to_32_and_refuses_a_resize(setup):
+@pytest.mark.parametrize("hw", [(120, 160), (100, 150), (150, 100)],
+                         ids=["test_scale", "landscape_resized",
+                              "portrait_resized"])
+def test_preprocess_matches_jax_test_transform(setup, hw):
+    """preprocess is TestTransform: the keep-ratio resize (cv2's uint8
+    bilinear, bit for bit), normalization and the pad to the static bucket
+    (128x160 landscape, 160x128 portrait at this img_scale), exactly."""
+    from sipmask_tpu.data.transforms import TestTransform
     cfg = setup["cfg"]
-    img = np.full((120, 160, 3), 200, np.uint8)
+    img = (np.random.RandomState(4).rand(*hw, 3) * 255).astype(np.uint8)
+    want = TestTransform(cfg.data)(img)
     padded, img_shape, scale = preprocess(img, cfg)
-    assert padded.shape == (128, 160, 3)
-    np.testing.assert_array_equal(img_shape, [120, 160])
-    np.testing.assert_array_equal(scale, [1, 1, 1, 1])
-    np.testing.assert_allclose(padded[0, 0], 200 - np.asarray(cfg.data.mean),
-                               rtol=1e-6)
-    assert not padded[120:].any()
-    with pytest.raises(NotImplementedError, match="resize"):
-        preprocess(np.zeros((100, 150, 3), np.uint8), cfg)
+    assert padded.shape == want.image.shape == (
+        (128, 160, 3) if hw[1] >= hw[0] else (160, 128, 3))
+    np.testing.assert_array_equal(padded, want.image)
+    np.testing.assert_array_equal(img_shape, want.img_shape)
+    np.testing.assert_array_equal(scale, want.scale_factor)
+
+
+def test_inference_detector_matches_jax_after_a_resize(setup):
+    """A 100x150 image is resized by 160/150 before the model, so the mask
+    paste runs at a scale factor != 1 (fx = 2 / 1.0667): the port's device
+    paste with cv2's map against JAX's cv2.resize. Boxes to 1e-3; masks
+    thresholded at mask_thr, at most 0.5% of pixels apart."""
+    img = (np.random.RandomState(6).rand(100, 150, 3) * 255).astype(np.uint8)
+    want = j_inference(JDetector(setup["cfg"], setup["jm"],
+                                 setup["variables"]), img)
+    got = inference_detector(setup["det"], img)
+    assert len(want["labels"]) > 0
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0,
+                               atol=1e-3)
+    assert got["masks"].shape == want["masks"].shape == (
+        len(want["labels"]), 100, 150)
+    assert (got["masks"] != want["masks"]).mean() <= 5e-3
