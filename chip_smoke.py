@@ -4,9 +4,10 @@ NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It drives two presets at full width with random weights from a seed through
-the port's entry points, serving and then training each: the high-accuracy
-``sipmask_r50_fpn_gn_1x`` and SipMask++ ``sipmaskpp_r101_fpn_ssd_6x``.
+It drives three presets at full width with random weights from a seed
+through the port's entry points, serving and then training each: the
+high-accuracy ``sipmask_r50_fpn_gn_1x``, SipMask++
+``sipmaskpp_r101_fpn_ssd_6x`` and the real-time ``sipmask_r50_fpn_ssd_6x``.
 
 1. finds the card (no CUDA is an error), prints ``nvidia-smi``'s name and
    power limit and the backend flags it sets (TF32 off: plain f32; cuDNN
@@ -48,9 +49,11 @@ the port's entry points, serving and then training each: the high-accuracy
     plain versions (head outputs, detections and mask_scores compared);
 11. trains SipMask++ for 3 SGD steps at 576x576, batch 8, counting
     launches, checks losses (loss_iou included), frozen stages and every
-    DCN offset conv's gradient, then runs the first step again twice, with
-    the kernels and with the plain versions, the backbone's ReLUs pinned
-    to one set of masks in both, and compares them;
+    DCN offset conv's gradient, then runs the first step again, the
+    backbone's ReLUs pinned to one set of masks in every run: with the
+    kernels, with the plain versions, with only K5 or only K5c launching
+    (the rest plain), and with the plain versions in float64; compares each
+    f32 run with the plain one and reads each against the float64 one;
 12. writes a synthetic COCO set of 8 PNG images (640x480, 640x427,
     500x375, 612x612, twice each, 8-16 instances, polygons and RLE) with
     ``tools/synth_coco.py``, times the loader's host work per batch, and
@@ -65,16 +68,28 @@ the port's entry points, serving and then training each: the high-accuracy
 13. runs ``run_inference`` over the set at batch 4 from the last
     checkpoint and ``evaluate_coco`` (bbox, segm), and holds every image's
     results against ``inference_detector`` (boxes, labels, pasted masks,
-    RLEs that decode).
+    RLEs that decode);
+14. serves the real-time preset (R50, FPN 256, a norm-free 2-conv head
+    with ``ssd_flag``, fast NMS) at 544x544: 3 requests of 480x640,
+    427x640 and 640x480 images (stretched, sx != sy) and a batch of 8
+    twice, K1 launching 5 times a forward and K6 once a decode, then the
+    batch with the plain versions (head outputs and detections compared);
+15. trains the real-time preset through ``train_detector`` on phase 12's
+    set as the preset stands (the SSD augmentations, repeat_times 3, the
+    576x576 stretch, batch 8) for 6 steps from bumped weights whose frozen
+    BN is fitted to a loader batch: finite losses, loss_mask > 0, no
+    GroupNorm launch; the loader's host ms, the driver's steps against a
+    bare ``make_train_step`` on the same batches and the device's idle
+    share.
 
-Each path (phases 4, 7, 10, 11, 12, 13) is driven with every launch count
-set to 0 just before it and read just after; a kernel of the path that did
-not launch fails the run. Any failure raises (non-zero exit, no result).
-The second-to-last line is a JSON object of the kernels (launches summed
-over the six paths, with each path's count beside them; errors and times
-from
-phases 3, 6 and 9; each kernel's bound and a one-call PyTorch equivalent's
-time where there is one); the last is the device line.
+Each path (phases 4, 7, 10, 11, 12, 13, 14, 15) is driven with every
+launch count set to 0 just before it and read just after; a kernel of the
+path that did not launch fails the run. Any failure raises (non-zero exit,
+no result). The second-to-last line is a JSON object of the kernels
+(launches summed over the eight paths, with each path's count beside them;
+errors and times from phases 3, 6 and 9; each kernel's bound and a
+one-call PyTorch equivalent's time where there is one); the last is the
+device line.
 """
 
 import contextlib
@@ -137,6 +152,17 @@ K6_TOL = 1e-5     # abs: sigmoid of a 32-term f32 dot summed in another order
 # one DCN block moves the gradients by their whole size.
 PP_LOSS_TOL = {"loss_iou": 1e-2}
 PP_GRAD_TOL, PP_BACKBONE_GRAD_TOL = 1e-2, 4e-2
+# the pinned comparison's split: the same step with only K5 (the sampled
+# route's forward) or only K5c (its backward) launching, the rest plain, and
+# the plain step in float64 as the reference each f32 run is read against
+PP_SPLIT = (("K5 only", ("deform_rows",)),
+            ("K5c only", ("deform_rows_backward",)))
+RT_CONFIG = "sipmask_r50_fpn_ssd_6x"
+RT_HW, RT_TRAIN_HW, RT_BATCH = (544, 544), (576, 576), 8
+# the real-time requests: COCO's common sizes (h, w), each stretched to
+# 544x544 (sx != sy)
+RT_SIZES = [(480, 640), (427, 640), (640, 480), (375, 500)]
+RT_DRIVER_STEPS = 6   # 2 epochs of 3 (8 images, repeat_times 3, batch 8)
 # H100 SXM data sheet: HBM, f32 on the CUDA cores, dense TF32 tensor cores
 HBM_BYTES_PER_S, F32_FLOP_PER_S, TF32_FLOP_PER_S = 3.35e12, 67e12, 495e12
 KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
@@ -172,6 +198,9 @@ PATH_KERNELS = {   # the kernels each driven path must launch
                             "mask_bce_forward", "mask_bce_backward",
                             "gn_relu", "gn_relu_backward"),
     "hi-acc test driver": ("deform_im2col", "gn_relu", "assemble_masks"),
+    "rt serving": ("deform_im2col", "assemble_masks"),
+    "rt train driver": ("deform_im2col", "deform_conv_backward",
+                        "mask_bce_forward", "mask_bce_backward"),
 }
 
 
@@ -228,14 +257,16 @@ def launch_split(label, fn, attempts=3):
 
     The profiler in the card's sandbox sometimes misses kernels of a
     session (the first one, or all), never adds any: each session starts
-    with a marker kernel, and of ``attempts`` sessions the one that saw
+    with a marker kernel, and of ``attempts`` sessions (more, up to
+    4 * ``attempts``, while every one has seen nothing) the one that saw
     the most kernels counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(attempts):
+    while len(seen) < attempts or (not max(map(len, seen))
+                                   and len(seen) < 4 * attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
@@ -841,6 +872,30 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def kernel_subset(keep):
+    """``plain_kernels()``, except that the sampled deformable route keeps
+    its autograd function and launches the row-sampling kernels named in
+    ``keep`` ("deform_rows" K5, "deform_rows_backward" K5c), each other one
+    replaced by its plain version. ``keep`` empty: ``plain_kernels()``."""
+    from sipmask_tpu_torch.ops import deform_conv
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    routed = deform_conv.deform_conv2d_rows
+    swaps = [(name, getattr(ds, name), getattr(ds, name + "_plain"))
+             for name in ("deform_rows", "deform_rows_backward")
+             if name not in keep]
+    with plain_kernels():
+        if keep:
+            deform_conv.deform_conv2d_rows = routed
+        for name, _, plain in swaps:
+            setattr(ds, name, plain)
+        try:
+            yield
+        finally:
+            for name, real, _ in swaps:
+                setattr(ds, name, real)
+
+
 def run_batch(det, batch, capture):
     images, shapes, scales = batch
     capture.clear()
@@ -852,6 +907,25 @@ def run_batch(det, batch, capture):
 def check_finite(name, t):
     if not bool(torch.isfinite(t).all()):
         raise AssertionError(f"{name} has non-finite values")
+
+
+def head_outputs(head):
+    """(name, tensor) for every head output of a captured forward."""
+    for key, val in head.items():
+        for j, t in enumerate(val if isinstance(val, list) else [val]):
+            yield f"{key}[{j}]", t
+
+
+def check_head_finite(head):
+    for name, t in head_outputs(head):
+        check_finite(name, t)
+
+
+def head_error(head_k, head_p):
+    """Max relative error (to each output's max |x|) of run k's head
+    outputs against run p's."""
+    return max(errors(a, b)[1] for (_, a), (_, b) in
+               zip(head_outputs(head_k), head_outputs(head_p)))
 
 
 def matched_share(a, b, i):
@@ -916,9 +990,7 @@ def phase_serving(dev, name, smi):
     log(f"valid detections per image of the batch: {valid}")
     if min(valid) <= 0:
         raise AssertionError("an image of the batch has no detection")
-    for key, val in head_k.items():
-        for j, t in enumerate(val if isinstance(val, list) else [val]):
-            check_finite(f"{key}[{j}]", t)
+    check_head_finite(head_k)
     for key in ("boxes", "scores", "masks"):
         check_finite(key, dec_k[key])
     m = dec_k["masks"]
@@ -935,12 +1007,7 @@ def phase_serving(dev, name, smi):
         head_p, dec_p = run_batch(det, batch, capture)
     if read_launches() != launches:
         raise AssertionError("the plain run launched a kernel")
-    worst = 0.0
-    for key, val in head_k.items():
-        vals = val if isinstance(val, list) else [val]
-        pvals = head_p[key] if isinstance(val, list) else [head_p[key]]
-        for a, b in zip(vals, pvals):
-            worst = max(worst, errors(a, b)[1])
+    worst = head_error(head_k, head_p)
     log(f"head outputs, kernels vs plain: max relative error {worst:.3e} "
         f"(tol {HEAD_TOL})")
     if not worst <= HEAD_TOL:
@@ -1219,9 +1286,7 @@ def phase_pp_serving(dev, name, smi):
     log(f"valid detections per image of the batch: {valid}")
     if min(valid) <= 0:
         raise AssertionError("an image of the batch has no detection")
-    for key, val in head_k.items():
-        for j, t in enumerate(val if isinstance(val, list) else [val]):
-            check_finite(f"{key}[{j}]", t)
+    check_head_finite(head_k)
     for key in ("boxes", "scores", "masks", "mask_scores"):
         check_finite(key, dec_k[key])
     ms_valid = dec_k["mask_scores"][dec_k["valid"]]
@@ -1232,12 +1297,7 @@ def phase_pp_serving(dev, name, smi):
         head_p, dec_p = run_batch(det, batch, capture)
     if read_launches() != launches:
         raise AssertionError("the plain run launched a kernel")
-    worst = 0.0
-    for key, val in head_k.items():
-        vals = val if isinstance(val, list) else [val]
-        pvals = head_p[key] if isinstance(val, list) else [head_p[key]]
-        for a, b in zip(vals, pvals):
-            worst = max(worst, errors(a, b)[1])
+    worst = head_error(head_k, head_p)
     log(f"SipMask++ head outputs, kernels vs plain: max relative error "
         f"{worst:.3e} (tol {HEAD_TOL})")
     if not worst <= HEAD_TOL:
@@ -1327,62 +1387,99 @@ def phase_pp_train(dev, name, smi):
     del state, step, params, first_grads
     torch.cuda.empty_cache()
 
-    # the first step again, with the kernels and then with the plain
-    # versions, the backbone's ReLUs pinned to the masks of one forward
+    # the first step again, the backbone's ReLUs pinned to the masks of one
+    # forward: with the kernels, with the plain versions, with only K5 or
+    # only K5c launching, and with the plain versions in float64
+    variants = [("kernels", None), ("plain", ())] + list(PP_SPLIT) + [
+        ("plain f64", ())]
     snapshot = read_launches()
-    runs, floors = [], []
-    for plain in (False, True):
+    runs, floors = {}, {}
+    for label, keep in variants:
         state = create_train_state(cfg, dev, state_dict=init)
+        run_batch64 = batch
+        if label == "plain f64":
+            state.model.double()
+            run_batch64 = {k: v.double() if v.is_floating_point() else v
+                           for k, v in batch.items()}
         step = make_train_step(state, cfg)
         if not runs:
             masks = relu_masks(state.model.backbone, batch["images"])
         with contextlib.ExitStack() as stack:
-            if plain:
-                stack.enter_context(plain_kernels())
+            if keep is not None:
+                stack.enter_context(kernel_subset(keep))
             stack.enter_context(pinned_relus(state.model.backbone, masks))
-            floors.append(stack.enter_context(recorded_floors()))
+            floors[label] = stack.enter_context(recorded_floors())
             vals, _ = run_step(
-                step, batch, f"SipMask++ {'plain' if plain else 'kernel'} "
-                f"train step 0, backbone ReLUs pinned", name, smi)
-        if plain and read_launches() != snapshot:
-            raise AssertionError("the plain train step launched a kernel")
-        snapshot = read_launches()
-        runs.append((vals, {
+                step, run_batch64, f"SipMask++ {label} train step 0, "
+                f"backbone ReLUs pinned", name, smi)
+        now = read_launches()
+        ran = sorted(k for k in now if now[k] != snapshot[k])
+        if keep is not None and ran != sorted(keep):
+            raise AssertionError(f"the {label} train step launched {ran}")
+        snapshot = now
+        runs[label] = (vals, {
             n: p.grad.detach().clone()
-            for n, p in state.model.named_parameters() if p.requires_grad}))
+            for n, p in state.model.named_parameters() if p.requires_grad})
         del state, step
-    del masks
-    flips = [int((a != b).sum()) for a, b in zip(*floors)]
-    log(f"sampling positions whose floor differs between the two runs, per "
-        f"DCN block: {flips} of {[a.numel() for a in floors[0]]}")
+    del masks, run_batch64
+    for label in ("plain", "plain f64"):
+        flips = [int((a != b).sum()) for a, b in
+                 zip(floors["kernels"], floors[label])]
+        log(f"sampling positions whose floor differs between the kernels "
+            f"and the {label} run, per DCN block: {flips} of "
+            f"{[a.numel() for a in floors['kernels']]}")
     del floors
-    (kvals, kgrads), (vals, grads) = runs
-    for k in vals:
-        for label, ref in (("kernels", kvals),
-                           ("unpinned kernels", losses[0])):
-            rel = abs(vals[k] - ref[k]) / max(abs(vals[k]), 1e-12)
+    vals = runs["plain"][0]
+    for label in ["kernels"] + [lb for lb, _ in PP_SPLIT]:
+        for k in vals:
+            rel = abs(vals[k] - runs[label][0][k]) / max(abs(vals[k]), 1e-12)
             tol = PP_LOSS_TOL.get(k, LOSS_TOL)
-            log(f"{k}, {label} vs pinned plain: relative difference "
+            log(f"{k}, {label} vs plain, pinned: relative difference "
                 f"{rel:.3e} (tol {tol})")
             if not rel <= tol:
-                raise AssertionError(f"{k} disagrees: {ref[k]} vs {vals[k]}")
-    worst = {}
-    for n, g in grads.items():
-        part = ("rest" if not n.startswith("backbone.") else
-                "backbone conv_offset" if ".conv_offset." in n
-                else "backbone")
-        rel = errors(kgrads[n], g)[1]
-        if rel >= worst.get(part, (0.0, ""))[0]:
-            worst[part] = (rel, n)
-    log("SipMask++ gradients, kernels vs plain with the backbone's ReLUs "
-        "pinned: max relative error (to each tensor's max |g|) " + ", ".join(
-            f"{part} {rel:.3e} at {n}" for part, (rel, n) in worst.items())
-        + f" (tol backbone {PP_BACKBONE_GRAD_TOL}, rest {PP_GRAD_TOL})")
-    if not (max(rel for part, (rel, _) in worst.items()
-                if part != "rest") <= PP_BACKBONE_GRAD_TOL
-            and worst["rest"][0] <= PP_GRAD_TOL):
-        raise AssertionError(f"gradients disagree: {worst}")
-    del batch, runs, kgrads, grads
+                raise AssertionError(f"{k} disagrees: {label} "
+                                     f"{runs[label][0][k]} vs plain {vals[k]}")
+    for k in vals:
+        rel = abs(vals[k] - losses[0][k]) / max(abs(vals[k]), 1e-12)
+        tol = PP_LOSS_TOL.get(k, LOSS_TOL)
+        log(f"{k}, unpinned kernels vs pinned plain: relative difference "
+            f"{rel:.3e} (tol {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"{k} disagrees: {losses[0][k]} vs "
+                                 f"{vals[k]}")
+
+    def worst_by_part(grads, ref):
+        worst = {}
+        for n, g in ref.items():
+            part = ("rest" if not n.startswith("backbone.") else
+                    "backbone conv_offset" if ".conv_offset." in n
+                    else "backbone")
+            rel = errors(grads[n].to(g.dtype), g)[1]
+            if rel >= worst.get(part, (0.0, ""))[0]:
+                worst[part] = (rel, n)
+        return worst
+
+    def show(worst):
+        return ", ".join(f"{part} {rel:.3e} at {n}"
+                         for part, (rel, n) in sorted(worst.items()))
+    grads = runs["plain"][1]
+    for label in ["kernels"] + [lb for lb, _ in PP_SPLIT]:
+        worst = worst_by_part(runs[label][1], grads)
+        log(f"SipMask++ gradients, {label} vs plain with the backbone's "
+            f"ReLUs pinned: max relative error (to each tensor's max |g|) "
+            f"{show(worst)} (tol backbone {PP_BACKBONE_GRAD_TOL}, rest "
+            f"{PP_GRAD_TOL})")
+        if not (max(rel for part, (rel, _) in worst.items()
+                    if part != "rest") <= PP_BACKBONE_GRAD_TOL
+                and worst["rest"][0] <= PP_GRAD_TOL):
+            raise AssertionError(f"gradients disagree, {label}: {worst}")
+    ref64 = runs["plain f64"][1]
+    for label in ["plain", "kernels"] + [lb for lb, _ in PP_SPLIT]:
+        log(f"SipMask++ gradients, f32 {label} vs plain f64, pinned: max "
+            f"relative error {show(worst_by_part(runs[label][1], ref64))}; "
+            f"loss_total {runs[label][0]['loss_total']:.9f} against "
+            f"{runs['plain f64'][0]['loss_total']:.9f}")
+    del batch, runs, grads, ref64
     torch.cuda.empty_cache()
     return launches
 
@@ -1522,6 +1619,32 @@ def timed_driver(record):
         drv.make_train_step = real
 
 
+def driver_vs_bare(cfg, dev, weights, record):
+    """A bare ``make_train_step`` from ``weights`` on the batches that
+    ``timed_driver`` recorded; returns (driver ms, bare ms) a step over
+    windows of two steps each, from a step's start to the synchronise
+    after the next one (the driver's with its loader fetch and copy in
+    between), skipping the first window."""
+    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    state = create_train_state(cfg, dev, seed=SEED)
+    state.model.load_state_dict(
+        torch.load(weights, map_location=dev, weights_only=False)
+        ["state_dict"])
+    step = make_train_step(state, cfg)
+    bare = []
+    for i, batch in enumerate(record["batches"]):
+        t0 = time.perf_counter()
+        step(batch)
+        if i % 2:
+            torch.cuda.synchronize()
+        bare.append((state.step, t0, time.perf_counter()))
+
+    def windows(steps):
+        return [(b[2] - a[1]) * 1e3 / 2 for a, b in
+                zip(steps[2::2], steps[3::2])]
+    return windows(record["steps"]), windows(bare)
+
+
 def device_busy_ms(prof):
     """Summed device time of the profiled CUDA kernels and copies, ms."""
     from torch.autograd import DeviceType
@@ -1539,7 +1662,7 @@ def phase_train_driver(dev, name, smi, work):
     from sipmask_tpu_torch.config import _r, get_config
     from sipmask_tpu_torch.data.coco import CocoDataset
     from sipmask_tpu_torch.tools.synth_coco import make_dataset
-    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    from sipmask_tpu_torch.train import create_train_state
     from sipmask_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                     save_checkpoint)
     from sipmask_tpu_torch.utils.demo_inputs import bump_weights
@@ -1651,31 +1774,14 @@ def phase_train_driver(dev, name, smi, work):
     del state, saved
 
     # ---- 12c. bare make_train_step on the same 6 batches
-    state = create_train_state(cfg, dev, seed=SEED)
-    state.model.load_state_dict(
-        torch.load(bumped, map_location=dev, weights_only=False)
-        ["state_dict"])
-    step = make_train_step(state, cfg)
-    bare = []
-    for i, batch in enumerate(record["batches"]):
-        t0 = time.perf_counter()
-        step(batch)
-        if i % 2:
-            torch.cuda.synchronize()
-        bare.append((state.step, t0, time.perf_counter()))
-    # windows of two steps each, from a step's start to the sync after the
-    # next one; the driver's with its loader fetch and copy in between
-    drv_ms = [(b[2] - a[1]) * 1e3 / 2 for a, b in
-              zip(record["steps"][2::2], record["steps"][3::2])]
-    bare_ms = [(b[2] - a[1]) * 1e3 / 2 for a, b in
-               zip(bare[2::2], bare[3::2])]
+    drv_ms, bare_ms = driver_vs_bare(cfg, dev, bumped, record)
     log(f"ms a step (host clock, two-step windows ending in a synchronise, "
         f"steps 3-4 and 5-6): train_detector {drv_ms[0]:.1f} / "
         f"{drv_ms[1]:.1f}, bare make_train_step on the same batches "
         f"{bare_ms[0]:.1f} / {bare_ms[1]:.1f} (steps 5-6 of the driver ran "
         f"under the profiler); the loader delivers a batch every "
         f"{threaded:.1f} ms, on {name} ({smi})")
-    del state, step, record
+    del record
     torch.cuda.empty_cache()
     return launches, dict(ann=ann, images=images, last=last)
 
@@ -1744,6 +1850,222 @@ def phase_test_driver(dev, name, smi, ann, images, ckpt):
                 or same < 0.99:
             raise AssertionError(f"image {i}: run_inference and "
                                  "inference_detector disagree")
+    return launches
+
+
+# ------------------------------------------------ the real-time preset
+
+def phase_rt_serving(dev, name, smi):
+    """Phase 14: ``sipmask_r50_fpn_ssd_6x`` serving at 544x544 (the
+    non-square requests stretched, sx != sy): 3 requests at batch 1, then
+    a batch of 8 twice, with the kernels; the batch with the plain versions
+    (head outputs and detections compared)."""
+    from sipmask_tpu_torch.apis.inference import (inference_detector,
+                                                  init_detector, preprocess)
+    from sipmask_tpu_torch.utils.demo_inputs import (bump_weights,
+                                                     calibrate_frozen_bn)
+
+    det = init_detector(RT_CONFIG, dev, seed=SEED)
+    cfg = det.cfg
+    if (cfg.data.fixed_size, cfg.model.head.norm,
+            cfg.model.head.stacked_convs, cfg.model.head.ssd_flag) != (
+            RT_HW, None, 2, True):
+        raise AssertionError("the real-time preset moved")
+    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    imgs = [(rng.rand(*RT_SIZES[i % len(RT_SIZES)], 3) * 255)
+            .astype(np.uint8) for i in range(3 + RT_BATCH)]
+    prepped = [preprocess(im, cfg) for im in imgs[3:]]
+    if any(p[2][0] == p[2][1] for p in prepped):
+        raise AssertionError("a request was not stretched (sx == sy)")
+    images = torch.stack([torch.from_numpy(p[0]).permute(2, 0, 1)
+                          for p in prepped]).to(dev)
+    batch = (images, torch.from_numpy(np.stack([p[1] for p in prepped])),
+             torch.from_numpy(np.stack([p[2] for p in prepped])))
+    # a norm-free head saturates on a random backbone's raw activations
+    calibrate_frozen_bn(det.model.backbone, images)
+    capture = {}
+    det.model.bbox_head.register_forward_hook(
+        lambda mod, inp, out: capture.update(out))
+
+    reset_launches()
+    for i in range(3):
+        t0 = time.perf_counter()
+        res = inference_detector(det, imgs[i])
+        ms = (time.perf_counter() - t0) * 1e3
+        n, hw = len(res["labels"]), imgs[i].shape[:2]
+        log(f"RT request {i}: {hw} image -> {RT_HW} (sx, sy "
+            f"{preprocess(imgs[i], cfg)[2][:2].tolist()}) -> {n} "
+            f"detections, {ms:.1f} ms wall on {name} ({smi})")
+        if n == 0 or not np.isfinite(res["boxes"]).all():
+            raise AssertionError(f"RT request {i}: no valid or finite "
+                                 f"result")
+        if res["masks"].shape != (n, *hw):
+            raise AssertionError(f"RT request {i}: masks "
+                                 f"{res['masks'].shape}")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):   # the first run is the first at the batch shapes
+        t0 = time.perf_counter()
+        head_k, dec_k = run_batch(det, batch, capture)
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"RT batch of {tuple(images.shape)} through Detector.infer: "
+            f"{ms:.1f} ms wall on {name} ({smi}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    launches = read_launches()
+    check_path_launches("rt serving", launches)
+    # 5 forwards (3 requests, 2 batches): K1 at each of the 5 FPN levels,
+    # K6 once a decode, no GroupNorm
+    want = {k: 0 for k in launches}
+    want.update(deform_im2col=25, assemble_masks=5)
+    if launches != want:
+        raise AssertionError(f"RT serving launches {launches}, not {want}")
+    valid = dec_k["valid"].sum(1).tolist()
+    log(f"valid detections per image of the RT batch: {valid}")
+    if min(valid) <= 0:
+        raise AssertionError("an image of the batch has no detection")
+    check_head_finite(head_k)
+    for key in ("boxes", "scores", "masks"):
+        check_finite(key, dec_k[key])
+    m = dec_k["masks"]
+    if tuple(m.shape) != (RT_BATCH, cfg.model.test.max_per_img,
+                          RT_HW[0] // 2, RT_HW[1] // 2):
+        raise AssertionError(f"masks {tuple(m.shape)}")
+
+    with plain_kernels():
+        head_p, dec_p = run_batch(det, batch, capture)
+    if read_launches() != launches:
+        raise AssertionError("the plain run launched a kernel")
+    worst = head_error(head_k, head_p)
+    log(f"RT head outputs, kernels vs plain: max relative error "
+        f"{worst:.3e} (tol {HEAD_TOL})")
+    if not worst <= HEAD_TOL:
+        raise AssertionError(f"head outputs disagree: {worst}")
+    shares = [min(matched_share(dec_k, dec_p, i),
+                  matched_share(dec_p, dec_k, i)) for i in range(RT_BATCH)]
+    log(f"RT detections reproduced by the plain run (label, box within "
+        f"0.01 px, score within 1e-4): {shares} (min {MATCH_MIN})")
+    if min(shares) < MATCH_MIN or \
+            dec_k["valid"].sum(1).tolist() != dec_p["valid"].sum(1).tolist():
+        raise AssertionError("decoded detections disagree")
+    del det
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rt_train_driver(dev, name, smi, work, ann, images):
+    """Phase 15: ``train_detector`` on phase 12's set with the real-time
+    preset as it stands (the SSD augmentations, repeat_times 3, the 576x576
+    stretch, batch 8; 3 steps an epoch): RT_DRIVER_STEPS steps from bumped
+    weights whose frozen BN is fitted to a loader batch; the loader's host
+    ms, the driver's steps against a bare ``make_train_step`` on the same
+    batches, and the device's idle share over the last two steps."""
+    from sipmask_tpu_torch.apis.train import train_detector
+    from sipmask_tpu_torch.config import _r, get_config
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.data.loader import build_train_loader
+    from sipmask_tpu_torch.data.transforms import TrainTransform
+    from sipmask_tpu_torch.train import create_train_state
+    from sipmask_tpu_torch.utils.checkpoint import save_checkpoint
+    from sipmask_tpu_torch.utils.demo_inputs import (batch_to_tensors,
+                                                     bump_weights,
+                                                     calibrate_frozen_bn)
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _r(get_config(RT_CONFIG), "train", log_interval=1)
+    d = cfg.data
+    if (d.ssd_augs, d.train_size, d.fixed_size, d.repeat_times,
+            cfg.train.imgs_per_device) != (True, RT_TRAIN_HW, RT_HW, 3,
+                                           RT_BATCH):
+        raise AssertionError("the real-time preset's training moved")
+    ds = CocoDataset(ann, images)
+    host, threaded = loader_host_ms(ds, cfg, RT_BATCH)
+    log(f"RT loader host ms per batch of {RT_BATCH} on one thread (read, "
+        f"fill, photometric distortion, expand, min-IoU crop, 576 stretch, "
+        f"stack): " + ", ".join(f"{m:.1f}" for m in host) + f"; delivered "
+        f"by build_train_loader with {d.num_workers} threads: "
+        f"{threaded:.1f} ms a batch")
+
+    state = create_train_state(cfg, dev, seed=SEED)
+    loader, steps_per_epoch = build_train_loader(
+        ds, TrainTransform(d, SEED), RT_BATCH, seed=SEED,
+        repeat_times=d.repeat_times, num_workers=1)
+    try:
+        first = batch_to_tensors(next(loader), dev)
+    finally:
+        loader.close()
+    if steps_per_epoch != len(ds) * d.repeat_times // RT_BATCH or tuple(
+            first["images"].shape) != (RT_BATCH, 3, *RT_TRAIN_HW):
+        raise AssertionError(f"{steps_per_epoch} steps an epoch, images "
+                             f"{tuple(first['images'].shape)}")
+    gen = torch.Generator().manual_seed(SEED)
+    calibrate_frozen_bn(state.model.backbone, first["images"])
+    bump_weights(state.model, gen, training=True)
+    bumped = os.path.join(work, "weights", "rt_bumped.pth")
+    save_checkpoint(bumped, state)
+    frozen = {n: p.detach().clone() for n, p in
+              state.model.named_parameters() if not p.requires_grad}
+    del state, first
+
+    prof = profile(activities=[ProfilerActivity.CUDA])   # no host tracing
+    seen = {}
+
+    def before(state):
+        if state.step == RT_DRIVER_STEPS - 2 and not seen:
+            torch.cuda.synchronize()
+            prof.start()
+            torch.cuda._sleep(1000)   # a marker: the first kernel may drop
+            seen["t0"] = time.perf_counter()
+
+    def after(state):
+        if state.step == RT_DRIVER_STEPS:
+            seen["wall"] = (time.perf_counter() - seen["t0"]) * 1e3
+            prof.stop()
+    record = dict(steps=[], metrics=[], batches=[], before=before,
+                  after=after)
+    wd = os.path.join(work, "rt_work_dir")
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_driver(record):
+        state = train_detector(cfg, ann, images, wd, load_from=bumped,
+                               max_steps=RT_DRIVER_STEPS, device=dev)
+    drv_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_path_launches("rt train driver", launches)
+    if launches["gn_relu"] or launches["gn_relu_backward"]:
+        raise AssertionError("the norm-free RT head launched GroupNorm")
+    if state.step != RT_DRIVER_STEPS:
+        raise AssertionError(f"the RT driver stopped at step {state.step}")
+    wall, busy = seen["wall"], device_busy_ms(prof)
+    log(f"RT train_detector: {RT_DRIVER_STEPS} steps in {drv_s:.1f} s "
+        f"(model build, loader start and checkpoints included); profiled "
+        f"steps {RT_DRIVER_STEPS - 1}-{RT_DRIVER_STEPS} to the last "
+        f"synchronise: wall {wall:.1f} ms, device time {busy:.1f} ms, "
+        f"device idle share {1 - busy / wall:.3f} on {name} ({smi})")
+    for i, m in enumerate(record["metrics"]):
+        vals = {k: float(v) for k, v in m.items()}
+        log(f"RT driver step {i + 1}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in vals.items()))
+        if not all(np.isfinite(v) for v in vals.values()) or \
+                not vals["loss_mask"] > 0:
+            raise AssertionError(f"RT driver step {i + 1}: losses {vals}")
+    with open(os.path.join(wd, "train.log.json")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["step"] for r in lines] != list(range(1, RT_DRIVER_STEPS + 1)):
+        raise AssertionError(f"RT train log: {lines}")
+    for n, v in frozen.items():
+        if not torch.equal(dict(state.model.named_parameters())[n], v):
+            raise AssertionError(f"frozen parameter {n} moved")
+    del state
+
+    drv_ms, bare_ms = driver_vs_bare(cfg, dev, bumped, record)
+    log(f"RT ms a step (host clock, two-step windows ending in a "
+        f"synchronise, steps 3-4 and 5-6): train_detector "
+        + " / ".join(f"{v:.1f}" for v in drv_ms) + ", bare make_train_step "
+        "on the same batches " + " / ".join(f"{v:.1f}" for v in bare_ms)
+        + f" (steps 5-6 of the driver ran under the profiler); the loader "
+        f"delivers a batch every {threaded:.1f} ms, on {name} ({smi})")
+    del record
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1831,6 +2153,12 @@ def main():
             dev, name, smi, work)
         paths["hi-acc test driver"] = phase_test_driver(
             dev, name, smi, drv["ann"], drv["images"], drv["last"])
+
+        # ---- 14 and 15. the real-time preset: serving, then training
+        # through the driver on phase 12's set
+        paths["rt serving"] = phase_rt_serving(dev, name, smi)
+        paths["rt train driver"] = phase_rt_train_driver(
+            dev, name, smi, work, drv["ann"], drv["images"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -13,6 +13,9 @@ package's, which resizes and rasterizes with cv2.
 - ``fill_polygons``: ``cv2.fillPoly(mask, pts, 1)`` with integer points: the
   scanline fill of cv2's edge table plus every edge drawn as an 8-connected
   line.
+- ``bgr_to_hsv_f32`` / ``hsv_to_bgr_f32``: ``cv2.cvtColor`` between BGR and
+  HSV on float32 images (H in degrees, S unclipped, V in the input's
+  scale), bit for bit.
 
 Every function works on whole rows or whole edges at once; none loops over
 pixels.
@@ -243,11 +246,13 @@ def fill_polygons(polys: Sequence[np.ndarray], h: int, w: int
     (8-connected lines, no shift).
 
     cv2 collects the edges of all the polygons into one table, 16.16 fixed
-    point: an edge with an end outside the image takes its slope from the
-    segment clipped to the image and its start x from that clipped line
-    extended back to its own first row. Each row y fills, between the
-    sorted crossings taken in pairs (even-odd), the pixels x with
-    x_left <= x <= x_right - 2^-16. Every edge is also drawn as an
+    point, each stepped by a slope truncated toward zero: an edge with an
+    end outside the image is clipped to it (``clipLine``) and takes the
+    clipped ends' x's; it takes their rows too unless the clipped ends
+    share one, and then keeps its own. Its start x is that line extended
+    back to its own first row. Each row y fills, between the sorted
+    crossings taken in pairs (even-odd), the pixels x with
+    ceil(x_left) <= x <= floor(x_right). Every edge is also drawn as an
     8-connected line, so boundary pixels are set."""
     mask = np.zeros((h, w), np.uint8)
     edges = []   # (y0, y1, x at y0 in 16.16, x step a row in 16.16)
@@ -265,9 +270,11 @@ def fill_polygons(polys: Sequence[np.ndarray], h: int, w: int
             if _outside(w, h, c0, c1):
                 t0, t1 = [x0, y0], [x1, y1]
                 _clip_line(w, h, t0, t1)
-                if t0[1] != t1[1]:
-                    c0, c1 = t0, t1
-            dx = ((c1[0] - c0[0]) << _XY_SHIFT) // (c1[1] - c0[1])
+                # the clipped x's, and the clipped rows unless they meet
+                c0, c1 = ((t0, t1) if t0[1] != t1[1]
+                          else ([t0[0], y0], [t1[0], y1]))
+            num, den = (c1[0] - c0[0]) << _XY_SHIFT, c1[1] - c0[1]
+            dx = abs(num) // abs(den) * (1 if (num < 0) == (den < 0) else -1)
             if y0 > y1:
                 x0, y0, y1, c0 = x1, y1, y0, c1
             edges.append((y0, y1, (c0[0] << _XY_SHIFT) + (y0 - c0[1]) * dx,
@@ -293,7 +300,7 @@ def fill_polygons(polys: Sequence[np.ndarray], h: int, w: int
     one = 1 << _XY_SHIFT
     yl = ys[0::2]
     xl = (xs[0::2] + one - 1) >> _XY_SHIFT
-    xr = (xs[1::2] - 1) >> _XY_SHIFT
+    xr = xs[1::2] >> _XY_SHIFT
     keep = (yl >= 0) & (xl < w) & (xr >= 0) & (xl <= xr)
     yl, xl, xr = yl[keep], np.maximum(xl[keep], 0), np.minimum(xr[keep],
                                                                 w - 1)
@@ -302,3 +309,68 @@ def fill_polygons(polys: Sequence[np.ndarray], h: int, w: int
     np.add.at(runs, (yl, xr + 1), -1)
     mask |= (np.cumsum(runs[:, :w], 1) > 0).astype(np.uint8)
     return mask
+
+
+# ------------------------------------------------------ float BGR <-> HSV
+
+_FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
+# Floats per vector in cv2's BGR2HSV row loop. The vector width, and with
+# it each row's scalar tail, is the one that opencv-python 5.0.0 (baseline
+# SSE3, dispatch up to AVX512_SKX) took on an x86-64 host with AVX-512; a
+# cv2 build or CPU that dispatches 4 or 16 lanes rounds the tails otherwise.
+_HSV_LANES = 8
+# (b, g, r) entries of HSV2BGR's table (v, v(1-s), v(1-sh), v(1-s(1-h)))
+# for each of the six hue sectors
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1],
+                         [0, 1, 3], [2, 1, 0]])
+
+
+def _fma(a, b, c):
+    """a * b + c for float32 a, b with one rounding, as a fused
+    multiply-add gives it (the product is exact in float64)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def bgr_to_hsv_f32(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` on a float32 (h, w, 3)
+    image: H in [0, 360], S = (max - min) / (|max| + FLT_EPSILON), V = max.
+    cv2 converts a row in vectors of 8 (the hue as a fused multiply-add
+    with 60 / (diff + eps) in float32) and the last ``w % 8`` pixels of
+    each row in scalar code (60 / (diff + eps) in double, the red sector's
+    hue without the fused add, then wrapped by + 360 if negative). Bit
+    for bit with that cv2 build and dispatch only (see ``_HSV_LANES``)."""
+    b, g, r = (img[..., i] for i in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = diff / (np.abs(v) + _FLT_EPSILON)
+    r_max, g_max = r == v, g == v
+    num = np.where(r_max, g - b, np.where(g_max, b - r, r - g))
+    base = np.where(r_max, np.where(g < b, 360, 0),
+                    np.where(g_max, 120, 240)).astype(np.float32)
+    h = _fma(num, np.float32(60) / (diff + _FLT_EPSILON), base)
+    tail = slice(img.shape[1] - img.shape[1] % _HSV_LANES, None)
+    rev = (60.0 / (diff[:, tail] + _FLT_EPSILON).astype(np.float64)
+           ).astype(np.float32)
+    n = num[:, tail]
+    ht = np.where(r_max[:, tail], n * rev, _fma(n, rev, base[:, tail]))
+    h[:, tail] = np.where(ht < 0, ht + np.float32(360), ht)
+    return np.stack([h, s, v], -1)
+
+
+def hsv_to_bgr_f32(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_HSV2BGR)`` on a float32 (h, w, 3)
+    image with H in [0, 360] (S and V any value): the sector is
+    trunc(H * 6/360) mod 6, the fraction h what is left, and the table
+    ``v(1 - s h)``, ``v(1 - s (1 - h))`` takes fused multiply-adds."""
+    one = np.float32(1)
+    hue = img[..., 0] * (np.float32(6) / np.float32(360))
+    s, v = img[..., 1], img[..., 2]
+    pre = np.trunc(hue)
+    frac = hue - pre
+    sector = (pre - np.trunc(pre * (one / np.float32(6))) * np.float32(6)
+              ).astype(np.int64)
+    tab = np.stack([v, v * (one - s), v * _fma(-s, frac, one),
+                    v * _fma(-s, one - frac, one)])
+    pick = _HSV_SECTORS[sector]
+    return np.stack([np.take_along_axis(tab, pick[None, ..., c], 0)[0]
+                     for c in range(3)], -1)

@@ -12,8 +12,10 @@ cv2 (the same numbers):
   padded, then the reference's in-loss 0.5x bilinear + > 0.5, for all of an
   image's gts at once.
 
-The SSD augmentations of the real-time recipes (photometric distortion,
-expand, min-IoU crop) are not ported: a config with ``ssd_augs`` raises.
+- the SSD augmentations of the real-time and SipMask++ recipes
+  (``ssd_augs``): photometric distortion in float through cv2's HSV,
+  expand into a mean-filled canvas, and the min-IoU random crop, each with
+  the reference's rng draws in its order and its quirks.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from typing import Tuple
 
 import numpy as np
 
-from .imgops import (downsample2x_mask, resize_bilinear_f32,
-                     resize_bilinear_u8, resize_nearest)
+from .imgops import (bgr_to_hsv_f32, downsample2x_mask, hsv_to_bgr_f32,
+                     resize_bilinear_f32, resize_bilinear_u8, resize_nearest)
 
 
 def imrescale_factor(h: int, w: int, scale: Tuple[int, int]) -> float:
@@ -65,6 +67,119 @@ def sample_ms_scale(scales, mode: str, rng) -> Tuple[int, int]:
     if mode == "value":
         return scales[rng.randint(len(scales))]
     raise ValueError(f"unknown ms_mode {mode!r}")
+
+
+def photometric_distortion(img, rng, brightness_delta=32,
+                           contrast_range=(0.5, 1.5),
+                           saturation_range=(0.5, 1.5), hue_delta=18):
+    """SSD's PhotoMetricDistortion on a float32 BGR image in 0..255, with
+    the reference's draws in its order: brightness, the contrast mode, a
+    contrast before or after HSV, saturation, hue, a channel permutation.
+    It always goes through HSV (H in degrees, S unclipped), and nothing is
+    clipped, so values may leave 0..255."""
+    img = img.copy()
+    if rng.randint(2):
+        img += rng.uniform(-brightness_delta, brightness_delta)
+    mode = rng.randint(2)
+    if mode == 1 and rng.randint(2):
+        img *= rng.uniform(*contrast_range)
+    img = bgr_to_hsv_f32(img)
+    if rng.randint(2):
+        img[..., 1] *= rng.uniform(*saturation_range)
+    if rng.randint(2):
+        hue = img[..., 0]
+        hue += rng.uniform(-hue_delta, hue_delta)
+        hue[hue > 360] -= 360
+        hue[hue < 0] += 360
+    img = hsv_to_bgr_f32(img)
+    if mode == 0 and rng.randint(2):
+        img *= rng.uniform(*contrast_range)
+    if rng.randint(2):
+        img = img[..., rng.permutation(3)]
+    return img
+
+
+def expand(img, boxes, masks, rng, mean, ratio_range=(1, 4), prob=0.5):
+    """SSD's Expand: with probability ``prob`` (drawn as uniform(0, 1) >
+    prob skips), paste the image into a canvas ``ratio`` times its size
+    filled with ``mean``, at the left then top offset
+    ``int(uniform(0, size * ratio - size))``. The canvas is written once:
+    the border bands with the mean, the inside with the image."""
+    if rng.uniform(0, 1) > prob:
+        return img, boxes, masks
+    h, w, c = img.shape
+    ratio = rng.uniform(*ratio_range)
+    eh, ew = int(h * ratio), int(w * ratio)
+    left = int(rng.uniform(0, w * ratio - w))
+    top = int(rng.uniform(0, h * ratio - h))
+    canvas = np.empty((eh, ew, c), img.dtype)
+    fill = np.asarray(mean, img.dtype)
+    canvas[:top] = fill
+    canvas[top + h:] = fill
+    canvas[top:top + h, :left] = fill
+    canvas[top:top + h, left + w:] = fill
+    canvas[top:top + h, left:left + w] = img
+    boxes = boxes + np.array([left, top, left, top], boxes.dtype)
+    if masks is not None and len(masks):
+        mcan = np.zeros((len(masks), eh, ew), masks.dtype)
+        mcan[:, top:top + h, left:left + w] = masks
+        masks = mcan
+    return canvas, boxes, masks
+
+
+def min_iou_random_crop(img, boxes, labels, masks, rng,
+                        min_ious=(0.1, 0.3, 0.5, 0.7, 0.9),
+                        min_crop_size=0.3, max_tries=50):
+    """SSD's MinIoURandomCrop with the reference's draws and quirks: the
+    mode by ``rng.choice`` over (1, *min_ious, 0), where 1 keeps the
+    image; the offsets by the one-argument ``rng.uniform(slack)`` (low =
+    slack, high = 1.0); the IoU in the +1 convention against the integer
+    patch; a gt kept when its centre lies strictly inside the patch; boxes
+    clipped to the patch edge with no -1. An image without gts is cropped
+    all the same."""
+    h, w = img.shape[:2]
+    sample_mode = (1, *min_ious, 0)
+    while True:
+        mode = rng.choice(sample_mode)
+        if mode == 1:
+            return img, boxes, labels, masks
+        for _ in range(max_tries):
+            new_w = rng.uniform(min_crop_size * w, w)
+            new_h = rng.uniform(min_crop_size * h, h)
+            if new_h / new_w < 0.5 or new_h / new_w > 2:
+                continue
+            left = rng.uniform(w - new_w)
+            top = rng.uniform(h - new_h)
+            patch = np.array((int(left), int(top),
+                              int(left + new_w), int(top + new_h)))
+            if len(boxes):
+                pf = patch.astype(np.float32)
+                bf = boxes.astype(np.float32)
+                wh = np.clip(np.minimum(bf[:, 2:], pf[2:])
+                             - np.maximum(bf[:, :2], pf[:2]) + 1, 0, None)
+                inter = wh[:, 0] * wh[:, 1]
+                area_b = (bf[:, 2] - bf[:, 0] + 1) * (bf[:, 3] - bf[:, 1] + 1)
+                area_p = (pf[2] - pf[0] + 1) * (pf[3] - pf[1] + 1)
+                if (inter / (area_b + area_p - inter)).min() < mode:
+                    continue
+                centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+                keep = ((centers[:, 0] > patch[0]) & (centers[:, 1] > patch[1])
+                        & (centers[:, 0] < patch[2])
+                        & (centers[:, 1] < patch[3]))
+                if not keep.any():
+                    continue
+                boxes = boxes[keep].copy()
+                boxes[:, 2:] = np.minimum(boxes[:, 2:],
+                                          patch[2:].astype(boxes.dtype))
+                boxes[:, :2] = np.maximum(boxes[:, :2],
+                                          patch[:2].astype(boxes.dtype))
+                boxes -= np.tile(patch[:2], 2).astype(boxes.dtype)
+                labels = labels[keep]
+                if masks is not None and len(masks):
+                    masks = masks[keep][:, patch[1]:patch[3],
+                                        patch[0]:patch[2]]
+            return (img[patch[1]:patch[3], patch[0]:patch[2]], boxes, labels,
+                    masks)
 
 
 @dataclasses.dataclass
@@ -111,11 +226,6 @@ def _normalized_canvas(img, mean, std, pad_h, pad_w):
 class TrainTransform:
     def __init__(self, cfg, seed: int = 0):
         """cfg: a ``DataConfig`` (``sipmask_tpu_torch.config``)."""
-        if cfg.ssd_augs:
-            raise NotImplementedError(
-                "the SSD augmentations (photometric_distortion, expand, "
-                "min_iou_random_crop) of the real-time and SipMask++ recipes "
-                "are not ported")
         self.cfg = cfg
         self.rng = np.random.RandomState(seed)
         self.mean = np.asarray(cfg.mean, np.float32)
@@ -128,6 +238,13 @@ class TrainTransform:
         ori_shape = img.shape[:2]
         boxes = boxes.astype(np.float32).copy()
         labels = labels.copy()
+        if cfg.ssd_augs:
+            # the SSD recipes load float32, so their resize below is the
+            # float one; the others resize the uint8 image
+            img = photometric_distortion(img.astype(np.float32), rng)
+            img, boxes, masks = expand(img, boxes, masks, rng, self.mean)
+            img, boxes, labels, masks = min_iou_random_crop(
+                img, boxes, labels, masks, rng)
 
         h, w = img.shape[:2]
         if cfg.fixed_size is not None:

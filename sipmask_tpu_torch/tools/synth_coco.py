@@ -1,13 +1,28 @@
-"""Write a synthetic COCO-format instance-segmentation set with PNG images:
-filled polygons (annotated as polygons) and ellipses (annotated as
-compressed RLE) on a noise background, with the 80 COCO categories and
-their ids. numpy only; deterministic for a seed.
+"""Write a synthetic COCO-format instance-segmentation set with PNG images.
+numpy only; deterministic for a seed. Two kinds:
+
+- the default: filled polygons (annotated as polygons) and ellipses
+  (annotated as compressed RLE) on a noise background, with the 80 COCO
+  categories and their ids:
 
     python -m sipmask_tpu_torch.tools.synth_coco OUT_DIR \\
         --sizes 640x480 640x427 500x375 612x612 --repeat 2
 
-writes ``OUT_DIR/ann.json`` and ``OUT_DIR/images/*.png`` (sizes are
-width x height, each used ``--repeat`` times).
+  writes ``OUT_DIR/ann.json`` and ``OUT_DIR/images/*.png`` (sizes are
+  width x height, each used ``--repeat`` times);
+- ``--shapes``: the JAX package's two-class set of its overfit protocol
+  (``tools/synth_coco.py``: bright ellipses 'disc', id 1, and grey rotated
+  boxes 'slab', id 2, on dark noise), from the same ``RandomState`` draws
+  in the same order, so categories, centres, axes, colours and angles are
+  its own. Slabs are filled and annotated as their corner polygon, as
+  cv2 fills it; discs as the 73-point polygon of ``cv2.ellipse`` filled
+  by the polygon fill (not cv2's convex fill: their masks are within a
+  few boundary pixels of cv2's), annotated as RLE:
+
+    python -m sipmask_tpu_torch.tools.synth_coco OUT_DIR --shapes \\
+        --num-images 8 --size 256
+
+  writes ``OUT_DIR/ann.json`` and ``OUT_DIR/imgs/*.png``.
 """
 
 from __future__ import annotations
@@ -88,24 +103,115 @@ def make_dataset(out_dir, sizes=SMOKE_SIZES, repeat=2, min_objs=8,
     return ann_file, img_dir
 
 
+def _box_points(cx, cy, w, h, angle):
+    """``cv2.boxPoints(((cx, cy), (w, h), angle))`` in float32: the four
+    corners of a rotated rectangle (angle in degrees)."""
+    f = np.float32
+    rad = float(f(angle)) * np.pi / 180.0
+    b, a = f(np.cos(rad)) * f(0.5), f(np.sin(rad)) * f(0.5)
+    cx, cy, w, h = f(cx), f(cy), f(w), f(h)
+    p0 = (cx - a * h - b * w, cy + b * h - a * w)
+    p1 = (cx + a * h - b * w, cy - b * h - a * w)
+    return np.array([p0, p1, (f(2) * cx - p0[0], f(2) * cy - p0[1]),
+                     (f(2) * cx - p1[0], f(2) * cy - p1[1])], f)
+
+
+def _ellipse_polygon(cx, cy, a, b):
+    """The vertices ``cv2.ellipse`` fills for an axis-aligned ellipse with
+    axes of 15 px or more: every 5 degrees, rounded to pixels."""
+    t = np.deg2rad(np.arange(0, 361, 5))
+    pts = np.stack([cx + a * np.round(np.cos(t), 7),
+                    cy + b * np.round(np.sin(t), 7)], 1)
+    return np.round(pts).astype(np.int32)
+
+
+def make_shapes_dataset(out_dir, num_images=8, size=256, max_objs=3,
+                        seed=0):
+    """The JAX package's ``tools/synth_coco.make_dataset`` set, as PNG;
+    returns (ann_file, image_dir)."""
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(out_dir, "imgs")
+    os.makedirs(img_dir, exist_ok=True)
+    images, annotations = [], []
+    for i in range(num_images):
+        img = rng.randint(0, 60, (size, size, 3), np.uint8)
+        for _ in range(rng.randint(2, max_objs + 1)):
+            cat = int(rng.randint(1, 3))
+            cx, cy = rng.randint(size // 5, 4 * size // 5, 2)
+            a = rng.randint(size // 10, size // 4)
+            b = rng.randint(size // 10, size // 4)
+            if cat == 1:   # bright ellipse
+                color = rng.randint(180, 255, 3)
+                mask = fill_polygons([_ellipse_polygon(cx, cy, a, b)],
+                                     size, size)
+                poly = None
+            else:          # grey rotated box
+                color = rng.randint(90, 150, 3)
+                ang = float(rng.uniform(0, 180))
+                pts = np.clip(_box_points(cx, cy, 2 * a, 2 * b, ang), 0,
+                              size - 1).astype(np.int32)
+                mask, poly = fill_polygons([pts], size, size), pts
+            img[mask > 0] = color
+            ys, xs = np.nonzero(mask)
+            if len(xs) < 20:
+                continue
+            if poly is None:
+                rle = encode_mask(mask)
+                seg = {"size": rle["size"], "counts": rle["counts"].decode()}
+            else:
+                seg = [poly.reshape(-1).astype(float).tolist()]
+            x1, y1 = int(xs.min()), int(ys.min())
+            annotations.append(dict(
+                id=len(annotations) + 1, image_id=i + 1, category_id=cat,
+                bbox=[x1, y1, int(xs.max()) - x1 + 1, int(ys.max()) - y1 + 1],
+                area=int(mask.sum()), iscrowd=0, segmentation=seg))
+        name = f"{i:04d}.png"
+        imwrite_png(os.path.join(img_dir, name), img)
+        images.append(dict(id=i + 1, file_name=name, width=size,
+                           height=size))
+    ann_file = os.path.join(out_dir, "ann.json")
+    with open(ann_file, "w") as f:
+        json.dump(dict(images=images, annotations=annotations,
+                       categories=[dict(id=1, name="disc"),
+                                   dict(id=2, name="slab")]), f)
+    return ann_file, img_dir
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("out_dir")
+    ap.add_argument("--shapes", action="store_true",
+                    help="the two-class disc / slab set of the overfit "
+                         "protocol")
+    ap.add_argument("--num-images", type=int, default=8,
+                    help="--shapes: number of images")
+    ap.add_argument("--size", type=int, default=256,
+                    help="--shapes: image side")
     ap.add_argument("--sizes", nargs="+", default=[f"{w}x{h}" for w, h in
                                                    SMOKE_SIZES],
                     help="image sizes, width x height")
     ap.add_argument("--repeat", type=int, default=2)
     ap.add_argument("--min-objs", type=int, default=8)
-    ap.add_argument("--max-objs", type=int, default=16)
+    ap.add_argument("--max-objs", type=int, default=None,
+                    help="most objects an image (default: the mode's own, "
+                         "16, or 3 with --shapes)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    sizes = [tuple(int(v) for v in s.split("x")) for s in args.sizes]
-    ann_file, img_dir = make_dataset(args.out_dir, sizes, args.repeat,
-                                     args.min_objs, args.max_objs, args.seed)
+    given = {} if args.max_objs is None else {"max_objs": args.max_objs}
+    if args.shapes:
+        ann_file, img_dir = make_shapes_dataset(
+            args.out_dir, args.num_images, args.size, seed=args.seed, **given)
+        n_img = args.num_images
+    else:
+        sizes = [tuple(int(v) for v in s.split("x")) for s in args.sizes]
+        ann_file, img_dir = make_dataset(
+            args.out_dir, sizes, args.repeat, args.min_objs, seed=args.seed,
+            **given)
+        n_img = len(sizes) * args.repeat
     with open(ann_file) as f:
         n = len(json.load(f)["annotations"])
-    print(f"wrote {ann_file} ({len(sizes) * args.repeat} images, {n} "
-          f"annotations), images in {img_dir}")
+    print(f"wrote {ann_file} ({n_img} images, {n} annotations), images in "
+          f"{img_dir}")
 
 
 if __name__ == "__main__":

@@ -747,3 +747,55 @@ def test_slice_wrappers_refuse_what_the_kernels_do_not_take(dev):
         mask_assembly.assemble_masks(torch.zeros((1, 8, 8, 8), device=dev),
                                      torch.zeros((1, 3, 32), device=dev),
                                      torch.zeros((1, 3, 4), device=dev))
+
+
+def test_rt_serving_kernels_match_plain(dev, monkeypatch):
+    """sipmask_r50_fpn_ssd_6x (norm-free 2-conv head, ssd_flag, fast NMS)
+    at a small width (FPN and head 32 wide) and a 128x128 stretch, serving
+    a batch of two non-square images (sx != sy): a forward launches K1 at
+    each of the 5 levels and the decode K6 once, and every detection is
+    the plain versions' (label, box within 0.01 px, score and mask
+    probabilities within 1e-4)."""
+    from sipmask_tpu_torch.apis.inference import init_detector, preprocess
+    from sipmask_tpu_torch.config import apply_overrides, get_config
+    from sipmask_tpu_torch.ops import deform_conv, mask_assembly
+    from sipmask_tpu_torch.utils.demo_inputs import (bump_weights,
+                                                     calibrate_frozen_bn)
+    cfg = apply_overrides(get_config("sipmask_r50_fpn_ssd_6x"), [
+        "model.fpn.out_channels=32", "model.head.in_channels=32",
+        "model.head.feat_channels=32", "data.fixed_size=(128,128)"])
+    det = init_detector(cfg, dev, seed=0)
+    bump_weights(det.model, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    prepped = [preprocess((rng.rand(*hw, 3) * 255).astype(np.uint8), cfg)
+               for hw in ((96, 128), (150, 100))]
+    assert all(p[2][0] != p[2][1] for p in prepped)
+    images = torch.stack([torch.from_numpy(p[0]).permute(2, 0, 1)
+                          for p in prepped]).to(dev)
+    shapes = torch.from_numpy(np.stack([p[1] for p in prepped]))
+    scales = torch.from_numpy(np.stack([p[2] for p in prepped]))
+    calibrate_frozen_bn(det.model.backbone, images)
+    k1 = deform_sample.deform_im2col.launches
+    k6 = mask_assembly.assemble_masks.launches
+    got = det.infer(images, shapes, scales)
+    assert deform_sample.deform_im2col.launches - k1 == 5
+    assert mask_assembly.assemble_masks.launches - k6 == 1
+    monkeypatch.setattr(deform_conv, "deform_conv2d",
+                        deform_conv.deform_conv2d_plain)
+    monkeypatch.setattr(mask_assembly, "assemble_masks",
+                        mask_assembly.assemble_masks_plain)
+    want = det.infer(images, shapes, scales)
+    assert deform_sample.deform_im2col.launches - k1 == 5
+    assert torch.equal(got["valid"].sum(1), want["valid"].sum(1))
+    assert int(got["valid"].sum()) > 0
+    for i in range(2):
+        g, w = got["valid"][i], want["valid"][i]
+        same = ((got["labels"][i][g][:, None] == want["labels"][i][w][None])
+                & ((got["boxes"][i][g][:, None] - want["boxes"][i][w][None])
+                   .abs().amax(-1) <= 1e-2)
+                & ((got["scores"][i][g][:, None]
+                    - want["scores"][i][w][None]).abs() <= 1e-4))
+        assert bool(same.any(1).all()), i
+        pairs = same.float().argmax(1)
+        masks_g, masks_w = got["masks"][i][g], want["masks"][i][w][pairs]
+        assert float((masks_g - masks_w).abs().max()) <= 1e-4

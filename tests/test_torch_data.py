@@ -96,20 +96,22 @@ def _polygons(kind, rng):
         ps = [rng.uniform(-0.1, 1.1, (rng.randint(3, 16), 2)) * [w, h]
               for _ in range(rng.randint(1, 3))]
         lo, hi = [0, 0], [w, h]
-    else:                        # far outside the image
+    elif kind == "outside":      # far outside the image
         ps = [rng.uniform(-0.5, 1.5, (rng.randint(3, 12), 2)) * [w, h]]
+        lo, hi = [-10 ** 4] * 2, [10 ** 4] * 2
+    else:                        # up to twice the image's size beyond it
+        ps = [rng.uniform(-2, 3, (rng.randint(3, 16), 2)) * [w, h]
+              for _ in range(rng.randint(1, 4))]
         lo, hi = [-10 ** 4] * 2, [10 ** 4] * 2
     return [np.clip(np.round(p), lo, hi).astype(np.int32) for p in ps], h, w
 
 
 # Pixels of cv2.fillPoly's masks the port does not reproduce, over each
-# kind's 200 seeded polygon sets. Inside the image it matches pixel for
-# pixel. An edge with an end outside the image is filled from its clipped
-# segment, extended back to its first row; a few rows beside two such
-# edges that meet outside the image still differ (6 of 200 sets each:
-# 56 of 174055 set pixels, and 28 of 190732).
+# kind's 200 seeded polygon sets: none, inside the image and at its border
+# (edges clipped to the image, and polygons far outside it, up to twice
+# its size beyond each side).
 FILL_MISMATCH = {"convex": 0, "nonconvex": 0, "multipart": 0,
-                 "coco_range": 56, "outside": 28}
+                 "coco_range": 0, "outside": 0, "twice_outside": 0}
 
 
 @pytest.mark.parametrize("kind", list(FILL_MISMATCH))
@@ -217,6 +219,77 @@ def synth(tmp_path_factory):
     return ann, img_dir
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_synth_shapes_match_the_jax_tool(tmp_path, seed):
+    """``--shapes`` against the JAX package's ``tools/synth_coco.py`` (JPEG
+    through cv2) on the same seed: the same images, annotation count and
+    categories; annotation boxes within 1 px; slab masks (the corner
+    polygon, filled as cv2 fills it) exact; disc masks (cv2's ellipse
+    polygon through the polygon fill instead of cv2's convex fill) at a
+    mask IoU of 0.98 or more with cv2's."""
+    import importlib.util
+    import os
+    from sipmask_tpu.data.coco import CocoDataset as JDataset
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.tools.synth_coco import make_shapes_dataset
+    spec = importlib.util.spec_from_file_location(
+        "jax_synth_coco", os.path.join(os.path.dirname(__file__), "..",
+                                       "tools", "synth_coco.py"))
+    jax_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_tool)
+    j_files = jax_tool.make_dataset(str(tmp_path / "jax"), seed=seed)
+    p_files = make_shapes_dataset(str(tmp_path / "port"), seed=seed)
+    anns = []
+    for ann_file, _ in (j_files, p_files):
+        with open(ann_file) as f:
+            anns.append(json.load(f))
+    j_ann, p_ann = anns
+    assert p_ann["categories"] == j_ann["categories"]
+    assert len(p_ann["images"]) == len(j_ann["images"]) == 8
+    assert len(p_ann["annotations"]) == len(j_ann["annotations"]) >= 16
+    for a, b in zip(p_ann["annotations"], j_ann["annotations"]):
+        assert (a["image_id"], a["category_id"]) == (b["image_id"],
+                                                     b["category_id"])
+        assert np.abs(np.subtract(a["bbox"], b["bbox"])).max() <= 1
+        assert isinstance(a["segmentation"], list if a["category_id"] == 2
+                          else dict)
+    j_ds, p_ds = JDataset(*j_files), CocoDataset(*p_files)
+    ious = {1: [], 2: []}
+    for i in range(8):
+        (_, jl, jm), (_, pl, pm) = j_ds.get_ann(i), p_ds.get_ann(i)
+        np.testing.assert_array_equal(pl, jl)
+        for label, a, b in zip(pl, pm, jm):
+            ious[int(label)].append((a & b).sum() / (a | b).sum())
+        assert p_ds.load_image(i).shape == (256, 256, 3)
+    assert ious[1] and ious[2]
+    assert min(ious[2]) == 1.0
+    assert min(ious[1]) >= 0.98
+
+
+
+@pytest.mark.parametrize("argv,kwargs", [
+    (["--shapes", "--num-images", "2", "--size", "64"],
+     dict(shapes=True, num_images=2, size=64)),
+    (["--shapes", "--num-images", "2", "--size", "64", "--max-objs", "2"],
+     dict(shapes=True, num_images=2, size=64, max_objs=2)),
+    (["--sizes", "64x48", "--repeat", "1"],
+     dict(sizes=((64, 48),), repeat=1)),
+    (["--sizes", "64x48", "--repeat", "1", "--max-objs", "9"],
+     dict(sizes=((64, 48),), repeat=1, max_objs=9)),
+])
+def test_synth_coco_cli_passes_max_objs_only_when_given(tmp_path, argv,
+                                                        kwargs):
+    """The CLI writes what its mode's function writes with that function's
+    own ``max_objs`` default (3 for ``--shapes``, 16 otherwise), and the
+    given one when ``--max-objs`` is set."""
+    from sipmask_tpu_torch.tools import synth_coco
+    make = (synth_coco.make_shapes_dataset if kwargs.pop("shapes", False)
+            else synth_coco.make_dataset)
+    synth_coco.main([str(tmp_path / "cli")] + argv)
+    want_file, _ = make(str(tmp_path / "fn"), seed=0, **kwargs)
+    with open(tmp_path / "cli" / "ann.json") as f, open(want_file) as g:
+        assert json.load(f) == json.load(g)
+
 def _cfg():
     cfg = get_config("sipmask_r50_fpn_gn_1x")
     return _r(cfg, "data", img_scale=(160, 128), max_gts=8)
@@ -271,35 +344,195 @@ def test_test_transform_matches_jax(hw):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
-def test_ssd_augs_are_refused():
-    from sipmask_tpu_torch.config import get_config as p_get_config
+# ------------------------------------------------- the SSD augmentations
+
+def _rng_states_equal(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(a.get_state(),
+                                                    b.get_state()))
+
+
+@pytest.mark.parametrize("w", [1, 7, 131, 640])
+def test_bgr_hsv_conversions_match_cv2_bit_for_bit(w):
+    """cv2's float BGR<->HSV, vector lanes and each row's scalar tail (w %
+    8 pixels): values outside 0..255, grey pixels, saturation over 1, hue
+    at 0 and 360. 0 differing values, shown with opencv-python 5.0.0
+    (baseline SSE3, dispatch up to AVX512_SKX) on an x86-64 host with
+    AVX-512. A cv2 that takes 4 or 16 lanes rounds the tails otherwise, so
+    a mismatch on such a host points at the lane width first."""
+    from sipmask_tpu_torch.data.imgops import bgr_to_hsv_f32, hsv_to_bgr_f32
+    rng = np.random.RandomState(w)
+    x = (rng.rand(40, w, 3) * 400 - 60).astype(np.float32)
+    x[rng.rand(40, w) < 0.3] = rng.randint(0, 256, 3)
+    x[:2] = 7
+    want = cv2.cvtColor(x, cv2.COLOR_BGR2HSV)
+    np.testing.assert_array_equal(bgr_to_hsv_f32(x), want)
+    hsv = want.copy()
+    hsv[..., 1] *= np.float32(1.4)
+    hsv[rng.rand(40, w) < 0.1, 0] = rng.choice([0, 360])
+    np.testing.assert_array_equal(hsv_to_bgr_f32(hsv),
+                                  cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR))
+
+
+SEEDS = range(60)
+
+
+def _gts(rng, h, w, n):
+    """n random boxes in an (h, w) image, labels, and their box masks."""
+    xy = np.sort(rng.randint(0, [w, h, w, h], (n, 4)).reshape(n, 2, 2), 1)
+    boxes = xy.reshape(n, 4)[:, [0, 2, 1, 3]].astype(np.float32)
+    masks = np.zeros((n, h, w), np.uint8)
+    for m, (x1, y1, x2, y2) in zip(masks, boxes.astype(int)):
+        m[y1:y2 + 1, x1:x2 + 1] = 1
+    return boxes, rng.randint(1, 81, n), masks
+
+
+def test_photometric_distortion_matches_jax():
+    """Over 60 seeds: the same image bit for bit (cv2's HSV reproduced,
+    values outside 0..255 kept) and the rng left in the same state."""
+    from sipmask_tpu.data.transforms import photometric_distortion as jax_pd
+    from sipmask_tpu_torch.data.transforms import photometric_distortion
+    img = _image((37, 53), 3, seed=9).astype(np.float32)
+    for seed in SEEDS:
+        r_j, r_p = np.random.RandomState(seed), np.random.RandomState(seed)
+        np.testing.assert_array_equal(photometric_distortion(img, r_p),
+                                      jax_pd(img, r_j), err_msg=str(seed))
+        assert _rng_states_equal(r_p, r_j), seed
+
+
+def test_expand_matches_jax():
+    """Over 60 seeds: canvas, boxes and masks bit for bit, the rng's state
+    equal; about half the seeds expand."""
+    from sipmask_tpu.data.transforms import expand as jax_expand
+    from sipmask_tpu_torch.data.transforms import expand
+    rng = np.random.RandomState(10)
+    img = rng.rand(23, 31, 3).astype(np.float32) * 255
+    boxes, _, masks = _gts(rng, 23, 31, 3)
+    mean = np.array([102.9801, 115.9465, 122.7717], np.float32)
+    grown = 0
+    for seed in SEEDS:
+        r_j, r_p = np.random.RandomState(seed), np.random.RandomState(seed)
+        got = expand(img, boxes, masks, r_p, mean)
+        want = jax_expand(img, boxes, masks, r_j, mean)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w, err_msg=str(seed))
+        assert _rng_states_equal(r_p, r_j), seed
+        grown += got[0].shape != img.shape
+    assert 15 < grown < 45
+
+
+def test_min_iou_random_crop_matches_jax():
+    """Over 60 seeds: image, boxes, labels and masks bit for bit, the rng's
+    state equal; some seeds keep the image, most crop it."""
+    from sipmask_tpu.data.transforms import min_iou_random_crop as jax_crop
+    from sipmask_tpu_torch.data.transforms import min_iou_random_crop
+    rng = np.random.RandomState(11)
+    img = rng.rand(60, 80, 3).astype(np.float32)
+    boxes, labels, masks = _gts(rng, 60, 80, 5)
+    cropped = 0
+    for seed in SEEDS:
+        r_j, r_p = np.random.RandomState(seed), np.random.RandomState(seed)
+        got = min_iou_random_crop(img, boxes, labels, masks, r_p)
+        want = jax_crop(img, boxes, labels, masks, r_j)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w, err_msg=str(seed))
+        assert _rng_states_equal(r_p, r_j), seed
+        cropped += got[0].shape != img.shape
+    assert 20 < cropped < 60
+
+
+def test_min_iou_random_crop_crops_an_image_without_gts():
+    """No gts: the image is cropped all the same (only the box and mask
+    update is skipped), as in the JAX package, over 60 seeds."""
+    from sipmask_tpu.data.transforms import min_iou_random_crop as jax_crop
+    from sipmask_tpu_torch.data.transforms import min_iou_random_crop
+    img = np.random.RandomState(12).rand(40, 30, 3).astype(np.float32)
+    none = (np.zeros((0, 4), np.float32), np.zeros((0,), np.int64),
+            np.zeros((0, 40, 30), np.uint8))
+    cropped = 0
+    for seed in SEEDS:
+        r_j, r_p = np.random.RandomState(seed), np.random.RandomState(seed)
+        got = min_iou_random_crop(img, *none, r_p)
+        want = jax_crop(img, *none, r_j)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w, err_msg=str(seed))
+        assert _rng_states_equal(r_p, r_j)
+        assert len(got[1]) == 0
+        cropped += got[0].shape != img.shape
+    assert cropped > 30
+
+
+# The SSD presets' image after the float resize of an augmented image: cv2
+# may fuse the resize's multiply-adds, so values (0..255 less the mean)
+# differ in the last bits: at most 6.1e-5 over these samples.
+SSD_IMAGE_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("index", [0, 4], ids=["landscape", "portrait"])
+@pytest.mark.parametrize("preset", ["sipmask_r50_fpn_ssd_6x",
+                                    "sipmaskpp_r101_fpn_ssd_6x"])
+def test_ssd_train_transform_matches_jax(synth, preset, index):
+    """The real-time and SipMask++ recipes (photometric distortion,
+    expand, min-IoU crop, the 576 stretch, flip 0.5), 6 samples in a row
+    from one seed: boxes, labels, masks, img_shape and scale_factor
+    exact, the rng's state equal after each sample, the image to
+    SSD_IMAGE_ATOL."""
+    from sipmask_tpu.data.coco import CocoDataset as JDataset
+    from sipmask_tpu.data.transforms import TrainTransform as JTransform
     from sipmask_tpu_torch.data.transforms import TrainTransform
-    with pytest.raises(NotImplementedError, match="min_iou_random_crop"):
-        TrainTransform(p_get_config("sipmaskpp_r101_fpn_ssd_6x").data)
+    cfg = _r(get_config(preset), "data", max_gts=8)
+    assert cfg.data.ssd_augs and cfg.data.train_size == (576, 576)
+    ds = JDataset(*synth)
+    img, boxes, labels, masks = ds.load_image(index), *ds.get_ann(index)
+    j, p = JTransform(cfg.data, seed=index), TrainTransform(cfg.data,
+                                                           seed=index)
+    for _ in range(6):
+        want = j(img, boxes, labels, masks)
+        got = p(img, boxes, labels, masks)
+        for f in FIELDS[1:]:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+        np.testing.assert_allclose(got.image, want.image, rtol=0,
+                                   atol=SSD_IMAGE_ATOL)
+        assert _rng_states_equal(p.rng, j.rng)
+        assert got.gt_masks.any()
+    assert got.image.shape == (576, 576, 3)
 
 
-def test_train_loader_batches_match_jax(synth):
+@pytest.mark.parametrize("preset", ["sipmask_r50_fpn_gn_1x",
+                                    "sipmask_r50_fpn_ssd_6x"])
+def test_train_loader_batches_match_jax(synth, preset):
     """The first 3 batches, with one worker (the shared rng draws in the
-    same order), bit for bit; steps_per_epoch too."""
+    same order), bit for bit (the real-time preset's augmented images to
+    SSD_IMAGE_ATOL); steps_per_epoch too, with the real-time preset's
+    repeat_times 3."""
     from sipmask_tpu.data.coco import CocoDataset as JDataset
     from sipmask_tpu.data.loader import build_train_loader as j_build
     from sipmask_tpu.data.transforms import TrainTransform as JTransform
     from sipmask_tpu_torch.data.coco import CocoDataset
     from sipmask_tpu_torch.data.loader import build_train_loader
     from sipmask_tpu_torch.data.transforms import TrainTransform
-    cfg = _cfg()
+    cfg = (_cfg() if preset == "sipmask_r50_fpn_gn_1x"
+           else _r(get_config(preset), "data", max_gts=8))
+    reps = cfg.data.repeat_times
     j_loader, j_steps = j_build(JDataset(*synth), JTransform(cfg.data, 3), 2,
-                                seed=3, num_workers=1)
+                                seed=3, repeat_times=reps, num_workers=1)
     loader, steps = build_train_loader(CocoDataset(*synth),
                                        TrainTransform(cfg.data, 3), 2,
-                                       seed=3, num_workers=1)
-    assert steps == j_steps == 4
+                                       seed=3, repeat_times=reps,
+                                       num_workers=1)
+    assert steps == j_steps == 4 * reps
     try:
         for _ in range(3):
             want, got = next(j_loader), next(loader)
             assert sorted(got) == sorted(want)
             for k in want:
-                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+                if k == "images" and cfg.data.ssd_augs:
+                    np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                               atol=SSD_IMAGE_ATOL)
+                else:
+                    np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     finally:
         j_loader.close()
         loader.close()

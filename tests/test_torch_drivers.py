@@ -243,3 +243,55 @@ def test_train_and_test_clis(synth, bumped, tmp_path):
         saved = json.load(f)
     assert saved and all(isinstance(r["segmentation"]["counts"], str)
                          for r in saved)
+
+
+RT_SHRINK = ["model.fpn.out_channels=32", "model.head.in_channels=32",
+             "model.head.feat_channels=32", "data.fixed_size=(128,128)",
+             "data.train_size=(160,160)", "data.max_gts=8",
+             "data.num_workers=1", "train.imgs_per_device=2",
+             "train.max_pos=16", "train.log_interval=1"]
+
+
+def test_train_detector_trains_the_real_time_preset(synth, tmp_path):
+    """sipmask_r50_fpn_ssd_6x (norm-free 2-conv head, ssd_flag, the SSD
+    augmentations, repeat_times 3, a 160 train stretch against a 128 test
+    size at this shrink) through tools/train.py for 2 steps, from weights
+    whose frozen BN standardises the loader's images (a norm-free head
+    saturates on a random backbone's raw activations): finite losses, a
+    non-zero mask loss; 9 steps an epoch (3 at batch 2, times 3)."""
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.data.loader import build_train_loader
+    from sipmask_tpu_torch.data.transforms import TrainTransform
+    from sipmask_tpu_torch.models.detector import build_model
+    from sipmask_tpu_torch.tools import train as train_cli
+    from sipmask_tpu_torch.utils.convert import init_weights
+    from sipmask_tpu_torch.utils.demo_inputs import (bump_weights,
+                                                     calibrate_frozen_bn)
+    cfg = apply_overrides(get_config("sipmask_r50_fpn_ssd_6x"), RT_SHRINK)
+    assert cfg.data.ssd_augs and cfg.data.repeat_times == 3
+    assert cfg.model.head.norm is None and cfg.model.head.ssd_flag
+    model = build_model(cfg.model)
+    gen = torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    loader, steps = build_train_loader(
+        CocoDataset(*synth), TrainTransform(cfg.data, 0), 2, seed=0,
+        repeat_times=cfg.data.repeat_times, num_workers=1)
+    images = batch_to_tensors(next(loader))["images"]
+    loader.close()
+    assert images.shape == (2, 3, 160, 160) and steps == 9
+    calibrate_frozen_bn(model.backbone, images)
+    bump_weights(model, gen, training=True)
+    weights = str(tmp_path / "rt.pth")
+    torch.save(model.state_dict(), weights)
+    wd = str(tmp_path / "wd")
+    state = train_cli.main(["sipmask_r50_fpn_ssd_6x", "--ann", synth[0],
+                            "--img-prefix", synth[1], "--work-dir", wd,
+                            "--load-from", weights, "--max-steps", "2",
+                            "--device", "cpu", "--cfg-options", *RT_SHRINK])
+    assert state.step == 2
+    with open(os.path.join(wd, "train.log.json")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["step"] for r in lines] == [1, 2]
+    assert all(np.isfinite(r["loss_total"]) and r["loss_cls"] < 20
+               for r in lines)
+    assert lines[-1]["loss_mask"] > 0

@@ -59,6 +59,47 @@ def test_paste_masks_is_cv2_resize_by_fx(sf):
     assert (np.abs(prob[diff] - 0.4) <= 1e-6).all()
 
 
+@pytest.mark.parametrize("hw", [(480, 640), (427, 640), (640, 480),
+                                (375, 500)],
+                         ids=["480x640", "427x640", "640x480", "375x500"])
+@pytest.mark.parametrize("preset", ["sipmask_r50_fpn_ssd_6x",
+                                    "sipmaskpp_r101_fpn_ssd_6x"])
+def test_fixed_size_preprocess_and_paste_match_jax(preset, hw):
+    """The real-time and SipMask++ presets stretch to 544x544 (sx != sy):
+    ``preprocess`` equals the JAX package's ``TestTransform`` exactly
+    (canvas, img_shape, scale_factor), and ``paste_masks`` of 272x272
+    stride-2 masks equals cv2.resize(m, None, fx=2/sx, fy=2/sy) cropped
+    and > mask_thr, as the JAX package pastes, except where cv2's
+    probability lies within 1e-6 of the threshold."""
+    from sipmask_tpu.config import get_config as j_get_config
+    from sipmask_tpu.data.transforms import TestTransform
+    from sipmask_tpu_torch.apis.inference import paste_masks, preprocess
+    from sipmask_tpu_torch.config import get_config
+    cfg = get_config(preset)
+    assert cfg.data.fixed_size == (544, 544)
+    img = (np.random.RandomState(hw[0]).rand(*hw, 3) * 255).astype(np.uint8)
+    want = TestTransform(j_get_config(preset).data)(img)
+    padded, img_shape, scale = preprocess(img, cfg)
+    assert padded.shape == want.image.shape == (544, 544, 3)
+    np.testing.assert_array_equal(padded, want.image)
+    np.testing.assert_array_equal(img_shape, want.img_shape)
+    np.testing.assert_array_equal(scale, want.scale_factor)
+    assert scale[0] != scale[1]
+    thr = cfg.model.test.mask_thr
+    masks = np.random.RandomState(3).rand(3, 272, 272).astype(np.float32)
+    got = paste_masks(torch.from_numpy(masks), scale, hw, thr).numpy()
+    prob = np.full(got.shape, -1.0, np.float32)
+    for d, m in enumerate(masks):
+        up = cv2.resize(m, None, fx=2.0 / want.scale_factor[0],
+                        fy=2.0 / want.scale_factor[1],
+                        interpolation=cv2.INTER_LINEAR)
+        hh, ww = min(hw[0], up.shape[0]), min(hw[1], up.shape[1])
+        prob[d, :hh, :ww] = up[:hh, :ww]
+    diff = got != (prob > thr)
+    assert diff.mean() < 1e-5
+    assert (np.abs(prob[diff] - thr) <= 1e-6).all()
+
+
 def _dets(b=2, d=6, hm=64, wm=80, seed=0):
     rng = np.random.RandomState(seed)
     boxes = np.sort(rng.uniform(0, 150, (b, d, 4)).astype(np.float32)
