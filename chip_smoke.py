@@ -4,10 +4,11 @@ NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It drives three presets at full width with random weights from a seed
+It drives four presets at full width with random weights from a seed
 through the port's entry points, serving and then training each: the
 high-accuracy ``sipmask_r50_fpn_gn_1x``, SipMask++
-``sipmaskpp_r101_fpn_ssd_6x`` and the real-time ``sipmask_r50_fpn_ssd_6x``.
+``sipmaskpp_r101_fpn_ssd_6x``, the real-time ``sipmask_r50_fpn_ssd_6x`` and
+SipMask-VIS ``sipmask_vis_r50``.
 
 1. finds the card (no CUDA is an error), prints ``nvidia-smi``'s name and
    power limit and the backend flags it sets (TF32 off: plain f32; cuDNN
@@ -80,13 +81,34 @@ high-accuracy ``sipmask_r50_fpn_gn_1x``, SipMask++
     BN is fitted to a loader batch: finite losses, loss_mask > 0, no
     GroupNorm launch; the loader's host ms, the driver's steps against a
     bare ``make_train_step`` on the same batches and the device's idle
-    share.
+    share;
+16. tracks one in-memory video with SipMask-VIS (8 frames of 720x1280,
+    four shapes moving, two crossing; 360x640 padded to 384x640) through
+    ``run_video_inference`` (batch 1 a frame, the tracker on the device,
+    masks pasted and RLE-encoded), launches counted exactly (K1 5, K4a 36
+    and K6 1 a frame), ms per frame by section, the video again under the
+    profiler (the device's idle share, frames/s), then with the plain
+    versions: head outputs (track_feats included), detections per frame and
+    the object ids of matched detections compared;
+17. trains SipMask-VIS for 3 SGD steps at 384x640, batch 4, current and
+    reference frames (``vis_pair_batch``): finite losses, loss_mask and
+    loss_match > 0, match_acc, frozen stages, non-zero track-branch
+    gradients, step ms and peak memory; then the first step with the plain
+    versions (losses and gradients compared);
+18. writes a synthetic YouTube-VIS set (``tools/synth_ytvis.py``, 4 videos
+    of 6 PNG frames at 360x360), trains SipMask-VIS on it through
+    ``train_detector`` for 4 steps from bumped weights and resumes it to
+    step 6 (train log, last_checkpoint, YTVIS classes in the checkpoint,
+    the driver's steps against a bare ``make_train_step``, idle share), then
+    tracks its videos from the last checkpoint with ``run_video_inference``
+    and scores them with ``YTVOSEvaluator`` (frames/s; every RLE decodes).
 
-Each path (phases 4, 7, 10, 11, 12, 13, 14, 15) is driven with every
-launch count set to 0 just before it and read just after; a kernel of the
-path that did not launch fails the run. Any failure raises (non-zero exit,
-no result). The second-to-last line is a JSON object of the kernels
-(launches summed over the eight paths, with each path's count beside them;
+Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17 and 18's two) is
+driven with every launch count set to 0 just before it and read just after;
+a kernel of the path that did not launch fails the run. Any failure raises
+(non-zero exit, no result). The second-to-last line is a JSON object of the
+kernels (launches summed over the twelve paths, with each path's count
+beside them;
 errors and times from phases 3, 6 and 9; each kernel's bound and a
 one-call PyTorch equivalent's time where there is one); the last is the
 device line.
@@ -163,6 +185,13 @@ RT_HW, RT_TRAIN_HW, RT_BATCH = (544, 544), (576, 576), 8
 # 544x544 (sx != sy)
 RT_SIZES = [(480, 640), (427, 640), (640, 480), (375, 500)]
 RT_DRIVER_STEPS = 6   # 2 epochs of 3 (8 images, repeat_times 3, batch 8)
+VIS_CONFIG = "sipmask_vis_r50"
+# the VIS video: 8 frames of 720x1280, scaled to 360x640 and padded to the
+# 384x640 bucket; training pairs at 384x640, batch 4
+VIS_VIDEO_HW, VIS_FRAMES, VIS_HW, VIS_BATCH = (720, 1280), 8, (384, 640), 4
+VIS_MAX_POS, VIS_MAX_GTS = 256, 64
+# the train driver: 4 videos x 6 frames at 360x360, 6 steps an epoch
+VIS_DRIVER_VIDEOS, VIS_DRIVER_FRAMES, VIS_DRIVER_SIZE = 4, 6, 360
 # H100 SXM data sheet: HBM, f32 on the CUDA cores, dense TF32 tensor cores
 HBM_BYTES_PER_S, F32_FLOP_PER_S, TF32_FLOP_PER_S = 3.35e12, 67e12, 495e12
 KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
@@ -201,6 +230,14 @@ PATH_KERNELS = {   # the kernels each driven path must launch
     "rt serving": ("deform_im2col", "assemble_masks"),
     "rt train driver": ("deform_im2col", "deform_conv_backward",
                         "mask_bce_forward", "mask_bce_backward"),
+    "vis serving": ("deform_im2col", "gn_relu", "assemble_masks"),
+    "vis training": ("deform_im2col", "deform_conv_backward",
+                     "mask_bce_forward", "mask_bce_backward", "gn_relu",
+                     "gn_relu_backward"),
+    "vis train driver": ("deform_im2col", "deform_conv_backward",
+                         "mask_bce_forward", "mask_bce_backward", "gn_relu",
+                         "gn_relu_backward"),
+    "vis test driver": ("deform_im2col", "gn_relu", "assemble_masks"),
 }
 
 
@@ -2069,6 +2106,442 @@ def phase_rt_train_driver(dev, name, smi, work, ann, images):
     return launches
 
 
+# ------------------------------------------------------------ SipMask-VIS
+
+def vis_video(n_frames, h, w, seed):
+    """An in-memory video of BGR uint8 frames: dark noise and four shapes
+    (two ellipses, two boxes) moving linearly; the first ellipse and the
+    first box start half a frame apart on one row and swap places."""
+    rng = np.random.RandomState(seed)
+    size = np.array([w, h], np.float64)
+    start = rng.uniform(0.15, 0.85, (4, 2)) * size
+    vel = rng.uniform(-0.06, 0.06, (4, 2)) * size
+    start[0] = (0.25 * w, 0.5 * h)
+    start[1] = (0.75 * w, 0.5 * h)
+    vel[0] = (0.5 * w / (n_frames - 1), 0.0)
+    vel[1] = -vel[0]
+    axes = rng.uniform(0.05, 0.12, (4, 2)) * size
+    colors = rng.randint(90, 255, (4, 3))
+    yy, xx = np.mgrid[:h, :w]
+    frames = []
+    for f in range(n_frames):
+        img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+        for k in range(4):
+            (cx, cy), (a, b) = start[k] + vel[k] * f, axes[k]
+            if k % 2 == 0:   # ellipses
+                m = ((xx - cx) / a) ** 2 + ((yy - cy) / b) ** 2 <= 1
+            else:
+                m = (np.abs(xx - cx) <= a) & (np.abs(yy - cy) <= b)
+            img[m] = colors[k]
+        frames.append(img)
+    return frames
+
+
+class MemoryVideos:
+    """One video held in memory, with ``YTVOSDataset``'s test interface."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def iter_videos(self):
+        yield 1, 0, len(self.frames)
+
+    def load_frame(self, vid_idx, frame_id):
+        return self.frames[frame_id]
+
+
+@contextlib.contextmanager
+def recorded_tracking(det, frames_out):
+    """Within the context each frame of ``run_video_inference`` appends to
+    ``frames_out`` its head outputs, its detections (batch 1) and the
+    tracker's object ids."""
+    from sipmask_tpu_torch.apis import test_video
+    real = test_video.tracker_step
+
+    def step(state, boxes, scores, labels, valid, feats, is_first, **kw):
+        state, ids = real(state, boxes, scores, labels, valid, feats,
+                          is_first, **kw)
+        frames_out[-1]["dets"] = dict(boxes=boxes[None], scores=scores[None],
+                                      labels=labels[None], valid=valid[None])
+        frames_out[-1]["ids"] = ids
+        return state, ids
+    hook = det.model.bbox_head.register_forward_hook(
+        lambda mod, inp, out: frames_out.append({"head": dict(out)}))
+    test_video.tracker_step = step
+    try:
+        yield
+    finally:
+        test_video.tracker_step = real
+        hook.remove()
+
+
+def check_vis_results(results, n_frames, hw, label):
+    """Well-formed YTVIS results whose RLEs decode to masks of ``hw``."""
+    from sipmask_tpu_torch.eval.rle import decode_mask, rle_area
+    if not results:
+        raise AssertionError(f"{label}: no tracks")
+    for r in results:
+        segs = r["segmentations"]
+        if len(segs) != n_frames or all(s is None for s in segs) or \
+                not 0 < r["score"] <= 1 or r["category_id"] < 1:
+            raise AssertionError(f"{label}: malformed track {r}")
+        for seg in segs:
+            if seg is None:
+                continue
+            m = decode_mask(seg)
+            if m.shape != hw or int(m.sum()) != rle_area(seg):
+                raise AssertionError(f"{label}: an RLE does not decode")
+
+
+def phase_vis_serving(dev, name, smi):
+    """Phase 16: SipMask-VIS tracking one video of VIS_FRAMES frames at
+    720x1280 through ``run_video_inference`` (batch 1 a frame, 384x640),
+    with the kernels (launches counted, ms per frame by section), again
+    under the profiler (the device's idle share), then with the plain
+    versions: head outputs, detections and object ids compared."""
+    from sipmask_tpu_torch.apis.inference import init_detector
+    from sipmask_tpu_torch.apis.test_video import run_video_inference
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights
+    from torch.profiler import ProfilerActivity, profile
+
+    det = init_detector(VIS_CONFIG, dev, seed=SEED)
+    cfg = det.cfg
+    h = cfg.model.head
+    if (h.track, h.num_classes, h.stacked_convs, cfg.data.img_scale,
+            cfg.model.test.max_per_img, cfg.model.test.nms_pre) != (
+            True, 40, 3, (640, 360), 10, 200):
+        raise AssertionError("the VIS preset moved")
+    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+    video = MemoryVideos(vis_video(VIS_FRAMES, *VIS_VIDEO_HW, SEED))
+
+    runs = {}
+    reset_launches()
+    timings, runs["kernels"] = {}, []
+    with recorded_tracking(det, runs["kernels"]):
+        t0 = time.perf_counter()
+        results = run_video_inference(det, video, progress=False,
+                                      timings=timings)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_path_launches("vis serving", launches)
+    want = {k: 0 for k in launches}
+    want.update(deform_im2col=5 * VIS_FRAMES, assemble_masks=VIS_FRAMES,
+                gn_relu=(2 * 5 + 3 * 5 + 5 + 2 * 3) * VIS_FRAMES)
+    if launches != want:
+        raise AssertionError(f"VIS serving launches {launches}, not {want}")
+    check_vis_results(results, VIS_FRAMES, VIS_VIDEO_HW, "VIS serving")
+    frames = runs["kernels"]
+    tf_shape = tuple(frames[0]["head"]["track_feats"].shape)
+    if tf_shape != (1, 512, VIS_HW[0] // 8, VIS_HW[1] // 8):
+        raise AssertionError(f"track_feats {tf_shape}")
+    for f in frames:
+        check_head_finite(f["head"])
+    n_ids = sorted({int(i) for f in frames for i in f["ids"] if i >= 0})
+    log(f"VIS video of {VIS_FRAMES} frames {VIS_VIDEO_HW} -> {VIS_HW}: "
+        f"{len(results)} tracks, object ids {n_ids}, valid detections per "
+        f"frame {[int(f['dets']['valid'].sum()) for f in frames]}, "
+        f"{wall:.2f} s for the video ({VIS_FRAMES / wall:.2f} frames/s, the "
+        f"first frame's cuDNN search included), on {name} ({smi})")
+    log("VIS ms per frame (host clock to a synchronise; frames 2-"
+        f"{VIS_FRAMES}): " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.1f}" for v in vals[1:])
+            + f" (mean {np.mean(vals[1:]):.2f})"
+            for k, vals in timings.items()))
+
+    prof = profile(activities=[ProfilerActivity.CUDA])   # no host tracing
+    torch.cuda.synchronize()
+    prof.start()
+    torch.cuda._sleep(1000)   # a marker: the first kernel may drop
+    t0 = time.perf_counter()
+    run_video_inference(det, video, progress=False)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    busy = device_busy_ms(prof)
+    log(f"VIS video again under the profiler: {wall:.1f} ms wall "
+        f"({VIS_FRAMES * 1e3 / wall:.2f} frames/s), device time "
+        f"{busy:.1f} ms, device idle share {1 - busy / wall:.3f} on {name} "
+        f"({smi})")
+    launches_after = read_launches()
+
+    runs["plain"] = []
+    with plain_kernels(), recorded_tracking(det, runs["plain"]):
+        run_video_inference(det, video, progress=False)
+    if read_launches() != launches_after:
+        raise AssertionError("the plain VIS run launched a kernel")
+    worst_head, shares, same_ids = 0.0, [], 0
+    for fk, fp in zip(runs["kernels"], runs["plain"]):
+        worst_head = max(worst_head, head_error(fk["head"], fp["head"]))
+        dk, dp = fk["dets"], fp["dets"]
+        shares.append(min(matched_share(dk, dp, 0), matched_share(dp, dk, 0)))
+        if int(dk["valid"].sum()) != int(dp["valid"].sum()):
+            raise AssertionError("VIS decoded detections disagree")
+        # object ids on the detections both runs have
+        for i in torch.nonzero(dk["valid"][0]).flatten().tolist():
+            near = ((dp["labels"][0] == dk["labels"][0, i])
+                    & ((dp["boxes"][0] - dk["boxes"][0, i]).abs().amax(-1)
+                       <= 0.01) & dp["valid"][0])
+            for j in torch.nonzero(near).flatten().tolist():
+                if int(fk["ids"][i]) != int(fp["ids"][j]):
+                    raise AssertionError(
+                        f"VIS object ids disagree: {int(fk['ids'][i])} "
+                        f"vs {int(fp['ids'][j])}")
+                same_ids += 1
+    log(f"VIS head outputs (track_feats included), kernels vs plain: max "
+        f"relative error {worst_head:.3e} (tol {HEAD_TOL}); detections "
+        f"reproduced per frame {shares} (min {MATCH_MIN}); {same_ids} "
+        f"matched detections carry the same object id")
+    if not worst_head <= HEAD_TOL:
+        raise AssertionError(f"VIS head outputs disagree: {worst_head}")
+    if min(shares) < MATCH_MIN or same_ids == 0:
+        raise AssertionError("VIS detections or ids disagree")
+    del det, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vis_train(dev, name, smi):
+    """Phase 17: TRAIN_STEPS SGD steps of SipMask-VIS at 384x640, batch 4,
+    current and reference frames, through ``create_train_state`` /
+    ``make_train_step``; then the first step with the plain versions."""
+    from sipmask_tpu_torch.config import get_config
+    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    from sipmask_tpu_torch.utils.demo_inputs import (bump_weights,
+                                                     vis_pair_batch)
+
+    cfg = get_config(VIS_CONFIG)
+    if (cfg.train.max_pos, cfg.data.max_gts, cfg.train.imgs_per_device) != (
+            VIS_MAX_POS, VIS_MAX_GTS, VIS_BATCH):
+        raise AssertionError("the VIS preset's max_pos, max_gts or batch "
+                             "moved")
+    state = create_train_state(cfg, dev, seed=SEED)
+    bump_weights(state.model, torch.Generator().manual_seed(SEED),
+                 training=True)
+    init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    params = dict(state.model.named_parameters())
+    frozen = {n: p.detach().clone() for n, p in params.items()
+              if not p.requires_grad}
+    batch = vis_pair_batch(VIS_BATCH, *VIS_HW, VIS_MAX_GTS,
+                           cfg.model.head.num_classes, SEED, dev)
+    log(f"VIS train batch: images and ref_images "
+        f"{tuple(batch['images'].shape)}, gts per image "
+        f"{(batch['gt_labels'] > 0).sum(1).tolist()}, matched in the "
+        f"reference frame {(batch['gt_pids'] > 0).sum(1).tolist()}")
+    step = make_train_step(state, cfg)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, peaks, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        vals, ms = run_step(step, batch, f"VIS train step {i}", name, smi)
+        losses.append(vals)
+        walls.append(ms)
+        if i == 0:
+            first_grads = {n: p.grad.detach().clone()
+                           for n, p in params.items() if p.requires_grad}
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+    launches = read_launches()
+    check_path_launches("vis training", launches)
+    log("VIS peak device memory per train step (step 0 holds cuDNN's "
+        "algorithm search): " + ", ".join(f"{p:.2f} GiB" for p in peaks)
+        + "; step ms " + ", ".join(f"{m:.1f}" for m in walls))
+    for i, vals in enumerate(losses):
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"VIS step {i}: non-finite losses {vals}")
+        if not (vals["loss_mask"] > 0 and vals["loss_match"] > 0):
+            raise AssertionError(f"VIS step {i}: loss_mask or loss_match is "
+                                 f"0: {vals}")
+    log("VIS match_acc per step: " + ", ".join(
+        f"{v['match_acc']:.4f}" for v in losses))
+    for n, v in frozen.items():
+        if not torch.equal(params[n].detach(), v):
+            raise AssertionError(f"frozen parameter {n} moved")
+    for n, p in params.items():
+        if p.requires_grad:
+            if p.grad is None:
+                raise AssertionError(f"{n} has no gradient")
+            check_finite(f"gradient of {n}", p.grad)
+    track = {n: float(first_grads[n].abs().max()) for n in first_grads
+             if ".track_convs." in n or ".sipmask_track." in n}
+    log(f"max |grad| of the track branch at step 0: min over its "
+        f"{len(track)} tensors {min(track.values()):.3e}")
+    if len(track) != 2 * 3 + 2 or not min(track.values()) > 0:
+        raise AssertionError(f"the track branch's gradients: {track}")
+    del state, step, params
+    torch.cuda.empty_cache()
+
+    state = create_train_state(cfg, dev, state_dict=init)
+    step = make_train_step(state, cfg)
+    with plain_kernels():
+        vals, _ = run_step(step, batch, "VIS plain train step 0", name, smi)
+    if read_launches() != launches:
+        raise AssertionError("the plain VIS step launched a kernel")
+    worst_loss = max(abs(vals[k] - losses[0][k]) / max(abs(vals[k]), 1e-12)
+                     for k in vals if k != "match_acc")
+    log(f"VIS losses, kernels vs plain: max relative difference "
+        f"{worst_loss:.3e} (tol {LOSS_TOL}); match_acc {vals['match_acc']:.4f}"
+        f" vs {losses[0]['match_acc']:.4f}")
+    if not worst_loss <= LOSS_TOL:
+        raise AssertionError(f"VIS losses disagree: {losses[0]} vs {vals}")
+    worst, worst_name = 0.0, ""
+    for n, p in state.model.named_parameters():
+        if p.requires_grad:
+            rel = errors(first_grads[n], p.grad)[1]
+            if rel > worst:
+                worst, worst_name = rel, n
+    log(f"VIS gradients, kernels vs plain: max relative error (to each "
+        f"tensor's max |g|) {worst:.3e} at {worst_name} (tol {GRAD_TOL})")
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"VIS gradients disagree: {worst} at "
+                             f"{worst_name}")
+    del state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vis_train_driver(dev, name, smi, work):
+    """Phase 18a: ``train_detector`` with the VIS preset on a synthetic
+    YouTube-VIS set (``tools/synth_ytvis.py``, PNG), 4 steps from bumped
+    weights through ``load_from``, then a resume to step 6; the driver's
+    steps against a bare ``make_train_step`` on the same batches and the
+    device's idle share over steps 5-6."""
+    from sipmask_tpu_torch.apis.train import train_detector
+    from sipmask_tpu_torch.config import _r, get_config
+    from sipmask_tpu_torch.tools.synth_ytvis import make_dataset
+    from sipmask_tpu_torch.train import create_train_state
+    from sipmask_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                    save_checkpoint)
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _r(get_config(VIS_CONFIG), "train", log_interval=1)
+    t0 = time.perf_counter()
+    ann, images = make_dataset(os.path.join(work, "ytvis"),
+                               VIS_DRIVER_VIDEOS, VIS_DRIVER_FRAMES,
+                               VIS_DRIVER_SIZE, seed=SEED)
+    log(f"synthetic YouTube-VIS set: {VIS_DRIVER_VIDEOS} videos x "
+        f"{VIS_DRIVER_FRAMES} PNG frames of {VIS_DRIVER_SIZE}x"
+        f"{VIS_DRIVER_SIZE} in {time.perf_counter() - t0:.1f} s")
+    state = create_train_state(cfg, dev, seed=SEED)
+    bump_weights(state.model, torch.Generator().manual_seed(SEED),
+                 training=True)
+    bumped = os.path.join(work, "weights", "vis_bumped.pth")
+    save_checkpoint(bumped, state)
+    frozen = {n: p.detach().clone() for n, p in
+              state.model.named_parameters() if not p.requires_grad}
+    del state
+    wd = os.path.join(work, "vis_work_dir")
+    prof = profile(activities=[ProfilerActivity.CUDA])   # no host tracing
+    seen = {}
+
+    def before(state):
+        if state.step == 4 and not seen:
+            torch.cuda.synchronize()
+            prof.start()
+            torch.cuda._sleep(1000)   # a marker: the first kernel may drop
+            seen["t0"] = time.perf_counter()
+
+    def after(state):
+        if state.step == 6:
+            seen["wall"] = (time.perf_counter() - seen["t0"]) * 1e3
+            prof.stop()
+    record = dict(steps=[], metrics=[], batches=[], before=before,
+                  after=after)
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_driver(record):
+        state = train_detector(cfg, ann, images, wd, load_from=bumped,
+                               max_steps=4, device=dev)
+    first_s = time.perf_counter() - t0
+    if state.step != 4 or latest_checkpoint(wd) != os.path.join(
+            wd, "epoch_0.pth"):
+        raise AssertionError(f"VIS driver: step {state.step}, last "
+                             f"checkpoint {latest_checkpoint(wd)}")
+    del state
+    t0 = time.perf_counter()
+    with timed_driver(record):
+        state = train_detector(cfg, ann, images, wd, max_steps=6, device=dev)
+    second_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_path_launches("vis train driver", launches)
+    last = latest_checkpoint(wd)
+    if state.step != 6 or last != os.path.join(wd, "epoch_1.pth"):
+        raise AssertionError(f"VIS resume ended at step {state.step}, {last}")
+    wall, busy = seen["wall"], device_busy_ms(prof)
+    log(f"VIS train_detector: 4 steps in {first_s:.1f} s, resumed to step 6 "
+        f"in {second_s:.1f} s (model build, loader start and checkpoints "
+        f"included); profiled steps 5-6 to the last synchronise: wall "
+        f"{wall:.1f} ms, device time {busy:.1f} ms, device idle share "
+        f"{1 - busy / wall:.3f} on {name} ({smi})")
+    for i, m in enumerate(record["metrics"]):
+        vals = {k: float(v) for k, v in m.items()}
+        log(f"VIS driver step {i + 1}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in vals.items()))
+        if not all(np.isfinite(v) for v in vals.values()) or \
+                "loss_match" not in vals:
+            raise AssertionError(f"VIS driver step {i + 1}: losses {vals}")
+    with open(os.path.join(wd, "train.log.json")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["step"] for r in lines] != list(range(1, 7)) or not all(
+            np.isfinite(r["loss_match"]) for r in lines):
+        raise AssertionError(f"VIS train log: {lines}")
+    meta = torch.load(last, map_location="cpu", weights_only=False)["meta"]
+    if len(meta["classes"]) != 40 or meta["classes"][0] != "person":
+        raise AssertionError(f"VIS checkpoint classes {meta['classes']}")
+    for n, v in frozen.items():
+        if not torch.equal(dict(state.model.named_parameters())[n], v):
+            raise AssertionError(f"frozen parameter {n} moved")
+    del state
+    drv_ms, bare_ms = driver_vs_bare(cfg, dev, bumped, record)
+    log(f"VIS ms a step (host clock, two-step windows ending in a "
+        f"synchronise, steps 3-4 and 5-6): train_detector "
+        + " / ".join(f"{v:.1f}" for v in drv_ms) + ", bare make_train_step "
+        "on the same batches " + " / ".join(f"{v:.1f}" for v in bare_ms)
+        + f" (steps 5-6 of the driver ran under the profiler), on {name} "
+        f"({smi})")
+    del record
+    torch.cuda.empty_cache()
+    return launches, dict(ann=ann, images=images, last=last)
+
+
+def phase_vis_test_driver(dev, name, smi, ann, images, ckpt):
+    """Phase 18b: ``run_video_inference`` over the set's videos from the
+    last checkpoint, then ``YTVOSEvaluator``."""
+    from sipmask_tpu_torch.apis.inference import init_detector
+    from sipmask_tpu_torch.apis.test_video import run_video_inference
+    from sipmask_tpu_torch.data.ytvos import YTVOSDataset
+    from sipmask_tpu_torch.eval.ytvos_eval import YTVOSEvaluator
+    from sipmask_tpu_torch.utils.checkpoint import load_weights
+
+    det = init_detector(VIS_CONFIG, dev, seed=SEED)
+    load_weights(ckpt, det.model)
+    ds = YTVOSDataset(ann, images, test_mode=True)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_video_inference(det, ds, progress=False)
+    infer_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_path_launches("vis test driver", launches)
+    t0 = time.perf_counter()
+    ev = YTVOSEvaluator(ann)
+    ev.update(results)
+    stats = ev.summarize()
+    eval_s = time.perf_counter() - t0
+    n_frames = len(ds)
+    log(f"VIS run_video_inference: {VIS_DRIVER_VIDEOS} videos, {n_frames} "
+        f"frames, {len(results)} tracks in {infer_s:.2f} s, "
+        f"{n_frames / infer_s:.2f} frames/s (reads, paste and RLEs "
+        f"included); YTVOSEvaluator {eval_s:.2f} s, on {name} ({smi})")
+    if not all(np.isfinite(v) and -1 <= v <= 1 for v in stats.values()):
+        raise AssertionError(f"VIS stats {stats}")
+    for vid, v in enumerate(ds.videos):
+        check_vis_results([r for r in results if r["video_id"] == v["id"]],
+                          VIS_DRIVER_FRAMES, (v["height"], v["width"]),
+                          f"VIS test driver, video {vid}")
+    return launches
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -2159,6 +2632,17 @@ def main():
         paths["rt serving"] = phase_rt_serving(dev, name, smi)
         paths["rt train driver"] = phase_rt_train_driver(
             dev, name, smi, work, drv["ann"], drv["images"])
+
+        # ---- 16 and 17. SipMask-VIS: tracking a video, training pairs
+        paths["vis serving"] = phase_vis_serving(dev, name, smi)
+        paths["vis training"] = phase_vis_train(dev, name, smi)
+
+        # ---- 18. the VIS train and test drivers on a synthetic
+        # YouTube-VIS set
+        paths["vis train driver"], vis = phase_vis_train_driver(
+            dev, name, smi, work)
+        paths["vis test driver"] = phase_vis_test_driver(
+            dev, name, smi, vis["ann"], vis["images"], vis["last"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -4,7 +4,8 @@ the aspect-grouped loader around ``make_train_step``, smoothed metric logs
 every ``log_interval`` steps, a checkpoint each
 ``checkpoint_interval_epochs`` and at the last step, auto-resume from
 ``work_dir``, ``load_from``, and an optional eval hook that keeps the best
-checkpoint's record.
+checkpoint's record. A tracking preset (SipMask-VIS, ``head.track``)
+trains on frame pairs of a YouTube-VIS-format set.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import Callable, Optional
 import torch
 
 from ..data.coco import CocoDataset
-from ..data.loader import build_train_loader
-from ..data.transforms import TrainTransform
+from ..data.loader import build_train_loader, build_vis_train_loader
+from ..data.transforms import TrainTransform, VISPairTransform
+from ..data.ytvos import YTVOSDataset
 from ..train import create_train_state, make_train_step
 from ..utils.checkpoint import (latest_checkpoint, load_weights,
                                 restore_checkpoint, save_checkpoint)
@@ -54,13 +56,45 @@ def make_coco_eval_hook(cfg, ann_file: str, img_prefix: str,
     return hook
 
 
+def make_ytvos_eval_hook(cfg, ann_file: str, img_prefix: str,
+                         interval_epochs: int = 1):
+    """SipMask-VIS's eval during training: every ``interval_epochs``,
+    ``run_video_inference`` over ``ann_file``'s videos with the model in
+    eval mode, then ``YTVOSEvaluator`` (the set needs annotations).
+    ``hook(state, epoch)`` returns {"segm": track-level mask AP stats}, or
+    None between intervals."""
+    from ..eval.ytvos_eval import YTVOSEvaluator
+    from .test_video import run_video_inference
+
+    dataset = YTVOSDataset(ann_file, img_prefix, test_mode=True)
+
+    def hook(state, epoch):
+        if epoch % interval_epochs:
+            return None
+        model = state.model
+        model.eval()
+        try:
+            results = run_video_inference(
+                Detector(cfg, model, next(model.parameters()).device),
+                dataset, progress=False)
+        finally:
+            model.train()
+        print(f"== VIS eval @ epoch {epoch} ==")
+        ev = YTVOSEvaluator(ann_file)
+        ev.update(results)
+        return {"segm": ev.summarize()}
+
+    return hook
+
+
 def train_detector(cfg, ann_file: str, img_prefix: str, work_dir: str,
                    resume: bool = True, load_from: Optional[str] = None,
                    max_steps: Optional[int] = None,
                    eval_hook: Optional[Callable] = None, dataset=None,
                    device="cuda"):
-    """Train ``cfg`` (a ``SipMaskConfig``) on a COCO-format set; returns the
-    final ``TrainState``.
+    """Train ``cfg`` (a ``SipMaskConfig``) on a COCO-format set, or on a
+    YouTube-VIS-format one when the head tracks; returns the final
+    ``TrainState``.
 
     The weights start from the config's random init (seed
     ``cfg.train.seed``), then ``load_from`` (weights only), then, with
@@ -72,18 +106,23 @@ def train_detector(cfg, ann_file: str, img_prefix: str, work_dir: str,
     step runs; the step's losses stay on the device until the next log or
     checkpoint, which reads them back in one transfer.
     """
-    if cfg.model.head.track:
-        raise NotImplementedError("VIS training (head.track) is not ported")
     os.makedirs(work_dir, exist_ok=True)
-    if dataset is None:
-        dataset = CocoDataset(ann_file, img_prefix)
-    transform = TrainTransform(cfg.data, seed=cfg.train.seed)
-    loader, steps_per_epoch = build_train_loader(
-        dataset, transform, cfg.train.imgs_per_device, seed=cfg.train.seed,
-        repeat_times=cfg.data.repeat_times,
-        num_workers=cfg.data.num_workers,
-        num_worker_procs=cfg.data.num_worker_procs)
-    state = create_train_state(cfg, device, seed=cfg.train.seed,
+    seed, d = cfg.train.seed, cfg.data
+    if cfg.model.head.track:   # SipMask-VIS: current + reference frames
+        if dataset is None:
+            dataset = YTVOSDataset(ann_file, img_prefix, seed=seed)
+        loader, steps_per_epoch = build_vis_train_loader(
+            dataset, VISPairTransform(d, seed=seed),
+            cfg.train.imgs_per_device, seed=seed,
+            num_workers=d.num_workers, num_worker_procs=d.num_worker_procs)
+    else:
+        if dataset is None:
+            dataset = CocoDataset(ann_file, img_prefix)
+        loader, steps_per_epoch = build_train_loader(
+            dataset, TrainTransform(d, seed=seed), cfg.train.imgs_per_device,
+            seed=seed, repeat_times=d.repeat_times,
+            num_workers=d.num_workers, num_worker_procs=d.num_worker_procs)
+    state = create_train_state(cfg, device, seed=seed,
                                steps_per_epoch=steps_per_epoch)
     if load_from:
         load_weights(load_from, state.model)

@@ -1,6 +1,6 @@
 """Batched, prefetching host data loaders with static-shape buckets, the
-port of ``sipmask_tpu/data/loader.py`` (image datasets; numpy batches, the
-caller moves them to the device):
+port of ``sipmask_tpu/data/loader.py`` (numpy batches, the caller moves
+them to the device):
 
 - aspect-ratio-grouped batches (landscape / portrait), so each batch pads
   to one of two static shapes (mmdet's GroupSampler);
@@ -10,7 +10,9 @@ caller moves them to the device):
   JAX package's loader does), or worker processes with
   ``num_worker_procs > 0``, each sample seeded from (seed, step, index);
 - sharding of the index stream by (shard_id, num_shards), the
-  DistributedGroupSampler analog.
+  DistributedGroupSampler analog;
+- SipMask-VIS's frame-pair loader (``build_vis_train_loader``), whose
+  worker processes also reseed the dataset's reference-frame draw.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from .transforms import TestTransform, TrainTransform
 # --- process-pool worker plumbing (torch DataLoader worker analog).
 # Spawn (not fork: the parent holds CUDA and loader threads) + one-time
 # initargs. Randomness is seeded PER SAMPLE from (base seed, producer step,
-# index): augmentation is then deterministic given the config seed and
-# independent of worker count and scheduling, and the same image still gets
-# fresh draws on every epoch revisit (the step moves).
+# index): augmentation and the VIS reference-frame draw are then
+# deterministic given the config seed and independent of worker count and
+# scheduling, and the same image still gets fresh draws on every epoch
+# revisit (the step moves).
 _W_DATASET = None
 _W_TRANSFORM = None
 _W_SEED = 0
@@ -40,8 +43,8 @@ def _proc_init(dataset, transform, seed_base):
     _W_SEED = seed_base
 
 
-def _sample_rng(step, idx):
-    ss = np.random.SeedSequence((_W_SEED, step, int(idx), 0))
+def _sample_rng(step, idx, salt=0):
+    ss = np.random.SeedSequence((_W_SEED, step, int(idx), salt))
     return np.random.RandomState(ss.generate_state(1)[0])
 
 
@@ -55,8 +58,17 @@ def _proc_load_train(args):
                         image_id=_W_DATASET.image_id(int(idx)))
 
 
+def _proc_load_pair(args):
+    idx, step = args
+    if hasattr(_W_TRANSFORM, "rng"):
+        _W_TRANSFORM.rng = _sample_rng(step, idx)
+    if hasattr(_W_DATASET, "rng"):   # the reference-frame draw
+        _W_DATASET.rng = _sample_rng(step, idx, salt=1)
+    return _W_TRANSFORM(_W_DATASET.get_train_pair(int(idx)))
+
+
 def _make_mapper(dataset, transform, num_workers, num_worker_procs,
-                 load_one, seed=0):
+                 load_one, proc_load=_proc_load_train, seed=0):
     """Returns (mapper(idxs, step), shutdown) backed by threads or
     processes. The thread path shares the transform's single rng (order
     nondeterministic under concurrency either way); the process path uses
@@ -68,7 +80,7 @@ def _make_mapper(dataset, transform, num_workers, num_worker_procs,
             num_worker_procs, mp_context=mp.get_context("spawn"),
             initializer=_proc_init, initargs=(dataset, transform, seed))
         return (lambda idxs, step: pool.map(
-            _proc_load_train, [(int(i), step) for i in idxs]),
+            proc_load, [(int(i), step) for i in idxs]),
             lambda: pool.shutdown(wait=False, cancel_futures=True))
     pool = ThreadPoolExecutor(num_workers)
     return (lambda idxs, step: pool.map(load_one, idxs),
@@ -109,25 +121,16 @@ def _stack_batch(samples, keys=("image", "gt_bboxes", "gt_labels",
     return out
 
 
-def build_train_loader(dataset, transform: TrainTransform, batch_size: int,
-                       seed: int = 0, repeat_times: int = 1,
-                       num_workers: int = 8, prefetch: int = 4,
-                       shard_id: int = 0, num_shards: int = 1,
-                       num_worker_procs: int = 0):
-    """Infinite iterator of stacked numpy batches, aspect-grouped."""
+def _grouped_loader(dataset, batch_size, seed, repeat_times, mapper,
+                    shutdown, stack, prefetch, shard_id, num_shards):
+    """The infinite aspect-grouped iterator behind the train loaders: a
+    producer thread maps each epoch's batches of indices through
+    ``mapper`` and queues ``stack(samples)``. Returns (iterator,
+    steps_per_epoch)."""
     rng = np.random.RandomState(seed)
     flags = np.asarray([dataset.aspect_flag(i) for i in range(len(dataset))])
     groups = [np.where(flags)[0], np.where(~flags)[0]]
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
-
-    def load_one(idx):
-        img = dataset.load_image(idx)
-        boxes, labels, masks = dataset.get_ann(idx)
-        return transform(img, boxes, labels, masks,
-                         image_id=dataset.image_id(idx))
-
-    mapper, shutdown = _make_mapper(dataset, transform, num_workers,
-                                    num_worker_procs, load_one, seed=seed)
 
     def epoch_batches():
         batches = []
@@ -151,14 +154,13 @@ def build_train_loader(dataset, transform: TrainTransform, batch_size: int,
             while not stop.is_set():
                 for bidx in epoch_batches():
                     samples = list(mapper(bidx, step))
-                    if not _put_until(q, _stack_batch(samples), stop):
+                    if not _put_until(q, stack(samples), stop):
                         return
                     step += 1
         except BaseException as e:  # propagate to the consumer
             _put_until(q, _ProducerError(e), stop)
 
-    t = threading.Thread(target=producer, daemon=True)
-    t.start()
+    threading.Thread(target=producer, daemon=True).start()
 
     def gen():
         try:
@@ -175,6 +177,26 @@ def build_train_loader(dataset, transform: TrainTransform, batch_size: int,
         int(np.ceil(len(g) * repeat_times / batch_size)) for g in groups
         if len(g)) // max(num_shards, 1)
     return gen(), steps_per_epoch
+
+
+def build_train_loader(dataset, transform: TrainTransform, batch_size: int,
+                       seed: int = 0, repeat_times: int = 1,
+                       num_workers: int = 8, prefetch: int = 4,
+                       shard_id: int = 0, num_shards: int = 1,
+                       num_worker_procs: int = 0):
+    """Infinite iterator of stacked numpy batches, aspect-grouped; returns
+    (iterator, steps_per_epoch)."""
+    def load_one(idx):
+        img = dataset.load_image(idx)
+        boxes, labels, masks = dataset.get_ann(idx)
+        return transform(img, boxes, labels, masks,
+                         image_id=dataset.image_id(idx))
+
+    mapper, shutdown = _make_mapper(dataset, transform, num_workers,
+                                    num_worker_procs, load_one, seed=seed)
+    return _grouped_loader(dataset, batch_size, seed, repeat_times, mapper,
+                           shutdown, _stack_batch, prefetch, shard_id,
+                           num_shards)
 
 
 def build_test_loader(dataset, transform: TestTransform, batch_size: int = 1,
@@ -205,3 +227,29 @@ def build_test_loader(dataset, transform: TestTransform, batch_size: int = 1,
                 yield _stack_batch(samples), n_valid
 
     return gen()
+
+
+_PAIR_NAMES = dict(image="images", ref_image="ref_images",
+                   img_shape="img_shapes", scale_factor="scale_factors")
+
+
+def _stack_pairs(samples):
+    return {_PAIR_NAMES.get(k, k): np.stack([s[k] for s in samples])
+            for k in samples[0]}
+
+
+def build_vis_train_loader(dataset, transform, batch_size: int,
+                           seed: int = 0, num_workers: int = 8,
+                           prefetch: int = 4, shard_id: int = 0,
+                           num_shards: int = 1, num_worker_procs: int = 0):
+    """SipMask-VIS's infinite iterator of aspect-grouped batches of frame
+    pairs (a ``YTVOSDataset`` through a ``VISPairTransform``): dicts of
+    images, ref_images, gt_bboxes, gt_labels, gt_masks, gt_pids,
+    ref_bboxes_jit, ref_labels, img_shapes and scale_factors. Returns
+    (iterator, steps_per_epoch)."""
+    mapper, shutdown = _make_mapper(
+        dataset, transform, num_workers, num_worker_procs,
+        lambda idx: transform(dataset.get_train_pair(idx)), _proc_load_pair,
+        seed=seed)
+    return _grouped_loader(dataset, batch_size, seed, 1, mapper, shutdown,
+                           _stack_pairs, prefetch, shard_id, num_shards)

@@ -15,7 +15,9 @@ cv2 (the same numbers):
 - the SSD augmentations of the real-time and SipMask++ recipes
   (``ssd_augs``): photometric distortion in float through cv2's HSV,
   expand into a mean-filled canvas, and the min-IoU random crop, each with
-  the reference's rng draws in its order and its quirks.
+  the reference's rng draws in its order and its quirks;
+- SipMask-VIS's pair transform (``VISPairTransform``): a current and a
+  reference frame under one scale and flip.
 """
 
 from __future__ import annotations
@@ -67,6 +69,22 @@ def sample_ms_scale(scales, mode: str, rng) -> Tuple[int, int]:
     if mode == "value":
         return scales[rng.randint(len(scales))]
     raise ValueError(f"unknown ms_mode {mode!r}")
+
+
+def train_scale(cfg, h: int, w: int, rng):
+    """A training image's (out_h, out_w, landscape, sx, sy): the fixed-size
+    stretch (``train_size`` or ``fixed_size``, per-axis factors), else the
+    keep-ratio resize to ``img_scale`` or to one scale drawn from
+    ``ms_scales`` (mmcv's imrescale: one scalar factor)."""
+    if cfg.fixed_size is not None:
+        out_h, out_w = cfg.train_size or cfg.fixed_size
+        return out_h, out_w, True, out_w / w, out_h / h
+    scale = cfg.img_scale
+    if cfg.ms_scales:
+        scale = sample_ms_scale(cfg.ms_scales, cfg.ms_mode, rng)
+    out_h, out_w = imrescale_size(h, w, scale)
+    f = imrescale_factor(h, w, scale)
+    return out_h, out_w, out_w >= out_h, f, f
 
 
 def photometric_distortion(img, rng, brightness_delta=32,
@@ -246,18 +264,8 @@ class TrainTransform:
             img, boxes, labels, masks = min_iou_random_crop(
                 img, boxes, labels, masks, rng)
 
-        h, w = img.shape[:2]
-        if cfg.fixed_size is not None:
-            out_h, out_w = cfg.train_size or cfg.fixed_size
-            landscape = True
-            sx, sy = out_w / w, out_h / h     # imresize per-axis factors
-        else:
-            scale = cfg.img_scale
-            if cfg.ms_scales:  # multi-scale train: sample one per image
-                scale = sample_ms_scale(cfg.ms_scales, cfg.ms_mode, rng)
-            out_h, out_w = imrescale_size(h, w, scale)
-            landscape = out_w >= out_h
-            sx = sy = imrescale_factor(h, w, scale)  # imrescale scalar
+        out_h, out_w, landscape, sx, sy = train_scale(cfg, *img.shape[:2],
+                                                      rng)
         img = resize_image(img, out_h, out_w)
         boxes = boxes * np.array([sx, sy, sx, sy], np.float32)
         # Resize clips boxes into the resized image
@@ -337,3 +345,87 @@ class TestTransform:
             ori_shape=ori_shape,
             scale_factor=np.array([sx, sy, sx, sy], np.float32),
             landscape=landscape, image_id=image_id)
+
+
+def _padded(arr, shape, dtype):
+    out = np.zeros(shape, dtype)
+    k = min(len(arr), shape[0])
+    if k:
+        out[:k] = arr[:k]
+    return out
+
+
+class VISPairTransform:
+    """SipMask-VIS training's transform of a current + reference frame pair
+    (``YTVOSDataset.get_train_pair``): one scale and one flip for both
+    frames, drawn in the VIS fork's order (the flip before the scale), the
+    boxes scaled (not clipped) and flipped, gt masks as in
+    ``TrainTransform``, and the reference gt boxes jittered by up to
+    ``jitter_amplitude`` of their size on the host (0, the reference
+    configs' setting, draws nothing)."""
+
+    def __init__(self, cfg, seed: int = 0, jitter_amplitude: float = 0.0):
+        """cfg: a ``DataConfig`` (``sipmask_tpu_torch.config``)."""
+        self.cfg = cfg
+        self.rng = np.random.RandomState(seed)
+        self.mean = np.asarray(cfg.mean, np.float32)
+        self.std = np.asarray(cfg.std, np.float32)
+        self.amp = jitter_amplitude
+
+    def __call__(self, pair: dict) -> dict:
+        """pair: img and ref_img (H, W, 3) BGR uint8, boxes (N, 4), labels
+        (N,), masks (N, H, W), ref_boxes (R, 4), ref_labels (R,), gt_pids
+        (N,). Returns the padded arrays of one sample."""
+        cfg, rng = self.cfg, self.rng
+        img, ref = pair["img"], pair["ref_img"]
+        boxes, masks = pair["boxes"], pair["masks"]
+        rboxes = pair["ref_boxes"]
+        flip = rng.rand() < cfg.flip_ratio
+        out_h, out_w, landscape, sx, sy = train_scale(cfg, *img.shape[:2],
+                                                      rng)
+        scale = np.array([sx, sy, sx, sy], np.float32)
+        img = resize_image(img, out_h, out_w)
+        ref = resize_image(ref, out_h, out_w)
+        boxes = boxes * scale
+        rboxes = rboxes * scale
+        if flip:
+            img, ref = img[:, ::-1], ref[:, ::-1]
+            for bb in (boxes, rboxes):
+                x1 = bb[:, 0].copy()
+                bb[:, 0] = out_w - bb[:, 2] - 1
+                bb[:, 2] = out_w - x1 - 1
+        pad_h, pad_w = bucket_shape(cfg, landscape)
+
+        g = cfg.max_gts
+        n = min(len(boxes), g)
+        gm = np.zeros((g, pad_h // 2, pad_w // 2), np.uint8)
+        if len(masks) and n:
+            # nearest to the input size, THEN flip, pad, the in-loss 0.5x
+            m = resize_nearest(masks[:n], out_h, out_w, axes=(1, 2))
+            if flip:
+                m = m[:, :, ::-1]
+            mp = np.zeros((n, pad_h, pad_w), m.dtype)
+            mp[:, :out_h, :out_w] = m[:, :pad_h, :pad_w]
+            gm[:n] = downsample2x_mask(mp)
+
+        nr = min(len(rboxes), g)
+        rj = rboxes[:nr].copy()
+        if nr and self.amp:
+            off = rng.uniform(-self.amp, self.amp, (nr, 4))
+            cxcy = (rj[:, 2:] + rj[:, :2]) / 2
+            wh = np.abs(rj[:, 2:] - rj[:, :2])
+            ncxcy = cxcy + wh * off[:, :2]
+            nwh = wh * (1 + off[:, 2:])
+            rj = np.concatenate([ncxcy - nwh / 2, ncxcy + nwh / 2], 1)
+        return dict(
+            image=_normalized_canvas(img, self.mean, self.std, pad_h, pad_w),
+            ref_image=_normalized_canvas(ref, self.mean, self.std, pad_h,
+                                         pad_w),
+            gt_bboxes=_padded(boxes, (g, 4), np.float32),
+            gt_labels=_padded(pair["labels"], (g,), np.int32),
+            gt_masks=gm,
+            gt_pids=_padded(pair["gt_pids"], (g,), np.int32),
+            ref_bboxes_jit=_padded(rj, (g, 4), np.float32),
+            ref_labels=_padded(pair["ref_labels"], (g,), np.int32),
+            img_shape=np.array([out_h, out_w], np.float32),
+            scale_factor=scale)

@@ -1,7 +1,8 @@
 """Mask operations of the COCO evaluation, the port of the numpy paths of
 ``sipmask_tpu/native/__init__.py`` (the JAX package's C++ library is not
-ported): RLE encode and area, the mask IoU matrix (dense, on decoded
-masks) and COCOeval's greedy matching."""
+ported): RLE encode and area, the mask IoU matrix and the raw intersection
+matrix of the YouTube-VIS evaluation (dense, on decoded masks) and
+COCOeval's greedy matching."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy as np
 from .rle import decode_mask, encode_mask, rle_area
 
 __all__ = ["encode_mask", "rle_area", "mask_iou", "iou_matrix",
-           "greedy_match"]
+           "inter_matrix", "greedy_match"]
 
 
 def mask_iou(dt_masks: List[np.ndarray], gt_masks: List[np.ndarray],
@@ -45,6 +46,23 @@ def iou_matrix(dt_rles: Sequence[dict], gt_rles: Sequence[dict],
              else np.asarray(iscrowd, bool))
     return mask_iou([decode_mask(r) for r in dt_rles],
                     [decode_mask(r) for r in gt_rles], crowd)
+
+
+def inter_matrix(dt_rles: Sequence[dict], gt_rles: Sequence[dict]
+                 ) -> np.ndarray:
+    """Raw intersection areas (n_dt, n_gt) of RLE masks, float64. An empty
+    or absent mask is the single zero-run RLE ({'size': [h, w], 'counts':
+    encode_counts([h * w])})."""
+    n_dt, n_gt = len(dt_rles), len(gt_rles)
+    out = np.zeros((n_dt, n_gt))
+    if n_dt == 0 or n_gt == 0:
+        return out
+    dts = [decode_mask(r) for r in dt_rles]
+    gts = [decode_mask(r) for r in gt_rles]
+    for i, d in enumerate(dts):
+        for j, g in enumerate(gts):
+            out[i, j] = float(np.bitwise_and(d, g).sum())
+    return out
 
 
 def greedy_match(ious: np.ndarray, thrs: np.ndarray, gt_ig: np.ndarray,

@@ -4,9 +4,11 @@
 (avg factor num_pos + num_imgs), centerness-weighted -log IoU box loss on
 stride-normalised decoded boxes, centerness BCE, and the SP mask loss over a
 static top-``max_pos`` selection of each image's positives, ranked by the
-no-grad weighting sigmoid(cls score) x IoU(gt/2, det box), and SipMask++'s
-rescoring MSE (``loss_iou``). The benchmark fork's loss deltas, GIoU and VIS
-tracking raise NotImplementedError.
+no-grad weighting sigmoid(cls score) x IoU(gt/2, det box), SipMask++'s
+rescoring MSE (``loss_iou``) and SipMask-VIS's match loss (``loss_match``,
+with ``match_acc`` as a metric). The VIS fork decodes the box loss's boxes
+without the stride division. The benchmark fork's loss deltas and GIoU
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..core.points import all_points
 from ..core.targets import centerness_target, fcos_targets
 from ..ops import mask_loss
 from ..ops.crop_split import assemble_masks
+from .track import track_match_loss
 
 
 def _flat(levels):
@@ -51,17 +54,20 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
       outputs: the head's output dict (NCHW, ``SipMaskHead.forward``).
       batch: dict of tensors on the outputs' device: gt_bboxes (B, G, 4) in
         input coordinates, gt_labels (B, G) (0 = padding), gt_masks
-        (B, G, H/2, W/2) {0, 1} at the basis resolution.
+        (B, G, H/2, W/2) {0, 1} at the basis resolution; with
+        SipMask-VIS's ``track_feats_ref`` in outputs also gt_pids (B, G),
+        ref_bboxes_jit (B, G, 4) and ref_labels (B, G) of the reference
+        frame (``track.track_match_loss``).
       cfg: a ``HeadConfig`` (``sipmask_tpu_torch.config``).
       rescore_fn: ``SipMask.rescore``, needed iff ``cfg.rescoring``.
     Returns: dict of scalar losses (loss_cls, loss_bbox, loss_centerness,
-    loss_mask, and loss_iou when rescoring).
+    loss_mask, loss_iou when rescoring, loss_match and the metric match_acc
+    when tracking with a reference frame).
     """
-    if (cfg.benchmark_loss_extras or cfg.track
-            or cfg.iou_loss_mode != "log"):
+    if cfg.benchmark_loss_extras or cfg.iou_loss_mode != "log":
         raise NotImplementedError(
-            "the port's loss covers the mmdet image path: -log IoU, no "
-            "benchmark-fork extras or tracking")
+            "the port's loss covers the mmdet and VIS forks: -log IoU, no "
+            "benchmark-fork extras")
     if cfg.rescoring and rescore_fn is None:
         raise ValueError("a rescoring head needs rescore_fn")
     dev = outputs["feat_masks"].device
@@ -87,15 +93,17 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
         cls_logits, labels, nc, cfg.focal_gamma, cfg.focal_alpha,
         avg_factor=num_pos + b) * cfg.loss_cls_weight
 
-    # box and centerness on stride-normalised decoded boxes
+    # box and centerness on stride-normalised decoded boxes; the VIS fork
+    # decodes them unnormalised (with the +1 IoU convention the per-level
+    # magnitudes differ, so each fork is followed)
     ctr_targets = centerness_target(bbox_targets.clamp(min=0.0))
     posf = pos.float()
     w_ctr = ctr_targets * posf
     pts = points[None].expand(b, p, 2)
-    strd = strides[None, :, None]
+    div = 1.0 if cfg.track else strides[None, :, None]
     loss_bbox = L.iou_loss(
-        distance2bbox(pts, bbox_preds / strd),
-        distance2bbox(pts, bbox_targets / strd), weight=w_ctr,
+        distance2bbox(pts, bbox_preds / div),
+        distance2bbox(pts, bbox_targets / div), weight=w_ctr,
         avg_factor=w_ctr.sum().clamp(min=1e-6)) * cfg.loss_bbox_weight
     loss_centerness = L.bce_with_logits(
         ctr_logits, ctr_targets, weight=posf,
@@ -144,6 +152,10 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
         out["loss_iou"] = _rescoring_loss(
             feat_masks, batch["gt_masks"], cof_sel, box_sel, gtidx_sel,
             sel_valid, torch.gather(lbl, 1, topi), rescore_fn)
+    if cfg.track and "track_feats_ref" in outputs:
+        out["loss_match"], match_acc = track_match_loss(
+            outputs, batch, box_sel, sel_valid, gtidx_sel)
+        out["match_acc"] = match_acc.detach()   # a metric, not a loss
     return out
 
 

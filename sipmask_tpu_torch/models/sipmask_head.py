@@ -1,7 +1,6 @@
-"""SipMask head (NCHW), the port of ``sipmask_tpu/models/sipmask_head.py``
-for images: FCOS towers, FeatureAlign, the SP coefficient branch, the
-basis-mask branch and SipMask++'s mask rescoring. The VIS track branch is not
-ported yet.
+"""SipMask head (NCHW), the port of ``sipmask_tpu/models/sipmask_head.py``:
+FCOS towers, FeatureAlign, the SP coefficient branch, the basis-mask branch,
+SipMask-VIS's track branch and SipMask++'s mask rescoring.
 
 The JAX package's ``RescoringHead`` (a module of its own in flax) lives on
 the head here, as :meth:`SipMaskHead.rescore`, because the reference keeps
@@ -15,6 +14,8 @@ into the JAX package's NHWC-flattened order):
   centernesses: list of (B, 1, h_l, w_l) logits
   cof_preds:    list of (B, 4*nb, h_l, w_l) SP coefficients
   feat_masks:   (B, nb, H/2, W/2) basis masks on the stride-2 grid
+  track_feats:  (B, 512, H/8, W/8) embeddings, when ``cfg.track``
+  track_feats_ref: the same for the reference frame (VIS training)
 """
 
 from __future__ import annotations
@@ -70,6 +71,14 @@ class SipMaskHead(nn.Module):
         self.scales = nn.ModuleList(Scale(1.0) for _ in c.strides)
         self.sip_mask_lat0 = nn.Conv2d(feat * 3, 512, 1)
         self.sip_mask_lat = nn.Conv2d(512, c.num_bases, 3, padding=1)
+        if c.track:
+            # SipMask-VIS: its own tower on the FPN levels 0-2, then a 1x1
+            # from the three levels' 3*feat channels to 512
+            self.track_convs = nn.ModuleList(
+                ConvModule(c.in_channels if i == 0 else feat, feat, 3,
+                           norm=c.norm) for i in range(c.stacked_convs - 1))
+            tower = feat if c.stacked_convs > 1 else c.in_channels
+            self.sipmask_track = nn.Conv2d(tower * 3, 512, 1)
         if c.rescoring:
             # six stride-2 3x3 VALID convs 1->16->16->16->32->64->128 (ReLU),
             # a 1x1 to the classes (ReLU), a global max (reference
@@ -80,10 +89,14 @@ class SipMaskHead(nn.Module):
                 for i in range(6))
             self.mask_scoring = nn.Conv2d(128, c.num_classes, 1)
 
-    def forward(self, feats):
-        """feats: the 5 FPN levels, each (B, C, h_l, w_l)."""
+    def forward(self, feats, feats_ref=None):
+        """feats: the 5 FPN levels, each (B, C, h_l, w_l); feats_ref: the
+        reference frame's levels (VIS training), which go through the track
+        branch only."""
         cls_scores, bbox_preds, centernesses, cof_preds = [], [], [], []
         basis_feats = []
+        frames = [feats] if feats_ref is None else [feats, feats_ref]
+        track_ins = [[] for _ in frames] if self.cfg.track else []
         h0, w0 = feats[0].shape[2:]
         for lvl, (x, stride) in enumerate(zip(feats, self.cfg.strides)):
             cls_feat, reg_feat = x, x
@@ -100,14 +113,26 @@ class SipMaskHead(nn.Module):
             if lvl < 3:
                 basis_feats.append(reg_feat if lvl == 0 else
                                    resize_bilinear(reg_feat, h0, w0))
+                # the track tower on levels 0-2 of each frame, resized to
+                # level 0 (the reference's VIS head)
+                for ins, fr in zip(track_ins, frames):
+                    t = fr[lvl]
+                    for conv in self.track_convs:
+                        t = conv(t)
+                    ins.append(t if lvl == 0 else
+                               resize_bilinear(t, h0, w0))
         # basis branch: concat P3-P5 reg feats, 1x1 -> 512, relu, 3x3 -> nb,
         # relu, upsample x4 to the stride-2 grid
         fm = torch.cat(basis_feats, 1)
         fm = torch.relu(self.sip_mask_lat(torch.relu(self.sip_mask_lat0(fm))))
         feat_masks = resize_bilinear(fm, h0 * 4, w0 * 4)
-        return dict(cls_scores=cls_scores, bbox_preds=bbox_preds,
-                    centernesses=centernesses, cof_preds=cof_preds,
-                    feat_masks=feat_masks)
+        out = dict(cls_scores=cls_scores, bbox_preds=bbox_preds,
+                   centernesses=centernesses, cof_preds=cof_preds,
+                   feat_masks=feat_masks)
+        # track branch: the three levels concatenated, 1x1 to 512
+        for key, ins in zip(("track_feats", "track_feats_ref"), track_ins):
+            out[key] = self.sipmask_track(torch.cat(ins, 1))
+        return out
 
     def rescore(self, masks):
         """SipMask++ mask rescoring: masks (N, 1, h, w), detached assembled

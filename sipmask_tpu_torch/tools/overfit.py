@@ -1,21 +1,29 @@
-"""The overfit proofs of the JAX package (``ARTIFACTS/overfit_r5.md`` and
-``ARTIFACTS/overfit_pp_r5.md``) through the port's CLIs on one device:
+"""The overfit proofs of the JAX package (``ARTIFACTS/overfit_r5.md``,
+``ARTIFACTS/overfit_pp_r5.md`` and ``ARTIFACTS/overfit_vis_r5.md``) through
+the port's CLIs on one device:
 
-    python -m sipmask_tpu_torch.tools.overfit --out-dir build/overfit
+    python -m sipmask_tpu_torch.tools.overfit --out-dir build/overfit \\
+        [--legs flagship rescoring vis]
 
-writes the two-class disc / slab set (8 images of 256x256, seed 0) with
-``tools/synth_coco.py --shapes``, then for each leg runs ``tools/train.py``
-for 800 steps and ``tools/test.py`` on its last checkpoint, each as its own
-process with the protocol's flags:
+Each leg writes its synthetic set, then runs ``tools/train.py`` and the
+leg's test CLI on a checkpoint, each as its own process with the
+protocol's flags:
 
-- ``flagship``: ``sipmask_r50_fpn_gn_1x`` at seed 0;
-- ``rescoring``: the same with ``model.head.rescoring=True`` at seed 1.
+- ``flagship``: ``sipmask_r50_fpn_gn_1x`` at seed 0, on the two-class disc
+  / slab set (8 images of 256x256, seed 0, ``tools/synth_coco.py
+  --shapes``), 800 steps, ``tools/test.py`` on the last checkpoint;
+- ``rescoring``: the same with ``model.head.rescoring=True`` at seed 1;
+- ``vis``: ``sipmask_vis_r50`` at seed 1 on ``tools/synth_ytvis.py``'s 4
+  videos of 4 frames at 256x256 (seed 0), ``max_gts`` 4, 1800 steps (2 an
+  epoch), ``tools/test_video.py --eval`` on epoch 900.
 
-Both legs checkpoint every 200 epochs (1 step an epoch); the train log, the
-results and each command's output land in ``--out-dir``. It prints the
-card's name and power limit, each command, each leg's wall times, its loss
-table at the protocol's steps and its bbox and segm AP, and ends with one
-JSON line of the APs and walls.
+The image legs checkpoint every 200 epochs (1 step an epoch), the VIS leg
+every 300 (the JAX protocol's default of every epoch would write 900
+checkpoints; training is the same). The train logs, the results and each
+command's output land in ``--out-dir``. It prints the card's name and power
+limit, each command, each leg's wall times, its loss table at the
+protocol's steps and its APs, and ends with one JSON line of the APs and
+walls.
 """
 
 from __future__ import annotations
@@ -27,26 +35,55 @@ import subprocess
 import sys
 import time
 
-CONFIG = "sipmask_r50_fpn_gn_1x"
-PROTOCOL = ["data.fixed_size=(256,256)", "data.keep_ratio=False",
-            "data.flip_ratio=0.0", "data.max_gts=8",
-            "train.imgs_per_device=8", "train.optim.lr=0.005",
-            "train.optim.warmup=linear", "train.optim.warmup_iters=100",
-            "train.optim.warmup_ratio=0.1", "train.optim.lr_steps=(600,720)",
-            "train.optim.total_epochs=800",
-            "train.checkpoint_interval_epochs=200",
-            "model.head.num_classes=2"]
-TEST = ["data.fixed_size=(256,256)", "data.keep_ratio=False",
-        "model.head.num_classes=2"]
-STEPS = 800
-# leg: (seed, extra options, the loss columns and steps of its table)
+IMAGE_TRAIN = ["data.fixed_size=(256,256)", "data.keep_ratio=False",
+               "data.flip_ratio=0.0", "data.max_gts=8",
+               "train.imgs_per_device=8", "train.optim.lr=0.005",
+               "train.optim.warmup=linear", "train.optim.warmup_iters=100",
+               "train.optim.warmup_ratio=0.1",
+               "train.optim.lr_steps=(600,720)",
+               "train.optim.total_epochs=800",
+               "train.checkpoint_interval_epochs=200",
+               "model.head.num_classes=2"]
+IMAGE_TEST = ["data.fixed_size=(256,256)", "data.keep_ratio=False",
+              "model.head.num_classes=2"]
+VIS_TRAIN = ["data.fixed_size=(256,256)", "data.keep_ratio=False",
+             "data.flip_ratio=0.0", "data.max_gts=4",
+             "train.imgs_per_device=8", "train.optim.lr=0.005",
+             "train.optim.warmup=linear", "train.optim.warmup_iters=100",
+             "train.optim.warmup_ratio=0.1",
+             "train.optim.lr_steps=(1650,1725)",
+             "train.optim.total_epochs=1800",
+             "train.checkpoint_interval_epochs=300",
+             "model.head.num_classes=2"]
+VIS_TEST = ["model.head.num_classes=2", "data.fixed_size=(256,256)",
+            "data.keep_ratio=False"]
+SYNTH = {
+    "coco": ["sipmask_tpu_torch.tools.synth_coco", "--shapes",
+             "--num-images", "8", "--size", "256", "--seed", "0"],
+    "ytvis": ["sipmask_tpu_torch.tools.synth_ytvis", "--num-videos", "4",
+              "--frames", "4", "--size", "256", "--seed", "0"],
+}
+# leg: config, data set, seed, train options, test CLI and options, steps,
+# checkpoint epoch tested, the loss columns and steps of its table
 LEGS = {
-    "flagship": (0, [], ("loss_cls", "loss_bbox", "loss_mask",
-                         "loss_total"),
-                 (50, 100, 200, 300, 400, 500, 600, 700, 800)),
-    "rescoring": (1, ["model.head.rescoring=True"],
-                  ("loss_cls", "loss_mask", "loss_iou", "loss_total"),
-                  (50, 100, 300, 500, 800)),
+    "flagship": dict(
+        config="sipmask_r50_fpn_gn_1x", data="coco", seed=0,
+        train=IMAGE_TRAIN, test=("test", IMAGE_TEST), steps=800, epoch=800,
+        cols=("loss_cls", "loss_bbox", "loss_mask", "loss_total"),
+        at=(50, 100, 200, 300, 400, 500, 600, 700, 800)),
+    "rescoring": dict(
+        config="sipmask_r50_fpn_gn_1x", data="coco", seed=1,
+        train=IMAGE_TRAIN + ["model.head.rescoring=True"],
+        test=("test", IMAGE_TEST + ["model.head.rescoring=True"]),
+        steps=800, epoch=800,
+        cols=("loss_cls", "loss_mask", "loss_iou", "loss_total"),
+        at=(50, 100, 300, 500, 800)),
+    "vis": dict(
+        config="sipmask_vis_r50", data="ytvis", seed=1, train=VIS_TRAIN,
+        test=("test_video", VIS_TEST), steps=1800, epoch=900,
+        cols=("loss_cls", "loss_bbox", "loss_mask", "loss_match",
+              "match_acc"),
+        at=(50, 100, 400, 600, 900, 1200, 1800)),
 }
 
 
@@ -61,9 +98,23 @@ def run(cmd, log_path):
     return time.perf_counter() - t0
 
 
+def _aps(test_log):
+    """The APs a test CLI printed: COCO's "bbox AP = x" style lines and
+    YTVIS's "ytvis AP = x"."""
+    aps = {}
+    with open(test_log) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 4 and parts[1] in ("AP", "AP50", "AP75", "AR"):
+                aps[f"{parts[0]}_{parts[1]}"] = float(parts[3])
+    return aps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default="build/overfit")
+    ap.add_argument("--legs", nargs="+", choices=list(LEGS),
+                    default=list(LEGS))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = args.out_dir
@@ -73,42 +124,42 @@ def main(argv=None):
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), flush=True)
-    data = os.path.join(out, "synth")
-    ann, imgs = os.path.join(data, "ann.json"), os.path.join(data, "imgs")
-    run(["sipmask_tpu_torch.tools.synth_coco", data, "--shapes",
-         "--num-images", "8", "--size", "256", "--seed", "0"],
-        os.path.join(out, "synth.txt"))
+    sets = {}
     summary = {}
-    for leg, (seed, extra, cols, steps) in LEGS.items():
+    for leg in args.legs:
+        c = LEGS[leg]
+        if c["data"] not in sets:
+            data = os.path.join(out, f"synth_{c['data']}")
+            run(SYNTH[c["data"]][:1] + [data] + SYNTH[c["data"]][1:],
+                os.path.join(out, f"synth_{c['data']}.txt"))
+            sets[c["data"]] = (os.path.join(data, "ann.json"),
+                               os.path.join(data, "imgs"))
+        ann, imgs = sets[c["data"]]
         wd = os.path.join(out, f"wd_{leg}")
-        train_s = run(["sipmask_tpu_torch.tools.train", CONFIG, "--ann", ann,
-                       "--img-prefix", imgs, "--work-dir", wd,
-                       "--max-steps", str(STEPS), "--no-resume", "--seed",
-                       str(seed), "--device", args.device, "--cfg-options",
-                       *PROTOCOL, *extra],
+        train_s = run(["sipmask_tpu_torch.tools.train", c["config"], "--ann",
+                       ann, "--img-prefix", imgs, "--work-dir", wd,
+                       "--max-steps", str(c["steps"]), "--no-resume",
+                       "--seed", str(c["seed"]), "--device", args.device,
+                       "--cfg-options", *c["train"]],
                       os.path.join(out, f"{leg}_train.txt"))
         test_log = os.path.join(out, f"{leg}_test.txt")
-        test_s = run(["sipmask_tpu_torch.tools.test", CONFIG,
-                      os.path.join(wd, f"epoch_{STEPS}.pth"), "--ann", ann,
-                      "--img-prefix", imgs, "--out",
+        cli, opts = c["test"]
+        test_s = run([f"sipmask_tpu_torch.tools.{cli}", c["config"],
+                      os.path.join(wd, f"epoch_{c['epoch']}.pth"), "--ann",
+                      ann, "--img-prefix", imgs, "--out",
                       os.path.join(out, f"{leg}_results.json"), "--device",
-                      args.device, "--cfg-options", *TEST, *extra],
-                     test_log)
+                      args.device]
+                     + (["--eval"] if cli == "test_video" else [])
+                     + ["--cfg-options", *opts], test_log)
         with open(os.path.join(wd, "train.log.json")) as f:
             rows = {r["step"]: r for r in map(json.loads, f)
                     if "loss_total" in r}
         print(f"{leg}: train {train_s:.1f} s, test {test_s:.1f} s")
-        print("| step | " + " | ".join(cols) + " |")
-        for s in steps:
-            print(f"| {s} | " + " | ".join(f"{rows[s][c]:.4f}" for c in cols)
-                  + " |")
-        aps = {}
-        with open(test_log) as f:
-            for line in f:
-                parts = line.split()
-                if len(parts) == 4 and parts[1] in ("AP", "AP50", "AP75",
-                                                    "AR"):
-                    aps[f"{parts[0]}_{parts[1]}"] = float(parts[3])
+        print("| step | " + " | ".join(c["cols"]) + " |")
+        for st in c["at"]:
+            print(f"| {st} | " + " | ".join(f"{rows[st][k]:.4f}"
+                                            for k in c["cols"]) + " |")
+        aps = _aps(test_log)
         print(f"{leg}: " + ", ".join(f"{k} {v:.4f}" for k, v in aps.items()),
               flush=True)
         summary[leg] = dict(aps, train_s=round(train_s, 1),

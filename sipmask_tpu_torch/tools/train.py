@@ -3,6 +3,10 @@
     python -m sipmask_tpu_torch.tools.train sipmask_r50_fpn_gn_1x \\
         --ann ANN.json --img-prefix IMAGES --work-dir WORK_DIR --max-steps 4
 
+A VIS preset (``sipmask_vis_r50``, ``sipmask_vis_r50_ms``) takes a
+YouTube-VIS-format ``--ann`` and, with ``--val-ann``, evaluates by
+tracking its videos.
+
 The arguments of the JAX package's ``tools/train.py`` without the
 distributed ones, and ``--device`` (``cuda`` by default).
 """
@@ -30,7 +34,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from ..apis.train import make_coco_eval_hook, train_detector
+    from ..apis.train import (make_coco_eval_hook, make_ytvos_eval_hook,
+                              train_detector)
     from ..config import _r, apply_overrides, get_config
 
     cfg = apply_overrides(get_config(args.config), args.cfg_options)
@@ -38,8 +43,10 @@ def main(argv=None):
         cfg = _r(cfg, "train", seed=args.seed)
     eval_hook = None
     if args.val_ann:
-        eval_hook = make_coco_eval_hook(
-            cfg, args.val_ann, args.val_img_prefix or args.img_prefix)
+        make_hook = (make_ytvos_eval_hook if cfg.model.head.track
+                     else make_coco_eval_hook)
+        eval_hook = make_hook(cfg, args.val_ann,
+                              args.val_img_prefix or args.img_prefix)
     return train_detector(cfg, args.ann, args.img_prefix, args.work_dir,
                           resume=not args.no_resume,
                           load_from=args.load_from,

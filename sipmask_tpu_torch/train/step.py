@@ -1,7 +1,9 @@
 """The train step, the port of ``sipmask_tpu/train/step.py``: forward,
 ``compute_losses`` (with SipMask++'s rescoring head, whose ``loss_iou``
-joins the sum), backward of the summed ``loss*`` terms, the gradient clip
-when the config sets one, then the SGD update with the scheduled lr."""
+joins the sum; with SipMask-VIS's reference frames, whose ``loss_match``
+joins it and ``match_acc`` does not), backward of the summed ``loss*``
+terms, the gradient clip when the config sets one, then the SGD update
+with the scheduled lr."""
 
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ def make_train_step(state: TrainState, cfg):
 
     def train_step(batch):
         set_lr(state.optimizer, state.schedule(state.step))
-        out = state.model(batch["images"])
+        out = state.model(batch["images"], batch["ref_images"]
+                          if head_cfg.track else None)
         losses = compute_losses(
             out, batch, head_cfg, max_pos=cfg.train.max_pos,
             rescore_fn=state.model.rescore if head_cfg.rescoring else None)

@@ -6,9 +6,10 @@ initialisation.
 the port's modules carry the reference's mmdet ``state_dict`` names, so the
 JAX trees map onto them with the same rules (a DCN block's
 ``layer{s}_{b}/conv2/{kernel,conv_offset}`` becomes
-``layer{s}.{b}.conv2.{weight,conv_offset}``, and SipMask++'s
-``rescoring/*`` lands on the head as ``convs_scoring.{i}.conv`` and
-``mask_scoring``).
+``layer{s}.{b}.conv2.{weight,conv_offset}``, SipMask-VIS's
+``head/track_convs_{i}/(conv|gn)`` becomes ``bbox_head.track_convs.{i}``,
+and SipMask++'s ``rescoring/*`` lands on the head as
+``convs_scoring.{i}.conv`` and ``mask_scoring``).
 """
 
 from __future__ import annotations
@@ -34,14 +35,14 @@ def _flatten(tree, prefix=()):
 
 
 def _jax_path_to_torch(name: str) -> str:
-    """``torch_convert._flax_path_to_torch``'s rules for the image model."""
+    """``torch_convert._flax_path_to_torch``'s rules."""
     n = name
     n = re.sub(r"^backbone/layer(\d)_(\d+)/", r"backbone.layer\1.\2.", n)
     n = n.replace("downsample_conv/kernel", "downsample.0.weight")
     n = n.replace("downsample_bn/", "downsample.1/")
     n = re.sub(r"^neck/lateral_(\d)/", r"neck.lateral_convs.\1.conv.", n)
     n = re.sub(r"^neck/fpn_(\d)/", r"neck.fpn_convs.\1.conv.", n)
-    n = re.sub(r"^head/(cls|reg)_convs_(\d)/(conv|gn)/",
+    n = re.sub(r"^head/(cls|reg|track)_convs_(\d)/(conv|gn)/",
                r"bbox_head.\1_convs.\2.\3.", n)
     n = re.sub(r"^head/scale_(\d)/scale", r"bbox_head.scales.\1.scale", n)
     n = n.replace("head/feat_align/conv_offset/",
@@ -91,8 +92,10 @@ def _kaiming(w, gen: torch.Generator):
     w.normal_(0.0, math.sqrt(2.0 / (o * kh * kw)), generator=gen)
 
 
-def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator):
-    """The reference's init per conv (``layers.conv_init`` specs)."""
+def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator,
+               track: bool = False):
+    """The reference's init per conv (``layers.conv_init`` specs); ``track``:
+    the SipMask-VIS head, whose ``sip_cof`` draws with std 0.01."""
     w = conv.weight
     o, i, kh, kw = w.shape
     with torch.no_grad():
@@ -104,8 +107,8 @@ def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator):
             bound = math.sqrt(6.0 / ((i + o) * kh * kw))   # xavier uniform
             w.uniform_(-bound, bound, generator=gen)
         else:
-            std = {"sip_cof": 0.001, "mask_scoring": 0.001}.get(
-                name.rsplit(".", 1)[-1], 0.01)
+            std = {"sip_cof": 0.01 if track else 0.001,
+                   "mask_scoring": 0.001}.get(name.rsplit(".", 1)[-1], 0.01)
             w.normal_(0.0, std, generator=gen)
         if conv.bias is not None:
             conv.bias.zero_()
@@ -116,16 +119,19 @@ def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights with the reference's schemes: kaiming fan_out for the
     backbone (DCN weights included) and the rescoring convs, xavier-uniform
-    for the FPN, normal(0.01) for the head (0.001 for ``sip_cof`` and
-    ``mask_scoring``), the focal prior bias on ``fcos_cls``, zero
+    for the FPN, normal(0.01) for the head, SipMask-VIS's track branch
+    included (0.001 for ``mask_scoring``, and for ``sip_cof`` unless the
+    head tracks), the focal prior bias on ``fcos_cls``, zero
     ``conv_offset`` weights and biases, identity frozen BN and GroupNorm,
     unit scales.
     Draws from ``generator`` in module order, so a seed fixes the weights
     on any device."""
+    track = any(n.endswith("sipmask_track") for n, _ in
+                model.named_modules())
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, nn.Conv2d):
-                _conv_init(name, m, generator)
+                _conv_init(name, m, generator, track)
             elif isinstance(m, DeformConvPack):
                 _kaiming(m.weight, generator)
             elif isinstance(m, GroupNorm32):

@@ -4,9 +4,10 @@
 numpy only, drawing in the same order as the JAX package's ``demo_batch``, so
 the same seed gives the same arrays in both packages. ``batch_to_tensors``
 moves such a batch onto a device in the port's layout. ``train_batch``,
-``train_batch_for``, ``bump_weights`` and ``calibrate_frozen_bn`` give the
-full-width runs on the card (``chip_smoke.py``, ``tools/measure.py``) their
-batch and a randomly initialised model that detects.
+``train_batch_for``, ``vis_pair_batch``, ``bump_weights`` and
+``calibrate_frozen_bn`` give the full-width runs on the card
+(``chip_smoke.py``, ``tools/measure.py``) their batch and a randomly
+initialised model that detects.
 """
 
 from __future__ import annotations
@@ -59,9 +60,9 @@ def demo_batch(batch_size=2, height=64, width=64, max_gts=8, num_gts=None,
 def batch_to_tensors(batch, device="cpu"):
     """A ``demo_batch``-style dict of numpy arrays (or a loader's batch)
     -> tensors on ``device``, images NHWC -> NCHW (contiguous, made on the
-    device). To a GPU each array is copied from pinned memory without
-    blocking the host. A loader batch's host-only keys (image ids,
-    original shapes) stay behind."""
+    device; a VIS batch's ref_images too). To a GPU each array is copied
+    from pinned memory without blocking the host. A loader batch's
+    host-only keys (image ids, original shapes) stay behind."""
     device = torch.device(device)
     out = {}
     for k, v in batch.items():
@@ -71,7 +72,9 @@ def batch_to_tensors(batch, device="cpu"):
         if device.type == "cuda":
             t = t.pin_memory()
         out[k] = t.to(device, non_blocking=True)
-    out["images"] = out["images"].permute(0, 3, 1, 2).contiguous()
+    for k in ("images", "ref_images"):
+        if k in out:
+            out[k] = out[k].permute(0, 3, 1, 2).contiguous()
     return out
 
 
@@ -83,6 +86,39 @@ def train_batch(batch_size, height, width, max_gts, seed, device):
     parts = [demo_batch(1, height, width, max_gts,
                         num_gts=int(rng.randint(8, 17)), seed=seed + i)
              for i in range(batch_size)]
+    return batch_to_tensors({k: np.concatenate([p[k] for p in parts])
+                             for k in parts[0]}, device)
+
+
+def vis_pair_batch(batch_size, height, width, max_gts, num_classes, seed,
+                   device):
+    """A SipMask-VIS training batch of frame pairs as tensors on ``device``:
+    ``train_batch``'s current frames (8-16 gts each, labels below
+    ``num_classes``) and a reference frame of each: other images, the gts
+    in a shuffled order with their boxes moved up to 8 px, one of them
+    absent (its ``gt_pids`` 0), the rest matched by ``gt_pids`` (1-based
+    rows of the reference gts)."""
+    rng = np.random.RandomState(seed)
+    parts = []
+    for i in range(batch_size):
+        n = int(rng.randint(8, 17))
+        cur = demo_batch(1, height, width, max_gts, num_gts=n,
+                         num_classes=num_classes, seed=seed + i)
+        ref = demo_batch(1, height, width, max_gts, num_gts=n,
+                         num_classes=num_classes, seed=seed + 1000 + i)
+        order = rng.permutation(n)          # reference row r holds gt order[r]
+        kept = order[:n - 1]                # the last one left the frame
+        boxes = cur["gt_bboxes"][0, kept] + rng.uniform(-8, 8, (n - 1, 4))
+        boxes = np.clip(boxes, 0, [width - 1, height - 1] * 2)
+        ref_boxes = np.zeros((1, max_gts, 4), np.float32)
+        ref_boxes[0, :n - 1] = boxes
+        ref_labels = np.zeros((1, max_gts), np.int32)
+        ref_labels[0, :n - 1] = cur["gt_labels"][0, kept]
+        pids = np.zeros((1, max_gts), np.int32)
+        pids[0, kept] = np.arange(1, n)
+        parts.append(dict(cur, ref_images=ref["images"],
+                          ref_bboxes_jit=ref_boxes, ref_labels=ref_labels,
+                          gt_pids=pids))
     return batch_to_tensors({k: np.concatenate([p[k] for p in parts])
                              for k in parts[0]}, device)
 

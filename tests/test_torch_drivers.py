@@ -168,9 +168,9 @@ def test_grad_clip_scales_by_the_global_norm():
 
 
 def test_drivers_refuse_what_is_not_ported(synth, tmp_path):
-    vis = _r(_cfg(), "model.head", track=True)
-    with pytest.raises(NotImplementedError, match="VIS"):
-        train_detector(vis, *synth, str(tmp_path), device="cpu")
+    resnext = _r(_cfg(), "model.backbone", groups=32)
+    with pytest.raises(NotImplementedError, match="ResNeXt"):
+        train_detector(resnext, *synth, str(tmp_path), device="cpu")
     from sipmask_tpu_torch.apis.test import evaluate_coco
     with pytest.raises(NotImplementedError, match="proposal_fast"):
         evaluate_coco([], synth[0], metrics=("proposal_fast",))

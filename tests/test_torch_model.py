@@ -102,10 +102,13 @@ def test_init_weights_schemes_and_seed():
 
 
 def test_unported_configs_raise():
-    for name in ("sipmask_vis_r50", "sipmask_x101_fpn_gn_ms_2x",
-                 "sipmask_hrnet_w32_fpn_gn_1x"):
+    from sipmask_tpu.config import _r
+    for cfg in (get_config("sipmask_x101_fpn_gn_ms_2x"),
+                get_config("sipmask_hrnet_w32_fpn_gn_1x"),
+                _r(get_config("sipmask_vis_r50"), "model",
+                   compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
-            build_model(get_config(name).model)
+            build_model(cfg.model)
 
 
 def test_backbone_matches_jax(outputs):
