@@ -8,10 +8,12 @@ It drives four presets at full width with random weights from a seed
 through the port's entry points, serving and then training each: the
 high-accuracy ``sipmask_r50_fpn_gn_1x``, SipMask++
 ``sipmaskpp_r101_fpn_ssd_6x``, the real-time ``sipmask_r50_fpn_ssd_6x`` and
-SipMask-VIS ``sipmask_vis_r50``.
+SipMask-VIS ``sipmask_vis_r50``, then the flagship and the real-time preset
+again with ``compute_dtype="bfloat16"``.
 
 1. finds the card (no CUDA is an error), prints ``nvidia-smi``'s name and
-   power limit and the backend flags it sets (TF32 off: plain f32; cuDNN
+   power limit and the backend flags it sets (TF32 off: plain f32; bf16
+   products summed in f32, no reduced-precision reductions; cuDNN
    benchmark mode on, as for fixed shapes);
 2. builds the kernels from ``sipmask_tpu_torch/csrc`` with nvcc, one nvcc
    per source, all at once;
@@ -101,15 +103,36 @@ SipMask-VIS ``sipmask_vis_r50``.
     step 6 (train log, last_checkpoint, YTVIS classes in the checkpoint,
     the driver's steps against a bare ``make_train_step``, idle share), then
     tracks its videos from the last checkpoint with ``run_video_inference``
-    and scores them with ``YTVOSEvaluator`` (frames/s; every RLE decodes).
+    and scores them with ``YTVOSEvaluator`` (frames/s; every RLE decodes);
+19. holds the bf16 variants of K1, K2, K4a and K4b
+    (``compute_dtype="bfloat16"``: bf16 activations, f32 offsets,
+    statistics, sums and weight gradients) against their plain bf16
+    versions at the flagship's shapes, each within one bf16 unit of its
+    output's max, checks that a K1 bf16 call is its two kernels and that the
+    bf16 tap contraction (``torch.matmul``) sums in f32, and times them at
+    batch 4 (bounds with bf16 tensors at 2 bytes an element and K2's
+    products at the dense bf16 tensor-core rate; F.grid_sample and
+    F.group_norm with ReLU and its autograd in bf16 as the library calls);
+20. serves the flagship in bf16: 3 requests of one 800x1333 image and a
+    batch of 4 at 800x1344 twice, launches counted (bf16 kernels only), the
+    head outputs bf16 but the f32 box regressions, then the batch with the
+    plain versions, and in f32 on the same weights (head outputs and
+    detections compared);
+21. trains the flagship in bf16 for 3 SGD steps at 800x1344, batch 4: f32
+    parameters with finite f32 gradients, finite losses, loss_mask > 0,
+    frozen stages unchanged, step ms and peak memory; then the first step
+    with the plain versions (losses and gradients compared);
+22. serves the real-time preset in bf16 at 544x544 as phase 14 (3
+    requests, a batch of 8 twice), then plain and f32 as phase 20.
 
-Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17 and 18's two) is
-driven with every launch count set to 0 just before it and read just after;
+Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20, 21
+and 22) is driven with every launch count set to 0 just before it and read
+just after;
 a kernel of the path that did not launch fails the run. Any failure raises
 (non-zero exit, no result). The second-to-last line is a JSON object of the
-kernels (launches summed over the twelve paths, with each path's count
-beside them;
-errors and times from phases 3, 6 and 9; each kernel's bound and a
+kernels, the four bf16 variants as kernels of their own (launches summed
+over the fifteen paths, with each path's count beside them;
+errors and times from phases 3, 6, 9 and 19; each kernel's bound and a
 one-call PyTorch equivalent's time where there is one); the last is the
 device line.
 """
@@ -192,8 +215,30 @@ VIS_VIDEO_HW, VIS_FRAMES, VIS_HW, VIS_BATCH = (720, 1280), 8, (384, 640), 4
 VIS_MAX_POS, VIS_MAX_GTS = 256, 64
 # the train driver: 4 videos x 6 frames at 360x360, 6 steps an epoch
 VIS_DRIVER_VIDEOS, VIS_DRIVER_FRAMES, VIS_DRIVER_SIZE = 4, 6, 360
-# H100 SXM data sheet: HBM, f32 on the CUDA cores, dense TF32 tensor cores
+# H100 SXM data sheet: HBM, f32 on the CUDA cores, dense TF32 and bf16
+# tensor cores
 HBM_BYTES_PER_S, F32_FLOP_PER_S, TF32_FLOP_PER_S = 3.35e12, 67e12, 495e12
+BF16_FLOP_PER_S = 989e12
+# bfloat16 (compute_dtype="bfloat16"): the flagship and the real-time
+# preset. A bf16 kernel and its plain version round the same f32 values to
+# bf16, but their f32 sums differ in order, so a value near a rounding
+# boundary may land one bf16 unit apart: 2**-7 of the output's max bounds
+# one unit anywhere (relative to each output's max |value|)
+BF16_KERNEL_TOL = 2.0 ** -7
+# the bf16 paths, kernels vs plain: such one-unit differences carried
+# through the head (relative to each output's max), the detections they
+# move, and the first step's losses (relative) and gradients (relative to
+# each tensor's max), where a ReLU input on the other side of 0 in one run
+# moves a row of a weight gradient. Read on the card: head 6.5e-3 to
+# 7.4e-3, detections 0.96 or more, losses 1.4e-5 to 1.9e-5, gradients
+# 7.2e-3 to 7.6e-3; the limits are about three times the readings
+BF16_HEAD_TOL = 2e-2
+BF16_MATCH, BF16_MATCH_MIN = (1.0, 1e-2), 0.9
+BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-4, 2.5e-2
+# bf16 against f32 on the same weights, relative to the f32 output's max:
+# a check for gross errors (the JAX package's own bf16 graph moves its
+# outputs by 1-5% of their max on the CPU tests' shapes)
+BF16_F32_TOL = 0.25
 KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
     "deform_im2col": ("deform_im2col.cu",
                       "sipmask_tpu/ops/pallas/deform_gather.py:465"),
@@ -212,6 +257,16 @@ KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
                              "sipmask_tpu/ops/pallas/deform_gather.py:724"),
     "assemble_masks": ("mask_assembly.cu",
                        "sipmask_tpu/ops/pallas/mask_assembly.py:66"),
+    # the bf16 variants (compute_dtype="bfloat16"): the same sources and
+    # wrappers, counted apart
+    "deform_im2col_bf16": ("deform_im2col.cu",
+                           "sipmask_tpu/ops/pallas/deform_gather.py:465"),
+    "deform_conv_backward_bf16": (
+        "deform_col2im.cu", "sipmask_tpu/ops/pallas/deform_gather.py:878"),
+    "gn_relu_bf16": ("gn_relu.cu",
+                     "sipmask_tpu/ops/pallas/group_norm.py:124"),
+    "gn_relu_backward_bf16": ("gn_relu.cu",
+                              "sipmask_tpu/ops/pallas/group_norm.py:174"),
 }
 PATH_KERNELS = {   # the kernels each driven path must launch
     "hi-acc serving": ("deform_im2col", "gn_relu", "assemble_masks"),
@@ -238,6 +293,13 @@ PATH_KERNELS = {   # the kernels each driven path must launch
                          "mask_bce_forward", "mask_bce_backward", "gn_relu",
                          "gn_relu_backward"),
     "vis test driver": ("deform_im2col", "gn_relu", "assemble_masks"),
+    "hi-acc bf16 serving": ("deform_im2col_bf16", "gn_relu_bf16",
+                            "assemble_masks"),
+    "hi-acc bf16 training": ("deform_im2col_bf16",
+                             "deform_conv_backward_bf16", "mask_bce_forward",
+                             "mask_bce_backward", "gn_relu_bf16",
+                             "gn_relu_backward_bf16"),
+    "rt bf16 serving": ("deform_im2col_bf16", "assemble_masks"),
 }
 
 
@@ -246,27 +308,34 @@ def log(*args):
 
 
 def wrappers():
-    """The kernel wrappers by name; each carries its launch count."""
+    """The kernel wrappers by name, each with the attribute that holds its
+    launch count: ``launches`` (f32), ``bf16_launches`` (the bf16
+    variants)."""
     from sipmask_tpu_torch.ops import deform_conv, deform_sample, gn_relu
     from sipmask_tpu_torch.ops import mask_assembly, mask_loss
-    return {"deform_im2col": deform_sample.deform_im2col,
-            "deform_conv_backward": deform_conv.deform_conv_backward,
-            "mask_bce_forward": mask_loss.mask_bce_forward,
-            "mask_bce_backward": mask_loss.mask_bce_backward,
-            "gn_relu": gn_relu.gn_relu,
-            "gn_relu_backward": gn_relu.gn_relu_backward,
-            "deform_rows": deform_sample.deform_rows,
-            "deform_rows_backward": deform_sample.deform_rows_backward,
-            "assemble_masks": mask_assembly.assemble_masks}
+    fns = {"deform_im2col": deform_sample.deform_im2col,
+           "deform_conv_backward": deform_conv.deform_conv_backward,
+           "mask_bce_forward": mask_loss.mask_bce_forward,
+           "mask_bce_backward": mask_loss.mask_bce_backward,
+           "gn_relu": gn_relu.gn_relu,
+           "gn_relu_backward": gn_relu.gn_relu_backward,
+           "deform_rows": deform_sample.deform_rows,
+           "deform_rows_backward": deform_sample.deform_rows_backward,
+           "assemble_masks": mask_assembly.assemble_masks}
+    out = {k: (fn, "launches") for k, fn in fns.items()}
+    for k in ("deform_im2col", "deform_conv_backward", "gn_relu",
+              "gn_relu_backward"):
+        out[k + "_bf16"] = (fns[k], "bf16_launches")
+    return out
 
 
 def reset_launches():
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fn, attr in wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {k: fn.launches for k, fn in wrappers().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in wrappers().items()}
 
 
 def check_path_launches(path, launches):
@@ -277,14 +346,15 @@ def check_path_launches(path, launches):
         raise AssertionError(f"kernels of the {path} path never ran: {idle}")
 
 
-def bound(nbytes, flops, tf32_flops=0.0):
+def bound(nbytes, flops, tf32_flops=0.0, tc_rate=TF32_FLOP_PER_S):
     """(ms, 'bytes' or 'operations'): the least time the card could take to
     move ``nbytes`` (each input read once, each output written once) at the
     HBM rate, do ``flops`` f32 operations at the CUDA-core rate and
-    ``tf32_flops`` TF32 operations at the tensor-core rate (the two units
-    run side by side, so the larger of the two times)."""
+    ``tf32_flops`` tensor-core operations at ``tc_rate`` (TF32 by default;
+    BF16_FLOP_PER_S for bf16 products; the two units run side by side, so
+    the larger of the two times)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = max(flops / F32_FLOP_PER_S, tf32_flops / TF32_FLOP_PER_S) * 1e3
+    tf = max(flops / F32_FLOP_PER_S, tf32_flops / tc_rate) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -783,6 +853,482 @@ def phase_train_kernels(dev):
     return errs, times, extra
 
 
+# ------------------------------------------------------------- bfloat16
+
+def bf16_k1_inputs(b, h, w, gen, dev):
+    """K1's phase-3 inputs with x in bf16 (offsets stay f32)."""
+    x, off = k1_inputs(b, h, w, gen, dev)
+    return x.to(torch.bfloat16), off
+
+
+def phase_bf16_kernels(dev):
+    """Phase 19: the bf16 variants of K1, K2, K4a and K4b against their
+    plain bf16 versions at the flagship's shapes (batch 2), then times at
+    batch 4 with bounds (bf16 tensors 2 bytes an element; K2's products at
+    the dense bf16 tensor-core rate) and one-call library equivalents."""
+    import torch.nn.functional as F
+    from sipmask_tpu_torch.ops import deform_conv, deform_sample, gn_relu
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 5)
+    g = DEFORM_GROUPS
+    errs = {k: 0.0 for k in ("deform_im2col_bf16",
+                             "deform_conv_backward_bf16", "gn_relu_bf16",
+                             "gn_relu_backward_bf16")}
+    for h, w in LEVELS:
+        x, off = bf16_k1_inputs(2, h, w, gen, dev)
+        got = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+        want = deform_sample.deform_im2col_plain(x, off, (3, 3), 1, 1, 1, g)
+        torch.cuda.synchronize()
+        if got.dtype != bf:
+            raise AssertionError(f"K1 bf16 gave {got.dtype}")
+        errs["deform_im2col_bf16"] = max(
+            errs["deform_im2col_bf16"], check_outputs(
+                f"K1 bf16 deform_im2col {h}x{w} bs2", [got.float()],
+                [want.float()], BF16_KERNEL_TOL))
+        for zero in (False, True):
+            w2 = (torch.randn((CHANNELS, 9 * CHANNELS), generator=gen) * 0.01
+                  ).to(dev).to(bf)
+            dy = torch.randn((2, CHANNELS, h, w), generator=gen).to(dev
+                                                                    ).to(bf)
+            o = torch.zeros_like(off) if zero else off
+            cols = deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1, g)
+            got = deform_conv.deform_conv_backward(x, o, cols, w2, dy,
+                                                   (3, 3), 1, 1, 1, g)
+            want = deform_conv.deform_conv_backward_plain(x, o, w2, dy,
+                                                          (3, 3), 1, 1, 1, g)
+            torch.cuda.synchronize()
+            if [t.dtype for t in got] != [bf, torch.float32, torch.float32]:
+                raise AssertionError(f"K2 bf16 gave {[t.dtype for t in got]}")
+            errs["deform_conv_backward_bf16"] = max(
+                errs["deform_conv_backward_bf16"], check_outputs(
+                    f"K2 bf16 deform_conv_backward {h}x{w} bs2 "
+                    f"{'zero' if zero else 'random'} offsets (dx, doffsets, "
+                    f"dw2)", [t.float() for t in got],
+                    [t.float() for t in want], BF16_KERNEL_TOL))
+            if zero and not float(got[1].abs().max()) > 0:
+                raise AssertionError("K2 bf16 gives zero offset gradients "
+                                     "at zero offsets")
+    # the tap contraction after K1 is a bf16 torch.matmul: it must sum in
+    # f32 (JAX's preferred_element_type) and round once
+    x, off = bf16_k1_inputs(BATCH, *LEVELS[0], gen, dev)
+    cols = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    w2 = (torch.randn((CHANNELS, 9 * CHANNELS), generator=gen) * 0.01
+          ).to(dev).to(bf)
+    want = torch.matmul(w2.float(), cols.float()).to(bf)
+    # with the flag this script sets, and with PyTorch's default (which the
+    # CLIs keep): cuBLAS may then reduce split sums in bf16
+    flags = torch.backends.cuda.matmul
+    for reduced in (False, True):
+        flags.allow_bf16_reduced_precision_reduction = reduced
+        got = torch.matmul(w2, cols)
+        torch.cuda.synchronize()
+        check_outputs(f"bf16 tap contraction torch.matmul at {LEVELS[0]} "
+                      f"bs{BATCH} against an f32-summed product rounded once "
+                      f"(allow_bf16_reduced_precision_reduction={reduced})",
+                      [got.float()], [want.float()], BF16_KERNEL_TOL)
+    flags.allow_bf16_reduced_precision_reduction = False
+    del x, off, cols, w2, got, want
+    for (h, w) in (LEVELS[0], LEVELS[2]):
+        for act in (True, False):
+            x = ((torch.randn((2, CHANNELS, h, w), generator=gen) * 3 + 1)
+                 .to(dev).to(bf))
+            dy = torch.randn((2, CHANNELS, h, w), generator=gen).to(dev
+                                                                    ).to(bf)
+            wt = (torch.rand(CHANNELS, generator=gen) + 0.5).to(dev)
+            bs = (torch.randn(CHANNELS, generator=gen) * 0.2).to(dev)
+            y, stats = gn_relu.gn_relu_forward(x, wt, bs, GN_GROUPS, 1e-5,
+                                               act)
+            want, want_stats = gn_relu._forward_plain(x, wt, bs, GN_GROUPS,
+                                                      1e-5, act)
+            got_b = gn_relu.gn_relu_backward(x, wt, bs, stats, dy, GN_GROUPS,
+                                             act)
+            want_b = gn_relu.gn_relu_backward_plain(x, wt, bs, stats, dy,
+                                                    GN_GROUPS, act)
+            torch.cuda.synchronize()
+            if y.dtype != bf or got_b[0].dtype != bf:
+                raise AssertionError("K4 bf16 gave another dtype")
+            errs["gn_relu_bf16"] = max(errs["gn_relu_bf16"], check_outputs(
+                f"K4a bf16 gn_relu {h}x{w} act={act} bs2 (y, stats)",
+                [y.float(), stats], [want.float(), want_stats],
+                BF16_KERNEL_TOL))
+            errs["gn_relu_backward_bf16"] = max(
+                errs["gn_relu_backward_bf16"], check_outputs(
+                    f"K4b bf16 gn_relu_backward {h}x{w} act={act} bs2 (dx, "
+                    f"dweight, dbias)", [t.float() for t in got_b],
+                    [t.float() for t in want_b], BF16_KERNEL_TOL))
+
+    # times at batch 4 over the five levels: plain, kernel, kernel, plain
+    times, extra = {}, {}
+    k1_in = [bf16_k1_inputs(BATCH, h, w, gen, dev) for h, w in LEVELS]
+    times["deform_im2col_bf16"] = turns(
+        f"K1 bf16 deform_im2col all 5 levels bs{BATCH}",
+        lambda: [deform_sample.deform_im2col_plain(x, o, (3, 3), 1, 1, 1, g)
+                 for x, o in k1_in],
+        lambda: [deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1, g)
+                 for x, o in k1_in])
+    split, n_kern = launch_split(
+        f"K1 bf16 deform_im2col, one call at {LEVELS[0]} bs{BATCH}",
+        lambda: deform_sample.deform_im2col(*k1_in[0], (3, 3), 1, 1, 1, g),
+        attempts=5)
+    if n_kern != 2:
+        raise AssertionError(f"a K1 bf16 call ran {n_kern} device kernels, "
+                             f"not its transpose and gather: {list(split)}")
+    ncols = sum(BATCH * 9 * CHANNELS * h * w for h, w in LEVELS)
+    k1_lib = []
+    for x, o in k1_in:
+        b, c, h, w = x.shape
+        pyx = deform_sample.positions(o, 3, 3, 1, 1, 1, g)
+        rows = x.reshape(b * g, c // g, h * w).transpose(1, 2)
+        k1_lib.append(grid_sample_rows(rows, pyx.to(bf), h, w)[0])
+    extra["deform_im2col_bf16"] = (
+        bound(sum(nbytes(x, o) for x, o in k1_in) + 2 * ncols, 7 * ncols),
+        cuda_ms(lambda: [f() for f in k1_lib]))
+    del k1_lib
+
+    k2_in = []
+    for x, o in k1_in:
+        b, _, h, w = x.shape
+        w2 = (torch.randn((CHANNELS, 9 * CHANNELS), generator=gen) * 0.01
+              ).to(dev).to(bf)
+        dy = torch.randn((b, CHANNELS, h, w), generator=gen).to(dev).to(bf)
+        cols = deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1, g)
+        k2_in.append((x, o, w2, dy, cols))
+    del k1_in
+
+    def k2_sweep():
+        return [deform_conv.deform_conv_backward(x, o, cols, w2, dy, (3, 3),
+                                                 1, 1, 1, g)
+                for x, o, w2, dy, cols in k2_in]
+    times["deform_conv_backward_bf16"] = turns(
+        f"K2 bf16 deform_conv_backward all 5 levels bs{BATCH}",
+        lambda: [deform_conv.deform_conv_backward_plain(
+            x, o, w2, dy, (3, 3), 1, 1, 1, g)
+            for x, o, w2, dy, _c in k2_in], k2_sweep, iters=5)
+    gemm_flops = sum(4 * cols.numel() * w2.shape[0]
+                     for x, o, w2, dy, cols in k2_in)
+    split, _ = launch_split(f"K2 bf16 deform_conv_backward all 5 levels "
+                            f"bs{BATCH}", k2_sweep)
+    gemm_ms = sum(ms for name, (_, ms) in split.items() if "gemm" in name)
+    log(f"K2 bf16 GEMMs: {gemm_ms:.4f} ms device time for "
+        f"{gemm_flops / 1e9:.1f} GFLOP of bf16 products, "
+        f"{gemm_flops / max(gemm_ms, 1e-9) / 1e9:.1f} TFLOP/s")
+    col_flops = sum(16 * cols.numel() for *_, cols in k2_in)
+    # read x, offsets, cols, w2, dy; write dx (bf16), d offsets and dw2 (f32)
+    k2_bytes = sum(nbytes(x, o, cols, w2, dy) + nbytes(x) + nbytes(o)
+                   + 4 * w2.numel() for x, o, w2, dy, cols in k2_in)
+    extra["deform_conv_backward_bf16"] = (
+        bound(k2_bytes, col_flops, gemm_flops, BF16_FLOP_PER_S), None)
+    log(f"K2 bf16 bound: {extra['deform_conv_backward_bf16'][0][0]:.4f} ms "
+        f"({extra['deform_conv_backward_bf16'][0][1]}: the products at the "
+        f"H100 SXM's dense bf16 tensor-core rate, "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; the col2im's f32 operations "
+        f"at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    del k2_in
+
+    k4_in = []
+    for h, w in LEVELS:
+        x = torch.randn((BATCH, CHANNELS, h, w), generator=gen).to(dev).to(bf)
+        dy = torch.randn((BATCH, CHANNELS, h, w), generator=gen).to(dev
+                                                                    ).to(bf)
+        wt = torch.ones(CHANNELS, device=dev)
+        bs = torch.zeros(CHANNELS, device=dev)
+        _, stats = gn_relu.gn_relu_forward(x, wt, bs, GN_GROUPS)
+        k4_in.append((x, wt, bs, stats, dy))
+    times["gn_relu_bf16"] = turns(
+        f"K4a bf16 gn_relu all 5 levels bs{BATCH}",
+        lambda: [gn_relu.gn_relu_plain(x, wt, bs, GN_GROUPS)
+                 for x, wt, bs, _s, _d in k4_in],
+        lambda: [gn_relu.gn_relu(x, wt, bs, GN_GROUPS)
+                 for x, wt, bs, _s, _d in k4_in])
+    split, _ = launch_split(
+        f"K4a bf16 gn_relu all 5 levels bs{BATCH}",
+        lambda: [gn_relu.gn_relu(x, wt, bs, GN_GROUPS)
+                 for x, wt, bs, _s, _d in k4_in])
+    log(f"K4a bf16 all 5 levels bs{BATCH}: CUDA events "
+        f"{times['gn_relu_bf16'][0]:.4f} ms, device "
+        f"{sum(ms for _, ms in split.values()):.4f} ms")
+
+    def k4b_sweep():
+        return [gn_relu.gn_relu_backward(*a, GN_GROUPS, True) for a in k4_in]
+    times["gn_relu_backward_bf16"] = turns(
+        f"K4b bf16 gn_relu_backward all 5 levels bs{BATCH}",
+        lambda: [gn_relu.gn_relu_backward_plain(*a, GN_GROUPS, True)
+                 for a in k4_in], k4b_sweep)
+    split, _ = launch_split(f"K4b bf16 gn_relu_backward all 5 levels "
+                            f"bs{BATCH}", k4b_sweep)
+    log(f"K4b bf16 all 5 levels bs{BATCH}: CUDA events "
+        f"{times['gn_relu_backward_bf16'][0]:.4f} ms, device "
+        f"{sum(ms for _, ms in split.values()):.4f} ms")
+    gn_graphs = []
+    for x, wt, bs, _, dy in k4_in:
+        leaves = [t.detach().requires_grad_(True) for t in (x, wt, bs)]
+        gn_graphs.append((torch.relu(F.group_norm(
+            leaves[0], GN_GROUPS, leaves[1].to(bf), leaves[2].to(bf))),
+            leaves, dy))
+    k4_elems = sum(a[0].numel() for a in k4_in)
+    extra["gn_relu_bf16"] = (
+        bound(4 * k4_elems + 8 * CHANNELS, 8 * k4_elems),
+        cuda_ms(lambda: [torch.relu(F.group_norm(
+            x, GN_GROUPS, wt.to(bf), bs.to(bf))) for x, wt, bs, _s, _d
+            in k4_in]))
+    extra["gn_relu_backward_bf16"] = (
+        bound(6 * k4_elems, 10 * k4_elems),
+        cuda_ms(lambda: [torch.autograd.grad(y, lv, dy, retain_graph=True)
+                         for y, lv, dy in gn_graphs]))
+    del k4_in, gn_graphs
+    torch.cuda.empty_cache()
+    for name, (bnd, lib) in extra.items():
+        log(f"{name}: bound {bnd[0]:.4f} ms ({bnd[1]}), one-call library "
+            f"equivalent " + ("none" if lib is None else f"{lib:.4f} ms"))
+    return errs, times, extra
+
+
+def bf16_config(preset):
+    """``preset`` with ``model.compute_dtype="bfloat16"``."""
+    from sipmask_tpu_torch.config import _r, get_config
+    return _r(get_config(preset), "model", compute_dtype="bfloat16")
+
+
+def check_bf16_head(head):
+    """Every head output is bf16 but bbox_preds (f32, as in JAX)."""
+    for key, val in head.items():
+        want = torch.float32 if key == "bbox_preds" else torch.bfloat16
+        for t in (val if isinstance(val, list) else [val]):
+            if t.dtype != want:
+                raise AssertionError(f"bf16 head output {key} is {t.dtype}")
+
+
+def bf16_serving(dev, name, smi, label, preset, imgs, batch_n, path,
+                 prepare=None, f32_tol=BF16_F32_TOL):
+    """The serving path of ``preset`` in bf16: 3 requests through
+    ``inference_detector`` (``imgs[:3]``), a batch of ``batch_n``
+    (``imgs[3:]``) twice through ``Detector.infer``, launches counted; then
+    the batch with the plain versions, and with the same weights in f32
+    (head outputs within ``f32_tol`` of f32's max; None: logged only).
+    ``prepare(det, images)`` adjusts the random weights (both runs)."""
+    from sipmask_tpu_torch.apis.inference import (inference_detector,
+                                                  init_detector, preprocess)
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights
+
+    det = init_detector(bf16_config(preset), dev, seed=SEED)
+    cfg = det.cfg
+    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+    prepped = [preprocess(im, cfg) for im in imgs[3:]]
+    images = torch.stack([torch.from_numpy(p[0]).permute(2, 0, 1)
+                          for p in prepped]).to(dev)
+    batch = (images, torch.from_numpy(np.stack([p[1] for p in prepped])),
+             torch.from_numpy(np.stack([p[2] for p in prepped])))
+    if prepare is not None:
+        prepare(det, images)
+    for n, p in det.model.named_parameters():
+        if p.dtype != torch.float32:
+            raise AssertionError(f"bf16 model parameter {n} is {p.dtype}")
+    capture = {}
+    det.model.bbox_head.register_forward_hook(
+        lambda mod, inp, out: capture.update(out))
+
+    reset_launches()
+    for i in range(3):
+        t0 = time.perf_counter()
+        res = inference_detector(det, imgs[i])
+        ms = (time.perf_counter() - t0) * 1e3
+        n, hw = len(res["labels"]), imgs[i].shape[:2]
+        log(f"{label} request {i}: {hw} image -> {n} detections, "
+            f"{ms:.1f} ms wall on {name} ({smi})")
+        if n == 0 or not np.isfinite(res["boxes"]).all():
+            raise AssertionError(f"{label} request {i}: no valid or finite "
+                                 f"result")
+        if res["masks"].shape != (n, *hw):
+            raise AssertionError(f"{label} request {i}: masks "
+                                 f"{res['masks'].shape}")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):   # the first run is the first at the batch shapes
+        t0 = time.perf_counter()
+        head_k, dec_k = run_batch(det, batch, capture)
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"{label} batch of {tuple(images.shape)} through "
+            f"Detector.infer: {ms:.1f} ms wall on {name} ({smi}); peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    launches = read_launches()
+    check_path_launches(path, launches)
+    f32_launched = [k for k, v in launches.items()
+                    if v and k in ("deform_im2col", "deform_conv_backward",
+                                   "gn_relu", "gn_relu_backward")]
+    if f32_launched:
+        raise AssertionError(f"the bf16 path launched f32 kernels: "
+                             f"{f32_launched}")
+    valid = dec_k["valid"].sum(1).tolist()
+    log(f"valid detections per image of the {label} batch: {valid}")
+    if min(valid) <= 0:
+        raise AssertionError("an image of the batch has no detection")
+    check_head_finite(head_k)
+    check_bf16_head(head_k)
+    for key in ("boxes", "scores", "masks"):
+        check_finite(key, dec_k[key])
+
+    with plain_kernels():
+        head_p, dec_p = run_batch(det, batch, capture)
+    if read_launches() != launches:
+        raise AssertionError("the plain run launched a kernel")
+    worst = head_error(head_k, head_p)
+    log(f"{label} head outputs, kernels vs plain: max relative error "
+        f"{worst:.3e} (tol {BF16_HEAD_TOL})")
+    if not worst <= BF16_HEAD_TOL:
+        raise AssertionError(f"head outputs disagree: {worst}")
+    shares = [min(matched_share(dec_k, dec_p, i, *BF16_MATCH),
+                  matched_share(dec_p, dec_k, i, *BF16_MATCH))
+              for i in range(batch_n)]
+    log(f"{label} detections reproduced by the plain run (label, box within "
+        f"{BF16_MATCH[0]} px, score within {BF16_MATCH[1]}): {shares} (min "
+        f"{BF16_MATCH_MIN})")
+    if min(shares) < BF16_MATCH_MIN:
+        raise AssertionError("decoded detections disagree")
+
+    # the same weights in f32: how far bf16 moves the outputs
+    det32 = init_detector(preset, dev, seed=SEED)
+    det32.model.load_state_dict(det.model.state_dict())
+    del det
+    torch.cuda.empty_cache()
+    cap32 = {}
+    det32.model.bbox_head.register_forward_hook(
+        lambda mod, inp, out: cap32.update(out))
+    head_f, dec_f = run_batch(det32, batch, cap32)
+    by_key = {}
+    for (k, a), (_, b) in zip(head_outputs(head_k), head_outputs(head_f)):
+        by_key[k] = errors(a.float(), b)[1]
+    log(f"{label} head outputs, bf16 vs f32 on the same weights: relative "
+        f"error (to max |f32|) by output: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in by_key.items()))
+    shares = [matched_share(dec_f, dec_k, i, 2.0, 0.02)
+              for i in range(batch_n)]
+    log(f"{label} f32 detections that the bf16 run also has (label, box "
+        f"within 2 px, score within 0.02): {shares}; valid bf16 "
+        f"{dec_k['valid'].sum(1).tolist()}, f32 "
+        f"{dec_f['valid'].sum(1).tolist()}")
+    worst = max(by_key.values())
+    if f32_tol is not None and not worst <= f32_tol:
+        raise AssertionError(f"bf16 and f32 head outputs differ by {worst}")
+    del det32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bf16_serving(dev, name, smi):
+    """Phase 20: the flagship in bf16: 3 requests of one 800x1333 image, a
+    batch of 4 at 800x1344 twice, then the batch with the plain versions
+    and in f32 on the same weights."""
+    rng = np.random.RandomState(SEED)
+    imgs = [(rng.rand(*IMAGE_HW, 3) * 255).astype(np.uint8)
+            for _ in range(3 + BATCH)]
+    return bf16_serving(dev, name, smi, "bf16 hi-acc", CONFIG, imgs, BATCH,
+                        "hi-acc bf16 serving")
+
+
+def phase_bf16_rt_serving(dev, name, smi):
+    """Phase 22: the real-time preset in bf16 at 544x544: 3 requests of
+    COCO-sized images (stretched), a batch of 8 twice, then plain and f32
+    as phase 20. The f32 comparison is logged, not held: the calibrated
+    random backbone (``calibrate_frozen_bn``) centres every pre-activation
+    on 0 and amplifies rounding ~100x on its way to the norm-free head, so
+    bf16 moves its outputs by 4-66% of their max (read on the card), as it
+    moves the JAX package's own bf16 graph on such weights (14% and 56% on
+    cls_scores and centernesses at 256x256 on the CPU)."""
+    from sipmask_tpu_torch.utils.demo_inputs import calibrate_frozen_bn
+    rng = np.random.RandomState(SEED)
+    imgs = [(rng.rand(*RT_SIZES[i % len(RT_SIZES)], 3) * 255)
+            .astype(np.uint8) for i in range(3 + RT_BATCH)]
+    return bf16_serving(
+        dev, name, smi, "bf16 RT", RT_CONFIG, imgs, RT_BATCH,
+        "rt bf16 serving",
+        prepare=lambda det, images: calibrate_frozen_bn(det.model.backbone,
+                                                        images),
+        f32_tol=None)
+
+
+def phase_bf16_train(dev, name, smi):
+    """Phase 21: the flagship in bf16: TRAIN_STEPS SGD steps at 800x1344,
+    batch 4, launches counted, losses, frozen stages and f32 gradients
+    checked; then the first step with the plain versions."""
+    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights, train_batch
+
+    cfg = bf16_config(CONFIG)
+    state = create_train_state(cfg, dev, seed=SEED)
+    bump_weights(state.model, torch.Generator().manual_seed(SEED))
+    init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    params = dict(state.model.named_parameters())
+    frozen = {n: p.detach().clone() for n, p in params.items()
+              if not p.requires_grad}
+    batch = train_batch(BATCH, 800, 1344, MAX_GTS, SEED, dev)
+    step = make_train_step(state, cfg)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, peaks = [], []
+    for i in range(TRAIN_STEPS):
+        vals, _ = run_step(step, batch, f"bf16 train step {i}", name, smi)
+        losses.append(vals)
+        if i == 0:
+            first_grads = {n: p.grad.detach().clone()
+                           for n, p in params.items() if p.requires_grad}
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+    launches = read_launches()
+    check_path_launches("hi-acc bf16 training", launches)
+    log("bf16 peak device memory per train step: " + ", ".join(
+        f"{p:.2f} GiB" for p in peaks))
+    for i, vals in enumerate(losses):
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"bf16 step {i}: non-finite losses {vals}")
+        if not vals["loss_mask"] > 0:
+            raise AssertionError(f"bf16 step {i}: loss_mask is "
+                                 f"{vals['loss_mask']}")
+    for n, v in frozen.items():
+        if not torch.equal(params[n].detach(), v):
+            raise AssertionError(f"frozen parameter {n} moved")
+    for n, p in params.items():
+        if p.dtype != torch.float32:
+            raise AssertionError(f"parameter {n} is {p.dtype}")
+        if p.requires_grad:
+            if p.grad is None or p.grad.dtype != torch.float32:
+                raise AssertionError(f"{n} has no f32 gradient")
+            check_finite(f"gradient of {n}", p.grad)
+    if not float(params["bbox_head.feat_align.conv_offset.weight"].grad
+                 .abs().max()) > 0:
+        raise AssertionError("feat_align.conv_offset has a zero gradient")
+    log("bf16 train checks passed: finite losses, loss_mask > 0, frozen "
+        "stages unchanged, f32 parameters with finite f32 gradients")
+    del state, step, params
+    torch.cuda.empty_cache()
+
+    state = create_train_state(cfg, dev, state_dict=init)
+    step = make_train_step(state, cfg)
+    with plain_kernels():
+        vals, _ = run_step(step, batch, "bf16 plain train step 0", name, smi)
+    if read_launches() != launches:
+        raise AssertionError("the plain train step launched a kernel")
+    worst_loss = max(abs(vals[k] - losses[0][k]) / max(abs(vals[k]), 1e-12)
+                     for k in vals)
+    log(f"bf16 losses, kernels vs plain: max relative difference "
+        f"{worst_loss:.3e} (tol {BF16_LOSS_TOL})")
+    if not worst_loss <= BF16_LOSS_TOL:
+        raise AssertionError(f"losses disagree: {losses[0]} vs {vals}")
+    worst, worst_name = 0.0, ""
+    for n, p in state.model.named_parameters():
+        if p.requires_grad:
+            rel = errors(first_grads[n], p.grad)[1]
+            if rel > worst:
+                worst, worst_name = rel, n
+    log(f"bf16 gradients, kernels vs plain: max relative error (to each "
+        f"tensor's max |g|) {worst:.3e} at {worst_name} (tol "
+        f"{BF16_GRAD_TOL})")
+    if not worst <= BF16_GRAD_TOL:
+        raise AssertionError(f"gradients disagree: {worst} at {worst_name}")
+    del state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run_step(step, batch, label, name, smi):
     """One train step, timed on the host clock up to a synchronise."""
     t0 = time.perf_counter()
@@ -965,9 +1511,9 @@ def head_error(head_k, head_p):
                zip(head_outputs(head_k), head_outputs(head_p)))
 
 
-def matched_share(a, b, i):
+def matched_share(a, b, i, box_px=0.01, score_abs=1e-4):
     """Share of run a's detections of image i that run b also has: same
-    label, boxes within 0.01 px, scores within 1e-4."""
+    label, boxes within ``box_px``, scores within ``score_abs``."""
     va, vb = a["valid"][i], b["valid"][i]
     la, lb = a["labels"][i][va], b["labels"][i][vb]
     ba, bb = a["boxes"][i][va], b["boxes"][i][vb]
@@ -975,8 +1521,8 @@ def matched_share(a, b, i):
     if len(la) == 0:
         return 1.0
     same = ((la[:, None] == lb[None]) &
-            ((ba[:, None] - bb[None]).abs().amax(-1) <= 0.01) &
-            ((sa[:, None] - sb[None]).abs() <= 1e-4))
+            ((ba[:, None] - bb[None]).abs().amax(-1) <= box_px) &
+            ((sa[:, None] - sb[None]).abs() <= score_abs))
     return float(same.any(1).float().mean())
 
 
@@ -2542,30 +3088,9 @@ def phase_vis_test_driver(dev, name, smi, ann, images, ckpt):
     return launches
 
 
-def main():
-    # ---- 1. device
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device "
-                         "(torch.cuda.is_available() is False)")
-    dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True
-    ).stdout.strip().splitlines()[0]
-    log(smi)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # serving shapes are fixed: let cuDNN time its algorithms once per shape
-    # (its untimed pick at batch 4, f32, is an FFT path about 8x slower)
-    torch.backends.cudnn.benchmark = True
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn.benchmark={torch.backends.cudnn.benchmark}")
-
-    # ---- 2. build: one nvcc per source, all at once
+def build_kernels():
+    """Phase 2: one nvcc per source of KERNELS, all started together; logs
+    each build's seconds and ptxas's register and spill lines."""
     from sipmask_tpu_torch.ops import native
     t0 = time.perf_counter()
     failed = []
@@ -2583,13 +3108,49 @@ def main():
         t.join()
     if failed:
         raise RuntimeError(f"kernel builds failed: {failed}")
-    build_s = time.perf_counter() - t0
-    log(f"built kernels in {build_s:.1f} s")
+    log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for kname, (secs, ptxas) in native.BUILD_LOG.items():
         lines = [ln for ln in ptxas.splitlines() if "registers" in ln
                  or "spill" in ln]
         log(f"  {kname}: nvcc {secs:.1f} s; " + " | ".join(
             ln.strip() for ln in lines))
+
+
+def set_backend_flags():
+    """Plain f32 (TF32 off), bf16 products summed in f32 (as the JAX
+    package's preferred_element_type=float32 asks), cuDNN's benchmark mode
+    (fixed shapes)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # serving shapes are fixed: let cuDNN time its algorithms once per shape
+    # (its untimed pick at batch 4, f32, is an FFT path about 8x slower)
+    torch.backends.cudnn.benchmark = True
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cuda.matmul.allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        f" cudnn.benchmark={torch.backends.cudnn.benchmark}")
+
+
+def main():
+    # ---- 1. device
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device "
+                         "(torch.cuda.is_available() is False)")
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    set_backend_flags()
+
+    # ---- 2. build: one nvcc per source, all at once
+    build_kernels()
 
     # ---- 3. kernels against their plain versions
     errs, times, extra = phase_kernels(dev)
@@ -2645,6 +3206,18 @@ def main():
             dev, name, smi, vis["ann"], vis["images"], vis["last"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 19. the bf16 kernels against their plain bf16 versions
+    bf_errs, bf_times, bf_extra = phase_bf16_kernels(dev)
+    errs.update(bf_errs)
+    times.update(bf_times)
+    extra.update(bf_extra)
+
+    # ---- 20-22. compute_dtype="bfloat16": flagship serving and training,
+    # real-time serving
+    paths["hi-acc bf16 serving"] = phase_bf16_serving(dev, name, smi)
+    paths["hi-acc bf16 training"] = phase_bf16_train(dev, name, smi)
+    paths["rt bf16 serving"] = phase_bf16_rt_serving(dev, name, smi)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"sipmask_tpu_torch/csrc/{src}",

@@ -12,7 +12,14 @@
 // floor(p) and floor(p)+1; a corner outside [0, H-1] x [0, W-1] contributes
 // 0; weights are f32 products of (1 - frac) and frac (deform_corners.cuh).
 //
-// Layouts (all contiguous f32):
+// Element types: f32 throughout (deform_im2col_f32), or bf16 x, x_rows and
+// cols with f32 offsets (deform_im2col_bf16), the JAX package's
+// compute_dtype="bfloat16" graph: corners read in bf16, positions, weights
+// and the interpolation in f32, each value rounded once to bf16 as it is
+// written. The kernels are templates on the element type; a bf16 gather
+// vector is 16 bytes, 8 channels.
+//
+// Layouts (all contiguous):
 //   x        (B, C, H, W)           C = G * Cg, group g owns channels g*Cg..
 //   offsets  (B, G*K*2, Ho, Wo)     channel g*2K + 2*(i*kw + j) + {0: dy, 1: dx}
 //   x_rows   (B*G, H*W, Cg)         scratch: x channels-last, as the TPU
@@ -51,6 +58,7 @@
 // longer runs of each row (tools/k1_tiles.cu), ran slower: its blocks share
 // no corner rows across taps.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -64,14 +72,14 @@ constexpr int kTile = 32;        // output pixels a gather block
 constexpr int kT = 32;           // transpose tile: channels x pixels
 constexpr int kIt = 2;           // gather items a thread has in flight
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) deform_im2col_rows_kernel(
-    const float* __restrict__ x, float* __restrict__ x_rows, int Cg,
-    int HW) {
-  __shared__ float tile[kT][kT + 1];
+    const T* __restrict__ x, T* __restrict__ x_rows, int Cg, int HW) {
+  __shared__ T tile[kT][kT + 1];
   const int64_t bg = blockIdx.z;
   const int p0 = blockIdx.x * kT, c0 = blockIdx.y * kT;
-  const float* src = x + bg * Cg * HW;
-  float* dst = x_rows + bg * HW * Cg;
+  const T* src = x + bg * Cg * HW;
+  T* dst = x_rows + bg * HW * Cg;
   const int tx = threadIdx.x % kT, ty = threadIdx.x / kT;
   for (int r = ty; r < kT; r += kThreads / kT) {
     const int c = c0 + r, p = p0 + tx;
@@ -84,20 +92,54 @@ __global__ void __launch_bounds__(kThreads) deform_im2col_rows_kernel(
   }
 }
 
-template <int VEC>
+// A gather load of VEC channels of element type E: its register type T and
+// channel i of it in f32.
+template <typename E, int VEC>
 struct Vec;
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   using T = float;
   __device__ static float get(const T& v, int) { return v; }
 };
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   using T = float4;
   __device__ static float get(const T& v, int i) {
     return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
   }
 };
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  using T = __nv_bfloat16;
+  __device__ static float get(const T& v, int) { return __bfloat162float(v); }
+};
+template <>
+struct Vec<__nv_bfloat16, 8> {   // 16 bytes: channel i in half i % 2 of word
+  using T = uint4;               // i / 2 (little-endian pairs)
+  __device__ static float get(const T& v, int i) {
+    const uint32_t w = i < 2 ? v.x : i < 4 ? v.y : i < 6 ? v.z : v.w;
+    return __uint_as_float(i & 1 ? w & 0xFFFF0000u : w << 16);
+  }
+};
+
+// Stores of f32 values as elements of type E: one, or four consecutive
+// (16 bytes of f32, 8 of bf16); bf16 rounds to nearest even.
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
 
 // Shared memory of a gather block: each (tap, pixel)'s weights (float4) and
 // corner rows (int4, -1 outside the map), and two (pixel, channel) tiles
@@ -106,14 +148,16 @@ __host__ __device__ __forceinline__ int gather_smem_floats(int K, int Cg) {
   return 8 * K * kTile + 2 * kTile * (Cg | 1);
 }
 
-// VEC: channels a gather load reads; VOUT: pixels a thread writes at once;
-// CG: Cg when it is known at compile time, else 0.
-template <int VEC, int VOUT, int CG>
+// E: the element type of x_rows and cols; VEC: channels a gather load
+// reads; VOUT: pixels a thread writes at once; CG: Cg when it is known at
+// compile time, else 0. The (pixel, channel) tiles hold f32 values, rounded
+// to E only as they are written out.
+template <typename E, int VEC, int VOUT, int CG>
 __global__ void __launch_bounds__(kThreads, 4) deform_im2col_kernel(
-    const float* __restrict__ x_rows, const float* __restrict__ offsets,
-    float* __restrict__ cols, int H, int W, int Cg_, int Ho, int Wo, int kh,
+    const E* __restrict__ x_rows, const float* __restrict__ offsets,
+    E* __restrict__ cols, int H, int W, int Cg_, int Ho, int Wo, int kh,
     int kw, int stride, int pad, int dil) {
-  using V = Vec<VEC>;
+  using V = Vec<E, VEC>;
   using T = typename V::T;
   extern __shared__ __align__(16) float smem[];
   const int Cg = CG ? CG : Cg_;
@@ -193,29 +237,29 @@ __global__ void __launch_bounds__(kThreads, 4) deform_im2col_kernel(
     // one barrier a tap: the tile written above is read below, and the
     // other tile, read in the last tap, is written in the next
     __syncthreads();
-    float* ob = cols + (bg * K + t) * Cg * P + p0;
+    E* ob = cols + (bg * K + t) * Cg * P + p0;
     constexpr int kLanes = kTile / VOUT;   // threads a row of the tile
     for (int i = threadIdx.x; i < Cg * kLanes; i += kThreads) {
       const int c = i / kLanes, j = (i - c * kLanes) * VOUT;
       if (p0 + j >= P) continue;
       if constexpr (VOUT == 4) {   // P % 4 == 0: the vector lies in the row
-        *reinterpret_cast<float4*>(ob + (int64_t)c * P + j) = make_float4(
-            tile[j * RS + c], tile[(j + 1) * RS + c],
-            tile[(j + 2) * RS + c], tile[(j + 3) * RS + c]);
+        store4(ob + (int64_t)c * P + j, tile[j * RS + c],
+               tile[(j + 1) * RS + c], tile[(j + 2) * RS + c],
+               tile[(j + 3) * RS + c]);
       } else {
-        ob[(int64_t)c * P + j] = tile[j * RS + c];
+        store1(ob + (int64_t)c * P + j, tile[j * RS + c]);
       }
     }
   }
 }
 
-template <int VEC, int VOUT, int CG>
-cudaError_t launch_gather(const float* x_rows, const float* offsets,
-                          float* cols, int BG, int H, int W, int Cg, int Ho,
-                          int Wo, int kh, int kw, int stride, int pad,
-                          int dil, cudaStream_t stream) {
+template <typename E, int VEC, int VOUT, int CG>
+cudaError_t launch_gather(const E* x_rows, const float* offsets, E* cols,
+                          int BG, int H, int W, int Cg, int Ho, int Wo,
+                          int kh, int kw, int stride, int pad, int dil,
+                          cudaStream_t stream) {
   const int smem = gather_smem_floats(kh * kw, Cg) * (int)sizeof(float);
-  auto kernel = deform_im2col_kernel<VEC, VOUT, CG>;
+  auto kernel = deform_im2col_kernel<E, VEC, VOUT, CG>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -227,17 +271,42 @@ cudaError_t launch_gather(const float* x_rows, const float* offsets,
   return cudaGetLastError();
 }
 
-template <int VEC, int CG>
-cudaError_t launch_gather(bool out4, const float* x_rows,
-                          const float* offsets, float* cols, int BG, int H,
-                          int W, int Cg, int Ho, int Wo, int kh, int kw,
-                          int stride, int pad, int dil, cudaStream_t s) {
-  return out4 ? launch_gather<VEC, 4, CG>(x_rows, offsets, cols, BG, H, W,
-                                          Cg, Ho, Wo, kh, kw, stride, pad,
-                                          dil, s)
-              : launch_gather<VEC, 1, CG>(x_rows, offsets, cols, BG, H, W,
-                                          Cg, Ho, Wo, kh, kw, stride, pad,
-                                          dil, s);
+template <typename E, int VEC, int CG>
+cudaError_t launch_gather(bool out4, const E* x_rows, const float* offsets,
+                          E* cols, int BG, int H, int W, int Cg, int Ho,
+                          int Wo, int kh, int kw, int stride, int pad,
+                          int dil, cudaStream_t s) {
+  return out4 ? launch_gather<E, VEC, 4, CG>(x_rows, offsets, cols, BG, H,
+                                             W, Cg, Ho, Wo, kh, kw, stride,
+                                             pad, dil, s)
+              : launch_gather<E, VEC, 1, CG>(x_rows, offsets, cols, BG, H,
+                                             W, Cg, Ho, Wo, kh, kw, stride,
+                                             pad, dil, s);
+}
+
+// Both kernels of a call; vec: 16-byte gathers (Cg a multiple of 16 bytes'
+// elements: 4 f32 or 8 bf16).
+template <typename E>
+int im2col(const E* x, const float* off, E* x_rows, E* cols, int B, int C,
+           int H, int W, int G, int Ho, int Wo, int kh, int kw, int stride,
+           int pad, int dil, int vec, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(E);
+  const int Cg = C / G, HW = H * W, BG = B * G;
+  const dim3 tgrid((HW + kT - 1) / kT, (Cg + kT - 1) / kT, BG);
+  deform_im2col_rows_kernel<E><<<tgrid, kThreads, 0, s>>>(x, x_rows, Cg, HW);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool out4 = (Ho * Wo) % 4 == 0;
+  if (vec && Cg == 64)
+    err = launch_gather<E, kVec, 64>(out4, x_rows, off, cols, BG, H, W, Cg,
+                                     Ho, Wo, kh, kw, stride, pad, dil, s);
+  else if (vec && Cg % kVec == 0)
+    err = launch_gather<E, kVec, 0>(out4, x_rows, off, cols, BG, H, W, Cg,
+                                    Ho, Wo, kh, kw, stride, pad, dil, s);
+  else
+    err = launch_gather<E, 1, 0>(out4, x_rows, off, cols, BG, H, W, Cg, Ho,
+                                 Wo, kh, kw, stride, pad, dil, s);
+  return (int)err;
 }
 
 }  // namespace
@@ -258,27 +327,20 @@ int deform_im2col_f32(const void* x, const void* offsets, void* x_rows,
                       void* cols, int B, int C, int H, int W, int G, int Ho,
                       int Wo, int kh, int kw, int stride, int pad, int dil,
                       int vec4, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int Cg = C / G, HW = H * W, BG = B * G;
-  const dim3 tgrid((HW + kT - 1) / kT, (Cg + kT - 1) / kT, BG);
-  deform_im2col_rows_kernel<<<tgrid, kThreads, 0, s>>>(
-      (const float*)x, (float*)x_rows, Cg, HW);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const bool out4 = (Ho * Wo) % 4 == 0;
-  const float* xr = (const float*)x_rows;
-  const float* off = (const float*)offsets;
-  float* out = (float*)cols;
-  if (vec4 && Cg == 64)
-    err = launch_gather<4, 64>(out4, xr, off, out, BG, H, W, Cg, Ho, Wo, kh,
-                               kw, stride, pad, dil, s);
-  else if (vec4 && Cg % 4 == 0)
-    err = launch_gather<4, 0>(out4, xr, off, out, BG, H, W, Cg, Ho, Wo, kh,
-                              kw, stride, pad, dil, s);
-  else
-    err = launch_gather<1, 0>(out4, xr, off, out, BG, H, W, Cg, Ho, Wo, kh,
-                              kw, stride, pad, dil, s);
-  return (int)err;
+  return im2col<float>((const float*)x, (const float*)offsets,
+                       (float*)x_rows, (float*)cols, B, C, H, W, G, Ho, Wo,
+                       kh, kw, stride, pad, dil, vec4, (cudaStream_t)stream);
+}
+
+// The same with x, x_rows and cols bf16 (offsets f32). vec8: Cg % 8 == 0.
+int deform_im2col_bf16(const void* x, const void* offsets, void* x_rows,
+                       void* cols, int B, int C, int H, int W, int G, int Ho,
+                       int Wo, int kh, int kw, int stride, int pad, int dil,
+                       int vec8, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return im2col<bf16>((const bf16*)x, (const float*)offsets, (bf16*)x_rows,
+                      (bf16*)cols, B, C, H, W, G, Ho, Wo, kh, kw, stride, pad,
+                      dil, vec8, (cudaStream_t)stream);
 }
 
 const char* deform_im2col_error_string(int code) {

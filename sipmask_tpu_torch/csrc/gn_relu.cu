@@ -15,7 +15,16 @@
 // affine y = x*sc + bi with sc = rstd*gamma and bi = beta - mean*rstd*gamma
 // (group_norm.py:_affine), and an optional ReLU.
 //
-// Layout: x and y (B, C, H, W) contiguous f32. In NCHW the Cg*H*W elements
+// Element types: f32, or bf16 x, y, dy and dx (gn_relu_bf16,
+// gn_relu_bwd_bf16: the JAX package's compute_dtype="bfloat16" graph, whose
+// group_norm.py:81,154 and :112,221-225 keep f32 sums and statistics and
+// return x's dtype). Every sum, statistic, affine and coefficient is f32
+// either way, and d weight and d bias stay f32; bf16 values are widened as
+// they are loaded and rounded to nearest even once as they are stored, and
+// the backward's ReLU mask is taken from the bf16 x through the f32 affine.
+// The kernels are templates on the element type; a bf16 vector is 8 bytes.
+//
+// Layout: x and y (B, C, H, W) contiguous. In NCHW the Cg*H*W elements
 // of one (image, group) are contiguous, so a group is a flat slab and the
 // TPU's lane tiling (C % 128, whole groups per 128-lane block) has no
 // counterpart here.
@@ -54,10 +63,10 @@
 //     and designated blocks write d weight and d bias;
 //   - both passes read 16-byte vectors where hw % 4 == 0 (P3, P4).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -78,45 +87,89 @@ __device__ __forceinline__ void affine(float mean, float rstd, float gamma,
   bi = __fsub_rn(beta, __fmul_rn(__fmul_rn(mean, rstd), gamma));
 }
 
-// Vectors of VEC floats: float4 when every slab starts on a 16-byte
-// boundary and holds whole vectors (Cg*hw % 4 == 0), else float.
-template <int VEC>
-using VecT = typename std::conditional<VEC == 4, float4, float>::type;
+// A load of VEC (1 or 4) consecutive elements of type E (f32 or bf16):
+// its register type T (float, float4, bf16, or uint2 holding four bf16),
+// unpacked to f32 and packed from f32 (bf16 rounds to nearest even).
+template <typename E, int VEC>
+struct Pack;
+template <>
+struct Pack<float, 1> {
+  using T = float;
+  __device__ static void get(const T& v, float (&f)[1]) { f[0] = v; }
+  __device__ static T put(const float (&f)[1]) { return f[0]; }
+};
+template <>
+struct Pack<float, 4> {
+  using T = float4;
+  __device__ static void get(const T& v, float (&f)[4]) {
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+  }
+  __device__ static T put(const float (&f)[4]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <>
+struct Pack<__nv_bfloat16, 1> {
+  using T = __nv_bfloat16;
+  __device__ static void get(const T& v, float (&f)[1]) {
+    f[0] = __bfloat162float(v);
+  }
+  __device__ static T put(const float (&f)[1]) {
+    return __float2bfloat16_rn(f[0]);
+  }
+};
+template <>
+struct Pack<__nv_bfloat16, 4> {   // 8 bytes: elements 2i, 2i+1 in word i
+  using T = uint2;
+  __device__ static void get(const T& v, float (&f)[4]) {
+    f[0] = __uint_as_float(v.x << 16);
+    f[1] = __uint_as_float(v.x & 0xFFFF0000u);
+    f[2] = __uint_as_float(v.y << 16);
+    f[3] = __uint_as_float(v.y & 0xFFFF0000u);
+  }
+  __device__ static T put(const float (&f)[4]) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+    return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                      *reinterpret_cast<const uint32_t*>(&hi));
+  }
+};
 template <int VEC>
 constexpr int kLoads = kChunk / kThreads / VEC;   // vectors a thread
 
 // Thread t's vectors of chunk [lo, hi) of a slab, lo / VEC + t + i*kThreads
 // for i < N, loaded at once (zero past hi).
-template <int VEC, int N>
-__device__ __forceinline__ void load_chunk(const VecT<VEC>* xs, int64_t e0,
-                                           int64_t e_end,
-                                           VecT<VEC> (&v)[N]) {
+template <typename T, int N>
+__device__ __forceinline__ void load_chunk(const T* xs, int64_t e0,
+                                           int64_t e_end, T (&v)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
-    v[i] = e0 + i * kThreads < e_end ? xs[e0 + i * kThreads] : VecT<VEC>{};
+    v[i] = e0 + i * kThreads < e_end ? xs[e0 + i * kThreads] : T{};
 }
 
 // grid (S, B*G): block s sums elements [s*kChunk, (s+1)*kChunk) of slab bg.
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) gn_stats_kernel(
-    const float* __restrict__ x, float* __restrict__ partial, int64_t slab,
+    const E* __restrict__ x, float* __restrict__ partial, int64_t slab,
     int S) {
+  using L = Pack<E, VEC>;
   const int64_t bg = blockIdx.y;
   const int64_t lo = (int64_t)blockIdx.x * kChunk;
   const int64_t hi = lo + kChunk < slab ? lo + kChunk : slab;
-  VecT<VEC> v[kLoads<VEC>];
-  load_chunk<VEC>(reinterpret_cast<const VecT<VEC>*>(x + bg * slab),
-                  lo / VEC + threadIdx.x, hi / VEC, v);
+  typename L::T v[kLoads<VEC>];
+  load_chunk(reinterpret_cast<const typename L::T*>(x + bg * slab),
+             lo / VEC + threadIdx.x, hi / VEC, v);
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < kLoads<VEC>; ++i) {
+    float f[VEC];
+    L::get(v[i], f);
     if constexpr (VEC == 4) {
-      s1 += (v[i].x + v[i].y) + (v[i].z + v[i].w);
-      s2 += (v[i].x * v[i].x + v[i].y * v[i].y) +
-            (v[i].z * v[i].z + v[i].w * v[i].w);
+      s1 += (f[0] + f[1]) + (f[2] + f[3]);
+      s2 += (f[0] * f[0] + f[1] * f[1]) + (f[2] * f[2] + f[3] * f[3]);
     } else {
-      s1 += v[i];
-      s2 += v[i] * v[i];
+      s1 += f[0];
+      s2 += f[0] * f[0];
     }
   }
   __shared__ float sh1[kThreads / 32], sh2[kThreads / 32];
@@ -159,21 +212,22 @@ struct Channel {
 // grid (S, B*G), the chunks of gn_stats_kernel in the reverse order. Each
 // thread loads its elements of the chunk before it waits for the group's
 // statistics, so that the loads overlap the fold of the partials.
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) gn_apply_kernel(
-    const float* __restrict__ x, const float* __restrict__ gamma,
+    const E* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const float* __restrict__ partial,
-    float* __restrict__ y, float* __restrict__ stats, int64_t slab,
-    int64_t hw, int S, int G, int Cg, float eps, int act) {
+    E* __restrict__ y, float* __restrict__ stats, int64_t slab, int64_t hw,
+    int S, int G, int Cg, float eps, int act) {
+  using L = Pack<E, VEC>;
+  using T = typename L::T;
   __shared__ float stat[2];
   const int64_t bg = gridDim.y - 1 - blockIdx.y;
   const int s = S - 1 - (int)blockIdx.x;
   const int64_t lo = (int64_t)s * kChunk;
   const int64_t hi = lo + kChunk < slab ? lo + kChunk : slab;
   const int64_t e0 = lo / VEC + threadIdx.x, e_end = hi / VEC;
-  VecT<VEC> v[kLoads<VEC>];
-  load_chunk<VEC>(reinterpret_cast<const VecT<VEC>*>(x + bg * slab), e0,
-                  e_end, v);
+  T v[kLoads<VEC>];
+  load_chunk(reinterpret_cast<const T*>(x + bg * slab), e0, e_end, v);
   if (threadIdx.x < 32) {
     float s1 = 0.f, s2 = 0.f;
     for (int k = threadIdx.x; k < S; k += 32) {
@@ -197,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) gn_apply_kernel(
   __syncthreads();
   const float mean = stat[0], rstd = stat[1];
   const int c0 = (int)(bg % G) * Cg;
-  VecT<VEC>* ys = reinterpret_cast<VecT<VEC>*>(y + bg * slab);
+  T* ys = reinterpret_cast<T*>(y + bg * slab);
   Channel ch;
 #pragma unroll
   for (int i = 0; i < kLoads<VEC>; ++i) {
@@ -205,27 +259,23 @@ __global__ void __launch_bounds__(kThreads) gn_apply_kernel(
     if (e >= e_end) break;
     const int64_t q = e * VEC;   // its first element
     ch.at(q, hw, c0, mean, rstd, gamma, beta);
-    if constexpr (VEC == 4) {
-      float in[4] = {v[i].x, v[i].y, v[i].z, v[i].w}, o[4];
-      if (q + 3 < ch.next) {
+    float in[VEC], o[VEC];
+    L::get(v[i], in);
+    if (q + VEC - 1 < ch.next) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) o[k] = fmaf(in[k], ch.sc, ch.bi);
-      } else {   // the vector straddles channels (hw % 4 != 0)
+      for (int k = 0; k < VEC; ++k) o[k] = fmaf(in[k], ch.sc, ch.bi);
+    } else {   // the vector straddles channels (hw % 4 != 0)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          ch.at(q + k, hw, c0, mean, rstd, gamma, beta);
-          o[k] = fmaf(in[k], ch.sc, ch.bi);
-        }
+      for (int k = 0; k < VEC; ++k) {
+        ch.at(q + k, hw, c0, mean, rstd, gamma, beta);
+        o[k] = fmaf(in[k], ch.sc, ch.bi);
       }
-      if (act) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) o[k] = fmaxf(o[k], 0.f);
-      }
-      ys[e] = make_float4(o[0], o[1], o[2], o[3]);
-    } else {
-      const float o = fmaf(v[i], ch.sc, ch.bi);
-      ys[e] = act ? fmaxf(o, 0.f) : o;
     }
+    if (act) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) o[k] = fmaxf(o[k], 0.f);
+    }
+    ys[e] = L::put(o);
   }
 }
 
@@ -267,39 +317,36 @@ __device__ __forceinline__ float gate(float d, float v, float sc, float bi,
 }
 
 // Pass 1, grid (B*C): one block per (image, channel) slab of hw elements,
-// summed in a fixed order. VEC = 4 reads 16-byte vectors (hw % 4 == 0).
-template <int VEC>
+// summed in a fixed order. VEC = 4 reads vectors of 4 elements
+// (hw % 4 == 0).
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) gn_bwd_reduce_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy,
+    const E* __restrict__ x, const E* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ gamma,
     const float* __restrict__ beta, float* __restrict__ r, int64_t hw, int C,
     int G, int act) {
+  using L = Pack<E, VEC>;
+  using T = typename L::T;
   const int64_t bc = blockIdx.x;
   const int c = (int)(bc % C);
   const int64_t bg = (bc / C) * G + c / (C / G);
   float sc, bi;
   affine(stats[bg * 2], stats[bg * 2 + 1], gamma[c], beta[c], sc, bi);
   float r1 = 0.f, r2 = 0.f;
-  if (VEC == 4) {
-    const float4* xs = reinterpret_cast<const float4*>(x + bc * hw);
-    const float4* ds = reinterpret_cast<const float4*>(dy + bc * hw);
-    for (int64_t e = threadIdx.x; e < hw / 4; e += kThreads) {
-      const float4 v = xs[e], d = ds[e];
-      const float d0 = gate(d.x, v.x, sc, bi, act);
-      const float d1 = gate(d.y, v.y, sc, bi, act);
-      const float d2 = gate(d.z, v.z, sc, bi, act);
-      const float d3 = gate(d.w, v.w, sc, bi, act);
-      r1 += (d0 + d1) + (d2 + d3);
-      r2 += (d0 * v.x + d1 * v.y) + (d2 * v.z + d3 * v.w);
-    }
-  } else {
-    const float* xs = x + bc * hw;
-    const float* ds = dy + bc * hw;
-    for (int64_t e = threadIdx.x; e < hw; e += kThreads) {
-      const float v = xs[e];
-      const float d = gate(ds[e], v, sc, bi, act);
-      r1 += d;
-      r2 += d * v;
+  const T* xs = reinterpret_cast<const T*>(x + bc * hw);
+  const T* ds = reinterpret_cast<const T*>(dy + bc * hw);
+  for (int64_t e = threadIdx.x; e < hw / VEC; e += kThreads) {
+    float v[VEC], d[VEC];
+    L::get(xs[e], v);
+    L::get(ds[e], d);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) d[k] = gate(d[k], v[k], sc, bi, act);
+    if constexpr (VEC == 4) {
+      r1 += (d[0] + d[1]) + (d[2] + d[3]);
+      r2 += (d[0] * v[0] + d[1] * v[1]) + (d[2] * v[2] + d[3] * v[3]);
+    } else {
+      r1 += d[0];
+      r2 += d[0] * v[0];
     }
   }
   block_sum2(r1, r2);
@@ -323,13 +370,15 @@ __device__ __forceinline__ float sdx_of(const float* r, int64_t bc,
 // for the same r. Block x = 0 of image 0 also writes the channel's
 // d weight = sum_b sdx and d bias = sum_b r1, summed over the images in
 // order. Then the block streams its chunk of the slab.
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) gn_bwd_apply_kernel(
-    const float* __restrict__ x, const float* __restrict__ dy,
+    const E* __restrict__ x, const E* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ gamma,
     const float* __restrict__ beta, const float* __restrict__ r,
-    float* __restrict__ dx, float* __restrict__ dweight,
+    E* __restrict__ dx, float* __restrict__ dweight,
     float* __restrict__ dbias, int64_t hw, int B, int C, int G, int act) {
+  using L = Pack<E, VEC>;
+  using T = typename L::T;
   __shared__ float co[3];
   const int64_t bc = blockIdx.y;
   const int b = (int)(bc / C), c = (int)(bc % C);
@@ -369,28 +418,77 @@ __global__ void __launch_bounds__(kThreads) gn_bwd_apply_kernel(
   affine(mean, rstd, gamma[c], beta[c], sc, bi);
   const int64_t lo = (int64_t)blockIdx.x * kChunk;
   const int64_t hi = lo + kChunk < hw ? lo + kChunk : hw;
-  if (VEC == 4) {
-    const float4* xs = reinterpret_cast<const float4*>(x + bc * hw);
-    const float4* ds = reinterpret_cast<const float4*>(dy + bc * hw);
-    float4* out = reinterpret_cast<float4*>(dx + bc * hw);
-    for (int64_t e = lo / 4 + threadIdx.x; e < hi / 4; e += kThreads) {
-      const float4 v = xs[e], d = ds[e];
-      float4 o;
-      o.x = a * gate(d.x, v.x, sc, bi, act) + b2 * v.x + c2;
-      o.y = a * gate(d.y, v.y, sc, bi, act) + b2 * v.y + c2;
-      o.z = a * gate(d.z, v.z, sc, bi, act) + b2 * v.z + c2;
-      o.w = a * gate(d.w, v.w, sc, bi, act) + b2 * v.w + c2;
-      out[e] = o;
-    }
-  } else {
-    const float* xs = x + bc * hw;
-    const float* ds = dy + bc * hw;
-    float* out = dx + bc * hw;
-    for (int64_t e = lo + threadIdx.x; e < hi; e += kThreads) {
-      const float v = xs[e];
-      out[e] = a * gate(ds[e], v, sc, bi, act) + b2 * v + c2;
-    }
+  const T* xs = reinterpret_cast<const T*>(x + bc * hw);
+  const T* ds = reinterpret_cast<const T*>(dy + bc * hw);
+  T* out = reinterpret_cast<T*>(dx + bc * hw);
+  for (int64_t e = lo / VEC + threadIdx.x; e < hi / VEC; e += kThreads) {
+    float v[VEC], d[VEC], o[VEC];
+    L::get(xs[e], v);
+    L::get(ds[e], d);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      o[k] = a * gate(d[k], v[k], sc, bi, act) + b2 * v[k] + c2;
+    out[e] = L::put(o);
   }
+}
+
+template <typename E>
+int gn_forward(const E* x, const float* gamma, const float* beta,
+               float* scratch, long long scratch_floats, E* y, int B, int C,
+               long long hw, int G, float eps, int act, int keep_stats,
+               cudaStream_t st) {
+  const int Cg = C / G;
+  const long long slab = (long long)Cg * hw;
+  const int S = (int)((slab + kChunk - 1) / kChunk);
+  const long long n_stats = keep_stats ? (long long)B * G * 2 : 0;
+  if (scratch_floats < n_stats + (long long)B * G * S * 2)
+    return (int)cudaErrorInvalidValue;
+  float* stats = keep_stats ? scratch : nullptr;
+  float* partial = scratch + n_stats;
+  const dim3 grid(S, B * G);
+  // vectors of 4 elements when every slab starts on a vector boundary
+  const bool vec = slab % 4 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)y) % (4 * sizeof(E)) == 0;
+  if (vec)
+    gn_stats_kernel<E, 4><<<grid, kThreads, 0, st>>>(x, partial, slab, S);
+  else
+    gn_stats_kernel<E, 1><<<grid, kThreads, 0, st>>>(x, partial, slab, S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (vec)
+    gn_apply_kernel<E, 4><<<grid, kThreads, 0, st>>>(
+        x, gamma, beta, partial, y, stats, slab, hw, S, G, Cg, eps, act);
+  else
+    gn_apply_kernel<E, 1><<<grid, kThreads, 0, st>>>(
+        x, gamma, beta, partial, y, stats, slab, hw, S, G, Cg, eps, act);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int gn_backward(const E* x, const E* dy, const float* stats,
+                const float* gamma, const float* beta, float* r, E* dx,
+                float* dweight, float* dbias, int B, int C, long long hw,
+                int G, int act, cudaStream_t st) {
+  // vectors of 4 elements when every slab starts on a vector boundary
+  const bool vec = hw % 4 == 0 && ((uintptr_t)x | (uintptr_t)dy |
+                                   (uintptr_t)dx) % (4 * sizeof(E)) == 0;
+  if (vec)
+    gn_bwd_reduce_kernel<E, 4><<<B * C, kThreads, 0, st>>>(
+        x, dy, stats, gamma, beta, r, hw, C, G, act);
+  else
+    gn_bwd_reduce_kernel<E, 1><<<B * C, kThreads, 0, st>>>(
+        x, dy, stats, gamma, beta, r, hw, C, G, act);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long chunks = (hw + kChunk - 1) / kChunk;
+  const dim3 grid((unsigned)(chunks > 0 ? chunks : 1), B * C);
+  if (vec)
+    gn_bwd_apply_kernel<E, 4><<<grid, kThreads, 0, st>>>(
+        x, dy, stats, gamma, beta, r, dx, dweight, dbias, hw, B, C, G, act);
+  else
+    gn_bwd_apply_kernel<E, 1><<<grid, kThreads, 0, st>>>(
+        x, dy, stats, gamma, beta, r, dx, dweight, dbias, hw, B, C, G, act);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -406,33 +504,23 @@ int gn_relu_f32(const void* x, const void* gamma, const void* beta,
                 void* scratch, long long scratch_floats, void* y, int B,
                 int C, long long hw, int G, float eps, int act,
                 int keep_stats, void* stream) {
-  const int Cg = C / G;
-  const long long slab = (long long)Cg * hw;
-  const int S = (int)((slab + kChunk - 1) / kChunk);
-  const long long n_stats = keep_stats ? (long long)B * G * 2 : 0;
-  if (scratch_floats < n_stats + (long long)B * G * S * 2)
-    return (int)cudaErrorInvalidValue;
-  float* stats = keep_stats ? (float*)scratch : nullptr;
-  float* partial = (float*)scratch + n_stats;
-  const dim3 grid(S, B * G);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  const float *gf = (const float*)gamma, *bf = (const float*)beta;
-  // 16-byte vectors when every slab starts on a 16-byte boundary
-  const bool vec = slab % 4 == 0 && ((uintptr_t)x | (uintptr_t)y) % 16 == 0;
-  if (vec)
-    gn_stats_kernel<4><<<grid, kThreads, 0, st>>>(xf, partial, slab, S);
-  else
-    gn_stats_kernel<1><<<grid, kThreads, 0, st>>>(xf, partial, slab, S);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (vec)
-    gn_apply_kernel<4><<<grid, kThreads, 0, st>>>(
-        xf, gf, bf, partial, (float*)y, stats, slab, hw, S, G, Cg, eps, act);
-  else
-    gn_apply_kernel<1><<<grid, kThreads, 0, st>>>(
-        xf, gf, bf, partial, (float*)y, stats, slab, hw, S, G, Cg, eps, act);
-  return (int)cudaGetLastError();
+  return gn_forward<float>((const float*)x, (const float*)gamma,
+                           (const float*)beta, (float*)scratch,
+                           scratch_floats, (float*)y, B, C, hw, G, eps, act,
+                           keep_stats, (cudaStream_t)stream);
+}
+
+// The same with x and y bf16 (gamma, beta, the statistics and the sums
+// f32).
+int gn_relu_bf16(const void* x, const void* gamma, const void* beta,
+                 void* scratch, long long scratch_floats, void* y, int B,
+                 int C, long long hw, int G, float eps, int act,
+                 int keep_stats, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return gn_forward<bf16>((const bf16*)x, (const float*)gamma,
+                          (const float*)beta, (float*)scratch,
+                          scratch_floats, (bf16*)y, B, C, hw, G, eps, act,
+                          keep_stats, (cudaStream_t)stream);
 }
 
 // K4b: dx (B, C, H, W), dweight and dbias (C) of the forward's (mean,
@@ -443,32 +531,25 @@ int gn_relu_bwd_f32(const void* x, const void* dy, const void* stats,
                     const void* gamma, const void* beta, void* r, void* dx,
                     void* dweight, void* dbias, int B, int C, long long hw,
                     int G, int act, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *xf = (const float*)x, *dyf = (const float*)dy;
-  const float *sf = (const float*)stats, *gf = (const float*)gamma;
-  const float* bf = (const float*)beta;
-  // 16-byte vectors when every slab starts on a 16-byte boundary
-  const bool vec = hw % 4 == 0 && ((uintptr_t)x | (uintptr_t)dy |
-                                   (uintptr_t)dx) % 16 == 0;
-  if (vec)
-    gn_bwd_reduce_kernel<4><<<B * C, kThreads, 0, st>>>(
-        xf, dyf, sf, gf, bf, (float*)r, hw, C, G, act);
-  else
-    gn_bwd_reduce_kernel<1><<<B * C, kThreads, 0, st>>>(
-        xf, dyf, sf, gf, bf, (float*)r, hw, C, G, act);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long chunks = (hw + kChunk - 1) / kChunk;
-  const dim3 grid((unsigned)(chunks > 0 ? chunks : 1), B * C);
-  if (vec)
-    gn_bwd_apply_kernel<4><<<grid, kThreads, 0, st>>>(
-        xf, dyf, sf, gf, bf, (const float*)r, (float*)dx, (float*)dweight,
-        (float*)dbias, hw, B, C, G, act);
-  else
-    gn_bwd_apply_kernel<1><<<grid, kThreads, 0, st>>>(
-        xf, dyf, sf, gf, bf, (const float*)r, (float*)dx, (float*)dweight,
-        (float*)dbias, hw, B, C, G, act);
-  return (int)cudaGetLastError();
+  return gn_backward<float>((const float*)x, (const float*)dy,
+                            (const float*)stats, (const float*)gamma,
+                            (const float*)beta, (float*)r, (float*)dx,
+                            (float*)dweight, (float*)dbias, B, C, hw, G, act,
+                            (cudaStream_t)stream);
+}
+
+// The same with x, dy and dx bf16 (stats, gamma, beta, r, dweight and
+// dbias f32).
+int gn_relu_bwd_bf16(const void* x, const void* dy, const void* stats,
+                     const void* gamma, const void* beta, void* r, void* dx,
+                     void* dweight, void* dbias, int B, int C, long long hw,
+                     int G, int act, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return gn_backward<bf16>((const bf16*)x, (const bf16*)dy,
+                           (const float*)stats, (const float*)gamma,
+                           (const float*)beta, (float*)r, (bf16*)dx,
+                           (float*)dweight, (float*)dbias, B, C, hw, G, act,
+                           (cudaStream_t)stream);
 }
 
 const char* gn_relu_error_string(int code) {

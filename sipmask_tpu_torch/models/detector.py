@@ -1,10 +1,13 @@
 """SipMask detector: backbone -> neck -> head, the port of
 ``sipmask_tpu/models/detector.py`` for the ResNet + FPN models, SipMask++
 (DCN stages, rescoring) and SipMask-VIS (the track branch, a reference
-frame in training) included."""
+frame in training) included. ``compute_dtype`` "float32" runs every
+model; "bfloat16" the models without DCN stages, rescoring or a track
+branch (the flagship and the real-time presets), with f32 parameters."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .fpn import FPN
@@ -20,16 +23,24 @@ class SipMask(nn.Module):
         if (b.type != "resnet" or b.style != "caffe" or b.groups != 1
                 or f.type != "fpn" or not f.add_extra_convs
                 or f.extra_convs_on_inputs or not f.relu_before_extra_convs
-                or cfg.compute_dtype != "float32"):
+                or cfg.compute_dtype not in ("float32", "bfloat16")):
             raise NotImplementedError(
-                "the port runs float32 caffe-ResNet + FPN (extra levels from "
-                "P5) models without ResNeXt groups")
+                "the port runs float32 or bfloat16 caffe-ResNet + FPN (extra "
+                "levels from P5) models without ResNeXt groups")
+        if cfg.compute_dtype == "bfloat16" and (
+                any(b.stage_with_dcn) or cfg.head.rescoring
+                or cfg.head.track):
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' is ported for ResNet + FPN models "
+                "without DCN stages, rescoring or a track branch; SipMask++ "
+                "and SipMask-VIS in bfloat16 are ROADMAP queue 1 item 5")
         self.cfg = cfg
+        dtype = getattr(torch, cfg.compute_dtype)
         self.backbone = ResNet(b.depth, b.out_indices, b.frozen_stages,
-                               b.stage_with_dcn, b.dcn_deform_groups)
+                               b.stage_with_dcn, b.dcn_deform_groups, dtype)
         self.neck = FPN(f.in_channels, f.out_channels, f.start_level,
-                        f.num_outs)
-        self.bbox_head = SipMaskHead(cfg.head)
+                        f.num_outs, dtype)
+        self.bbox_head = SipMaskHead(cfg.head, dtype)
 
     def extract_feats(self, images):
         return self.neck(self.backbone(images))

@@ -1,6 +1,7 @@
 """Feature Pyramid Network P3..P7 (NCHW), the port of
 ``sipmask_tpu/models/fpn.py`` in SipMask's configuration: laterals on C3..C5,
-a nearest top-down path, P6 from P5's output and P7 from relu(P6)."""
+a nearest top-down path, P6 from P5's output and P7 from relu(P6), in the
+compute dtype ``dtype`` (``layers.conv2d``)."""
 
 from __future__ import annotations
 
@@ -15,15 +16,17 @@ from .layers import ConvModule, resize_nearest
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
                  out_channels: int = 256, start_level: int = 1,
-                 num_outs: int = 5):
+                 num_outs: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.start_level, self.num_outs = start_level, num_outs
         used = in_channels[start_level:]
         self.lateral_convs = nn.ModuleList(
-            ConvModule(c, out_channels, 1, act=False) for c in used)
+            ConvModule(c, out_channels, 1, act=False, dtype=dtype)
+            for c in used)
         self.fpn_convs = nn.ModuleList(
             ConvModule(out_channels, out_channels, 3,
-                       stride=1 if i < len(used) else 2, act=False)
+                       stride=1 if i < len(used) else 2, act=False,
+                       dtype=dtype)
             for i in range(num_outs))
 
     def forward(self, inputs):

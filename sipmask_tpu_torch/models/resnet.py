@@ -9,6 +9,9 @@ the SipMask fork of mmdet does: R101 has 2 + 8 + 1 of them in stages 2-4.
 Names follow mmdet's ResNet (``conv1``, ``bn1``, ``layer{s}.{b}.conv{1,2,3}``,
 ``downsample.{0,1}``; a DCN conv2 has ``weight`` and
 ``conv_offset.{weight,bias}``).
+
+``dtype`` is the compute dtype (``layers.conv2d``): the stem casts the f32
+images to it, and every conv, ReLU, pool and residual sum after runs in it.
 """
 
 from __future__ import annotations
@@ -49,8 +52,10 @@ class DeformConvPack(nn.Module):
 class Bottleneck(nn.Module):
     def __init__(self, in_channels: int, planes: int, stride: int = 1,
                  downsample: bool = False, with_dcn: bool = False,
-                 dcn_deform_groups: int = 1):
+                 dcn_deform_groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, planes, 1, stride, bias=False)
         self.bn1 = FrozenBatchNorm2d(planes)
         self.conv2 = (DeformConvPack(planes, planes, dcn_deform_groups)
@@ -64,16 +69,18 @@ class Bottleneck(nn.Module):
             FrozenBatchNorm2d(planes * 4)) if downsample else None)
 
     def forward(self, x):
-        out = torch.relu(conv_folded_bn(x, self.conv1, self.bn1))
+        dt = self.dtype
+        out = torch.relu(conv_folded_bn(x, self.conv1, self.bn1, dt))
         if isinstance(self.conv2, DeformConvPack):
             scale, bias = self.bn2.affine()
             out = self.conv2(out) * scale[:, None, None] + bias[:, None, None]
             out = torch.relu(out)
         else:
-            out = torch.relu(conv_folded_bn(out, self.conv2, self.bn2))
-        out = conv_folded_bn(out, self.conv3, self.bn3)
+            out = torch.relu(conv_folded_bn(out, self.conv2, self.bn2, dt))
+        out = conv_folded_bn(out, self.conv3, self.bn3, dt)
         identity = (x if self.downsample is None else
-                    conv_folded_bn(x, self.downsample[0], self.downsample[1]))
+                    conv_folded_bn(x, self.downsample[0], self.downsample[1],
+                                   dt))
         return torch.relu(out + identity)
 
 
@@ -82,8 +89,10 @@ class ResNet(nn.Module):
                  out_indices: Tuple[int, ...] = (0, 1, 2, 3),
                  frozen_stages: int = 1,
                  stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
-                 dcn_deform_groups: int = 1):
+                 dcn_deform_groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.out_indices = out_indices
         self.frozen_stages = frozen_stages
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -97,7 +106,7 @@ class ResNet(nn.Module):
                     in_ch, planes, stride=(1 if stage == 0 or b else 2),
                     downsample=b == 0,
                     with_dcn=stage_with_dcn[stage] and b % 3 == 0,
-                    dcn_deform_groups=dcn_deform_groups))
+                    dcn_deform_groups=dcn_deform_groups, dtype=dtype))
                 in_ch = planes * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         # frozen_stages (mmdet's _freeze_stages): the stem and the first
@@ -110,7 +119,7 @@ class ResNet(nn.Module):
     def forward(self, x):
         """x: (B, 3, H, W) normalized BGR. Returns the out_indices of
         C2..C5."""
-        x = torch.relu(conv_folded_bn(x, self.conv1, self.bn1))
+        x = torch.relu(conv_folded_bn(x, self.conv1, self.bn1, self.dtype))
         x = F.max_pool2d(x, 3, 2, 1)
         if self.frozen_stages >= 1:
             x = x.detach()

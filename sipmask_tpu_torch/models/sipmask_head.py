@@ -16,6 +16,12 @@ into the JAX package's NHWC-flattened order):
   feat_masks:   (B, nb, H/2, W/2) basis masks on the stride-2 grid
   track_feats:  (B, 512, H/8, W/8) embeddings, when ``cfg.track``
   track_feats_ref: the same for the reference frame (VIS training)
+
+In the compute dtype ``dtype`` (``layers.conv2d``) every output is in it but
+``bbox_preds``, which is upcast to f32 before the stride multiply, as in
+JAX (``sipmask_head.py:143-147``); FeatureAlign's offsets are an f32 conv on
+the upcast box prediction, and the deform weight is cast to x's dtype
+(``sipmask_head.py:45-57``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 from torch import nn
 
 from ..ops import deform_conv as dc_ops
-from .layers import ConvModule, GroupNorm32, Scale, resize_bilinear
+from .layers import ConvModule, GroupNorm32, Scale, conv, resize_bilinear
 
 
 class FeatureAlign(nn.Module):
@@ -45,24 +51,31 @@ class FeatureAlign(nn.Module):
                      if with_norm else None)
 
     def forward(self, x, shape):
-        offsets = self.conv_offset(shape.detach())
-        x = dc_ops.deform_conv2d(x, offsets, self.conv_adaption.weight,
+        # f32 offsets from the bf16 box prediction, as in JAX
+        offsets = self.conv_offset(
+            shape.detach().to(self.conv_offset.weight.dtype))
+        x = dc_ops.deform_conv2d(x, offsets,
+                                 self.conv_adaption.weight.to(x.dtype),
                                  padding=1, deform_groups=self.deform_groups)
         return self.norm(x) if self.norm is not None else torch.relu(x)
 
 
 class SipMaskHead(nn.Module):
-    def __init__(self, cfg):
-        """cfg: a ``HeadConfig`` (``sipmask_tpu_torch.config``)."""
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
+        """cfg: a ``HeadConfig`` (``sipmask_tpu_torch.config``); dtype: the
+        compute dtype."""
         super().__init__()
         c = self.cfg = cfg
+        self.dtype = dtype
         feat = c.feat_channels
         self.cls_convs = nn.ModuleList(
             ConvModule(c.in_channels if i == 0 else feat, feat, 3,
-                       norm=c.norm) for i in range(c.stacked_convs - 1))
+                       norm=c.norm, dtype=dtype)
+            for i in range(c.stacked_convs - 1))
         self.reg_convs = nn.ModuleList(
             ConvModule(c.in_channels if i == 0 else feat, feat, 3,
-                       norm=c.norm) for i in range(c.stacked_convs))
+                       norm=c.norm, dtype=dtype)
+            for i in range(c.stacked_convs))
         self.fcos_cls = nn.Conv2d(feat, c.num_classes, 3, padding=1)
         self.fcos_reg = nn.Conv2d(feat, 4, 3, padding=1)
         self.fcos_centerness = nn.Conv2d(feat, 1, 3, padding=1)
@@ -76,7 +89,8 @@ class SipMaskHead(nn.Module):
             # from the three levels' 3*feat channels to 512
             self.track_convs = nn.ModuleList(
                 ConvModule(c.in_channels if i == 0 else feat, feat, 3,
-                           norm=c.norm) for i in range(c.stacked_convs - 1))
+                           norm=c.norm, dtype=dtype)
+                for i in range(c.stacked_convs - 1))
             tower = feat if c.stacked_convs > 1 else c.in_channels
             self.sipmask_track = nn.Conv2d(tower * 3, 512, 1)
         if c.rescoring:
@@ -85,7 +99,8 @@ class SipMaskHead(nn.Module):
             # sipmask_head.py:200-219)
             chans = (1, 16, 16, 16, 32, 64, 128)
             self.convs_scoring = nn.ModuleList(
-                ConvModule(chans[i], chans[i + 1], 3, stride=2, padding=0)
+                ConvModule(chans[i], chans[i + 1], 3, stride=2, padding=0,
+                           dtype=dtype)
                 for i in range(6))
             self.mask_scoring = nn.Conv2d(128, c.num_classes, 1)
 
@@ -98,18 +113,19 @@ class SipMaskHead(nn.Module):
         frames = [feats] if feats_ref is None else [feats, feats_ref]
         track_ins = [[] for _ in frames] if self.cfg.track else []
         h0, w0 = feats[0].shape[2:]
+        dt = self.dtype
         for lvl, (x, stride) in enumerate(zip(feats, self.cfg.strides)):
             cls_feat, reg_feat = x, x
-            for conv in self.cls_convs:
-                cls_feat = conv(cls_feat)
-            for conv in self.reg_convs:
-                reg_feat = conv(reg_feat)
-            bbox_pred = self.scales[lvl](self.fcos_reg(reg_feat))
+            for m in self.cls_convs:
+                cls_feat = m(cls_feat)
+            for m in self.reg_convs:
+                reg_feat = m(reg_feat)
+            bbox_pred = self.scales[lvl](conv(reg_feat, self.fcos_reg, dt))
             cls_feat = self.feat_align(cls_feat, bbox_pred)
-            cls_scores.append(self.fcos_cls(cls_feat))
-            centernesses.append(self.fcos_centerness(reg_feat))
+            cls_scores.append(conv(cls_feat, self.fcos_cls, dt))
+            centernesses.append(conv(reg_feat, self.fcos_centerness, dt))
             bbox_preds.append(bbox_pred.float() * stride)
-            cof_preds.append(self.sip_cof(cls_feat))
+            cof_preds.append(conv(cls_feat, self.sip_cof, dt))
             if lvl < 3:
                 basis_feats.append(reg_feat if lvl == 0 else
                                    resize_bilinear(reg_feat, h0, w0))
@@ -117,27 +133,28 @@ class SipMaskHead(nn.Module):
                 # level 0 (the reference's VIS head)
                 for ins, fr in zip(track_ins, frames):
                     t = fr[lvl]
-                    for conv in self.track_convs:
-                        t = conv(t)
+                    for m in self.track_convs:
+                        t = m(t)
                     ins.append(t if lvl == 0 else
                                resize_bilinear(t, h0, w0))
         # basis branch: concat P3-P5 reg feats, 1x1 -> 512, relu, 3x3 -> nb,
         # relu, upsample x4 to the stride-2 grid
         fm = torch.cat(basis_feats, 1)
-        fm = torch.relu(self.sip_mask_lat(torch.relu(self.sip_mask_lat0(fm))))
+        fm = torch.relu(conv(torch.relu(conv(fm, self.sip_mask_lat0, dt)),
+                             self.sip_mask_lat, dt))
         feat_masks = resize_bilinear(fm, h0 * 4, w0 * 4)
         out = dict(cls_scores=cls_scores, bbox_preds=bbox_preds,
                    centernesses=centernesses, cof_preds=cof_preds,
                    feat_masks=feat_masks)
         # track branch: the three levels concatenated, 1x1 to 512
         for key, ins in zip(("track_feats", "track_feats_ref"), track_ins):
-            out[key] = self.sipmask_track(torch.cat(ins, 1))
+            out[key] = conv(torch.cat(ins, 1), self.sipmask_track, dt)
         return out
 
     def rescore(self, masks):
         """SipMask++ mask rescoring: masks (N, 1, h, w), detached assembled
         masks with h, w >= 127 -> (N, num_classes) predicted mask IoU."""
         x = masks.to(self.mask_scoring.weight.dtype)
-        for conv in self.convs_scoring:
-            x = conv(x)
-        return torch.relu(self.mask_scoring(x)).amax((2, 3))
+        for m in self.convs_scoring:
+            x = m(x)
+        return torch.relu(conv(x, self.mask_scoring, self.dtype)).amax((2, 3))

@@ -35,6 +35,15 @@ takes the kc-major route (``deform_conv.py:139-146``), while layer3 and
 layer4 take the sampled one; the port runs all three on the sampled route:
 the same function, summed in another order.
 
+**bf16** (the JAX package's ``compute_dtype="bfloat16"``, FeatureAlign's
+route only): x and the weight bf16, offsets f32. K1 gives bf16 cols, the
+tap contraction is a bf16 ``torch.matmul`` with f32 sums rounded to bf16
+(JAX's ``preferred_element_type=jnp.float32`` then ``astype``,
+``deform_conv.py:98-108``; the callers turn off cuBLAS's reduced-precision
+bf16 reductions), and K2 takes bf16 operands: dsampled rounded to bf16,
+dW in f32, dX summed in f32 and rounded once, d offsets in f32
+(:func:`deform_conv_backward_plain` states that arithmetic).
+
 Layouts (NCHW, f32): x (B, C, H, W); offsets (B, G*K*2, Ho, Wo) in the CUDA
 layout ([dy, dx] per tap, group-major), K = kh*kw; mask (B, G*K, Ho, Wo);
 weight (O, C, kh, kw); w2 (O, G*K*Cg), the weight in the row order of
@@ -82,7 +91,30 @@ def deform_conv_backward_plain(x, offsets, w2, dy, kernel_size=(3, 3),
                                dilation: int = 1, deform_groups: int = 1):
     """Plain PyTorch K2: (dx, d offsets, d w2) of ``w2 @ cols`` with the
     cotangent dy (B, O, Ho, Wo), by autograd through
-    :func:`deform_im2col_plain`."""
+    :func:`deform_im2col_plain`.
+
+    bf16 x, w2 and dy (f32 offsets) take the kernel's arithmetic, as
+    ``deform_gather._bwd_conv_kernel`` rounds: dsampled = W^T·dy summed in
+    f32 and rounded to bf16, then dX and d offsets by autograd in f32
+    through the f32 sampling of x with that cotangent, dX rounded once to
+    bf16; d w2 = sum_b dy_b·cols_b^T in f32 (f32, unrounded) with cols the
+    bf16 sampled values."""
+    if x.dtype == torch.bfloat16:
+        b, o = dy.shape[:2]
+        cols = deform_sample.deform_im2col_plain(
+            x, offsets, kernel_size, stride, padding, dilation,
+            deform_groups).float()
+        dyf = dy.reshape(b, o, -1).float()
+        dsamp = torch.matmul(w2.float().t(), dyf).to(torch.bfloat16)
+        dw2 = torch.matmul(dyf, cols.transpose(1, 2)).sum(0)
+        with torch.enable_grad():
+            xs, off = (t.detach().float().requires_grad_(True)
+                       for t in (x, offsets))
+            cols32 = deform_sample.deform_im2col_plain(
+                xs, off, kernel_size, stride, padding, dilation,
+                deform_groups)
+            dx, doff = torch.autograd.grad(cols32, (xs, off), dsamp.float())
+        return dx.to(torch.bfloat16), doff, dw2
     with torch.enable_grad():
         xs, off, w = (t.detach().requires_grad_(True)
                       for t in (x, offsets, w2))
@@ -114,13 +146,13 @@ def tf32_split_matmul_plain(a, b):
 
 def _lib():
     lib = native.load("deform_col2im")
-    fn = lib.deform_conv_bwd_f32
-    if fn.argtypes is None:
+    if lib.deform_conv_bwd_f32.argtypes is None:
         lib.deform_conv_bwd_partial_floats.restype = ctypes.c_longlong
         lib.deform_conv_bwd_partial_floats.argtypes = [ctypes.c_int] * 4
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
-            ctypes.c_void_p]
+        for fn in (lib.deform_conv_bwd_f32, lib.deform_conv_bwd_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
+                ctypes.c_void_p]
     return lib
 
 
@@ -130,8 +162,10 @@ def deform_conv_backward(x, offsets, cols, w2, dy, kernel_size=(3, 3),
     """K2: (dx, d offsets, d w2) of ``out = w2 @ cols`` (B, O, P) with
     ``cols = deform_im2col(x, offsets)``, for the cotangent dy
     (B, O, Ho, Wo). CPU tensors take :func:`deform_conv_backward_plain`;
-    CUDA tensors launch the kernels (contiguous f32 only) and raise on
-    anything they do not take."""
+    CUDA tensors launch the kernels (contiguous; f32, or x, cols, w2 and dy
+    bf16 with f32 offsets, which gives bf16 dx and f32 d offsets and
+    d w2) and raise on anything they do not take. f32 calls count in
+    ``launches``, bf16 calls in ``bf16_launches``."""
     if x.device.type == "cpu":
         return deform_conv_backward_plain(x, offsets, w2, dy, kernel_size,
                                           stride, padding, dilation,
@@ -149,8 +183,13 @@ def deform_conv_backward(x, offsets, cols, w2, dy, kernel_size=(3, 3),
                          f"{tuple(x.shape)} and offsets "
                          f"{tuple(offsets.shape)}")
     ts = (x, offsets, cols, w2, dy)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("float32 only")
+    bf16 = x.dtype == torch.bfloat16
+    if offsets.dtype != torch.float32 or any(
+            t.dtype != x.dtype for t in (cols, w2, dy)) or x.dtype not in (
+                torch.float32, torch.bfloat16):
+        raise TypeError(f"x, cols, w2 and dy float32 or bfloat16 and "
+                        f"offsets float32, got "
+                        f"{[t.dtype for t in ts]}")
     if any(t.device != x.device for t in ts):
         raise ValueError("all inputs must be on one device")
     if not all(t.is_contiguous() for t in ts):
@@ -158,31 +197,37 @@ def deform_conv_backward(x, offsets, cols, w2, dy, kernel_size=(3, 3),
     if b * g > 65535 or -(-p // 128) > 65535:
         raise ValueError(f"grid too large for B*G={b * g}, P={p}")
     lib = _lib()
-    # scratch: x and dX as channels-last rows, dcols p-major per group,
-    # the dW2 partials
-    x_rows, dx_rows = torch.empty_like(x), torch.empty_like(x)
+    # scratch: x and dX as channels-last rows (dX's f32), dcols p-major per
+    # group, the dW2 partials
+    x_rows = torch.empty_like(x)
+    dx_rows = torch.empty_like(x, dtype=torch.float32)
     dcols = torch.empty((b * g, p, k * (c // g)), device=x.device,
-                        dtype=torch.float32)
+                        dtype=x.dtype)
     partial = torch.empty((lib.deform_conv_bwd_partial_floats(b, o, kc, p),),
                           device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
     doffsets = torch.empty_like(offsets)
-    dw2 = torch.empty_like(w2)
+    dw2 = torch.empty_like(w2, dtype=torch.float32)
     if p == 0 or b == 0:
         return dx.zero_(), doffsets, dw2.zero_()
+    launch = lib.deform_conv_bwd_bf16 if bf16 else lib.deform_conv_bwd_f32
     with native.device_guard(x.device):
-        code = lib.deform_conv_bwd_f32(
+        code = launch(
             x.data_ptr(), offsets.data_ptr(), cols.data_ptr(), w2.data_ptr(),
             dy.data_ptr(), x_rows.data_ptr(), dcols.data_ptr(),
             partial.data_ptr(), dx_rows.data_ptr(), dx.data_ptr(),
             doffsets.data_ptr(), dw2.data_ptr(), b, c, h, w, g, ho, wo, kh,
             kw, stride, padding, dilation, o, native.stream_ptr(x.device))
     native.check_launch(lib, "deform_col2im", code)
-    deform_conv_backward.launches += 1
+    if bf16:
+        deform_conv_backward.bf16_launches += 1
+    else:
+        deform_conv_backward.launches += 1
     return dx, doffsets, dw2
 
 
 deform_conv_backward.launches = 0
+deform_conv_backward.bf16_launches = 0
 
 
 class _DeformConv(torch.autograd.Function):
@@ -208,12 +253,13 @@ def deform_conv2d(x, offsets, weight, *, stride: int = 1, padding: int = 1,
     """Deformable conv, NCHW, differentiable in x, offsets and weight.
 
     Args:
-      x: (B, C, H, W) f32.
+      x: (B, C, H, W) f32, or bf16 (then the weight is bf16 too and the
+        offsets f32, as FeatureAlign casts them in the JAX package).
       offsets: (B, G*K*2, Ho, Wo) in the CUDA layout ([dy, dx] per tap,
         group-major), K = kh*kw.
       weight: (O, C, kh, kw) OIHW.
     Returns:
-      (B, O, Ho, Wo).
+      (B, O, Ho, Wo) in x's dtype.
     """
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offsets, weight, stride=stride,

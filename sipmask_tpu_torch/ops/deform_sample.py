@@ -17,7 +17,8 @@ forward kernels (``_sample_pallas_sep``, ``_sample_pallas``) and its dense
 tiers; its backward :func:`deform_rows_backward` replaces
 ``_sample_pallas_bwd`` (K5c). :func:`deform_rows_plain` is ``sample_ref``.
 
-Layouts (f32):
+Layouts (f32; K1 also takes a bf16 x, with f32 offsets, and gives bf16
+cols, as the JAX package's compute_dtype="bfloat16" graph samples):
   K1: x        (B, C, H, W); deformable group g owns channels g*Cg .. (g+1)*Cg-1.
       offsets  (B, G*K*2, Ho, Wo) in the CUDA layout: channel g*2K + 2*(i*kw+j)
                holds dy and the next one dx, for tap (i, j) of group g.
@@ -37,6 +38,10 @@ import torch
 from . import native
 
 _FLOATS = (torch.float32, torch.float64)
+# (x, offsets) dtypes K1's plain version takes; the kernels take the first
+# and the last
+_K1_DTYPES = ((torch.float32, torch.float32), (torch.float64, torch.float64),
+              (torch.bfloat16, torch.float32))
 
 
 def out_size(h: int, w: int, kh: int, kw: int, stride: int, padding: int,
@@ -58,10 +63,10 @@ def _check(x, offsets, kh, kw, stride, padding, dilation, deform_groups):
     if tuple(offsets.shape) != (b, g * k * 2, ho, wo):
         raise ValueError(f"offsets {tuple(offsets.shape)} != "
                          f"{(b, g * k * 2, ho, wo)}")
-    if x.dtype not in _FLOATS or offsets.dtype != x.dtype:
-        raise TypeError(f"float32 or float64 (the plain versions; the "
-                        f"kernels take float32), got {x.dtype} and "
-                        f"{offsets.dtype}")
+    if (x.dtype, offsets.dtype) not in _K1_DTYPES:
+        raise TypeError(f"x and offsets float32, float64 (the plain "
+                        f"versions), or x bfloat16 with float32 offsets, got "
+                        f"{x.dtype} and {offsets.dtype}")
     if x.device != offsets.device:
         raise ValueError(f"x on {x.device}, offsets on {offsets.device}")
     return b, c, h, w, g, k, ho, wo
@@ -96,11 +101,17 @@ def deform_im2col_plain(x, offsets, kernel_size=(3, 3), stride: int = 1,
                         deform_groups: int = 1):
     """Plain PyTorch K1: four gathers, each corner zero outside the map.
 
-    Same arithmetic, in the same order, as ``deform_gather.sample_ref``.
+    Same arithmetic, in the same order, as ``deform_gather.sample_ref``. A
+    bf16 x is sampled in f32 and each value rounded once to bf16, as the
+    kernel does.
     """
     kh, kw = kernel_size
     b, c, h, w, g, k, ho, wo = _check(x, offsets, kh, kw, stride, padding,
                                       dilation, deform_groups)
+    if x.dtype == torch.bfloat16:
+        return deform_im2col_plain(x.float(), offsets, kernel_size, stride,
+                                   padding, dilation, deform_groups
+                                   ).to(torch.bfloat16)
     cg, p = c // g, ho * wo
     py, px = sample_positions(offsets, kh, kw, stride, padding, dilation, g)
     y0, x0 = torch.floor(py), torch.floor(px)
@@ -183,13 +194,13 @@ def im2col_schedule(b: int, g: int, cg: int, k: int, p: int, hw: int):
 
 def _lib():
     lib = native.load("deform_im2col")
-    fn = lib.deform_im2col_f32
-    if fn.argtypes is None:
+    if lib.deform_im2col_f32.argtypes is None:
         lib.deform_im2col_smem_bytes.restype = ctypes.c_int
         lib.deform_im2col_smem_bytes.argtypes = [ctypes.c_int] * 2
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [
-            ctypes.c_void_p]
+        for fn in (lib.deform_im2col_f32, lib.deform_im2col_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [
+                ctypes.c_void_p]
     return lib
 
 
@@ -199,12 +210,14 @@ def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
     """Deformable im2col: (x, offsets) -> cols, layouts in the module note.
 
     CPU tensors take :func:`deform_im2col_plain`; CUDA tensors launch the
-    K1 kernels (contiguous f32 only: a transpose of x into channels-last
-    rows, a scratch the size of x, then the gather; two device kernels a
-    call) and raise on anything they do not take. The kernels record no
-    gradient, so on CUDA the call also raises when one is wanted: the
-    deformable convolution differentiates through
-    ``deform_conv.deform_conv2d``, whose backward is kernel K2.
+    K1 kernels (contiguous; f32, or a bf16 x with f32 offsets, which gives
+    bf16 cols: a transpose of x into channels-last rows, a scratch the size
+    of x, then the gather; two device kernels a call) and raise on anything
+    they do not take. f32 calls count in ``launches``, bf16 calls in
+    ``bf16_launches``. The kernels record no gradient, so on CUDA the call
+    also raises when one is wanted: the deformable convolution
+    differentiates through ``deform_conv.deform_conv2d``, whose backward is
+    kernel K2.
     """
     if x.device.type == "cpu":
         return deform_im2col_plain(x, offsets, kernel_size, stride, padding,
@@ -218,8 +231,11 @@ def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
     kh, kw = kernel_size
     b, c, h, w, g, k, ho, wo = _check(x, offsets, kh, kw, stride, padding,
                                       dilation, deform_groups)
-    if x.dtype != torch.float32:
-        raise TypeError(f"the K1 kernel takes float32, got {x.dtype}")
+    if offsets.dtype != torch.float32:
+        raise TypeError(f"the K1 kernels take float32 or bfloat16 x with "
+                        f"float32 offsets, got {x.dtype} and "
+                        f"{offsets.dtype}")
+    bf16 = x.dtype == torch.bfloat16
     if not (x.is_contiguous() and offsets.is_contiguous()):
         raise ValueError("x and offsets must be contiguous")
     cg = c // g
@@ -231,22 +247,28 @@ def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
         raise ValueError(f"{k} taps of {cg} channels exceed the kernel's "
                          f"shared memory")
     cols = torch.empty((b, g * k * cg, ho * wo), device=x.device,
-                       dtype=torch.float32)
+                       dtype=x.dtype)
     if cols.numel() == 0:
         return cols
-    x_rows = torch.empty((b * g, h * w, cg), device=x.device,
-                         dtype=torch.float32)
+    x_rows = torch.empty((b * g, h * w, cg), device=x.device, dtype=x.dtype)
+    # 16-byte gathers: 4 f32 or 8 bf16 channels a vector
+    vec = int(cg % (8 if bf16 else 4) == 0)
+    launch = lib.deform_im2col_bf16 if bf16 else lib.deform_im2col_f32
     with native.device_guard(x.device):
-        code = lib.deform_im2col_f32(
+        code = launch(
             x.data_ptr(), offsets.data_ptr(), x_rows.data_ptr(),
             cols.data_ptr(), b, c, h, w, g, ho, wo, kh, kw, stride, padding,
-            dilation, int(cg % 4 == 0), native.stream_ptr(x.device))
+            dilation, vec, native.stream_ptr(x.device))
     native.check_launch(lib, "deform_im2col", code)
-    deform_im2col.launches += 1
+    if bf16:
+        deform_im2col.bf16_launches += 1
+    else:
+        deform_im2col.launches += 1
     return cols
 
 
 deform_im2col.launches = 0
+deform_im2col.bf16_launches = 0
 
 
 # ------------------------------------------------- K5: p-major row sampling

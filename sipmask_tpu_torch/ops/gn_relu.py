@@ -8,8 +8,12 @@ forward ``_fwd_impl`` and backward ``_vjp_bwd``) and of
 launches K4a and its backward K4b (``csrc/gn_relu.cu``); on CPU tensors they
 are :func:`gn_relu_plain`'s arithmetic and :func:`gn_relu_backward_plain`.
 
-Layout: x and the result (B, C, H, W), f32; weight and bias (C,); the
-saved statistics ``stats`` (B, groups, 2), each group's (mean, rstd).
+Layout: x and the result (B, C, H, W), f32 or bf16 (the JAX package's
+``compute_dtype="bfloat16"``: f32 sums and statistics, the result in x's
+dtype, ``group_norm.py:81,154``); weight and bias (C,) f32; the saved
+statistics ``stats`` (B, groups, 2) f32, each group's (mean, rstd). The
+kernels count their f32 calls in ``launches`` and their bf16 calls in
+``bf16_launches``.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ def _check(x, weight, bias, groups):
     if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
         raise ValueError(f"weight {tuple(weight.shape)} and bias "
                          f"{tuple(bias.shape)} must be ({c},)")
-    if not x.dtype == weight.dtype == bias.dtype == torch.float32:
-        raise TypeError(f"float32 only, got {x.dtype}, {weight.dtype}, "
+    if (x.dtype not in (torch.float32, torch.bfloat16)
+            or not weight.dtype == bias.dtype == torch.float32):
+        raise TypeError(f"x float32 or bfloat16 with float32 weight and "
+                        f"bias, got {x.dtype}, {weight.dtype}, "
                         f"{bias.dtype}")
     if not x.device == weight.device == bias.device:
         raise ValueError("x, weight and bias must share a device")
@@ -61,12 +67,15 @@ def _affine(weight, bias, mean, rstd):
 
 def _forward_plain(x, weight, bias, groups: int, eps: float, act: bool):
     """(y, stats) of the single-pass-variance GroupNorm of
-    ``layers._gn_fwd_impl``, then a ReLU when ``act``."""
+    ``layers._gn_fwd_impl``, then a ReLU when ``act``; a bf16 x is widened
+    to f32 and y rounded once to bf16."""
     _check(x, weight, bias, groups)
-    mean, rstd = _stats_plain(x, groups, eps)
+    xf = x.float()
+    mean, rstd = _stats_plain(xf, groups, eps)
     sc, bi = _affine(weight, bias, mean, rstd)
-    y = x * sc[:, :, None, None] + bi[:, :, None, None]
-    return (torch.relu(y) if act else y), torch.stack([mean, rstd], -1)
+    y = xf * sc[:, :, None, None] + bi[:, :, None, None]
+    y = torch.relu(y) if act else y
+    return y.to(x.dtype), torch.stack([mean, rstd], -1)
 
 
 def gn_relu_plain(x, weight, bias, groups: int = 32, eps: float = 1e-5,
@@ -114,8 +123,10 @@ def gn_relu_backward_plain(x, weight, bias, stats, dy, groups: int,
                            act: bool):
     """Plain PyTorch K4b: ``layers._gn_vjp_bwd`` with the ReLU mask
     recomputed from x, as ``group_norm._vjp_bwd`` does. Returns (dx,
-    d weight, d bias)."""
+    d weight, d bias). bf16 x and dy are widened to f32 and dx rounded once
+    to bf16; d weight and d bias are f32."""
     b, c, h, w = x.shape
+    dtype, x, dy = x.dtype, x.float(), dy.float()
     if act:
         sc, bi = _affine(weight, bias, *stats.unbind(-1))
         u = x * sc[:, :, None, None] + bi[:, :, None, None]
@@ -126,23 +137,25 @@ def gn_relu_backward_plain(x, weight, bias, stats, dy, groups: int,
         r1, r2, weight, stats, float(h * w * (c // groups)))
     dx = (a[:, :, None, None] * dy + b2[:, :, None, None] * x +
           c2[:, :, None, None])
-    return dx, dweight, dbias
+    return dx.to(dtype), dweight, dbias
 
 
 def _lib():
     lib = native.load("gn_relu")
     if lib.gn_relu_f32.argtypes is None:
-        lib.gn_relu_f32.restype = ctypes.c_int
-        lib.gn_relu_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p])
-        lib.gn_relu_bwd_f32.restype = ctypes.c_int
-        lib.gn_relu_bwd_f32.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+        for fn in (lib.gn_relu_f32, lib.gn_relu_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p])
+        for fn in (lib.gn_relu_bwd_f32, lib.gn_relu_bwd_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 9 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -166,8 +179,8 @@ _CHUNK = 256 * 16
 def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
                     act: bool = True, keep_stats: bool = True):
     """K4a: (y, stats), stats None unless ``keep_stats``. CPU tensors take
-    the plain arithmetic; CUDA tensors launch the kernels (contiguous f32
-    only): two launches, nothing between them; the wrapper only checks and
+    the plain arithmetic; CUDA tensors launch the kernels (contiguous; x f32
+    or bf16, weight and bias f32): two launches, nothing between them; the wrapper only checks and
     allocates y and one scratch (stats is a view of it). Raises on anything
     the kernels do not take. Records no gradient: :func:`gn_relu` does."""
     if x.device.type == "cpu":
@@ -183,13 +196,18 @@ def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
     if y.numel() == 0:
         return y, stats
     lib = _lib()
+    bf16 = x.dtype == torch.bfloat16
+    launch = lib.gn_relu_bf16 if bf16 else lib.gn_relu_f32
     with native.device_guard(x.device):
-        code = lib.gn_relu_f32(
+        code = launch(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             scratch.data_ptr(), n_scratch, y.data_ptr(), b, c, h * w, groups,
             eps, int(act), int(keep_stats), native.stream_ptr(x.device))
     native.check_launch(lib, "gn_relu", code)
-    gn_relu.launches += 1
+    if bf16:
+        gn_relu.bf16_launches += 1
+    else:
+        gn_relu.launches += 1
     return y, stats
 
 
@@ -201,7 +219,7 @@ def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
     if x.device.type == "cpu":
         return gn_relu_backward_plain(x, weight, bias, stats, dy, groups, act)
     _cuda_check(x, weight, bias, groups)
-    if dy.shape != x.shape or dy.dtype != torch.float32:
+    if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x")
     b, c, h, w = x.shape
     if tuple(stats.shape) != (b, groups, 2) or not stats.is_contiguous():
@@ -215,18 +233,24 @@ def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
     if b == 0:
         return dx, dweight.zero_(), dbias.zero_()
     lib = _lib()
+    bf16 = x.dtype == torch.bfloat16
+    launch = lib.gn_relu_bwd_bf16 if bf16 else lib.gn_relu_bwd_f32
     with native.device_guard(x.device):
-        code = lib.gn_relu_bwd_f32(
+        code = launch(
             x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), r.data_ptr(), dx.data_ptr(), dweight.data_ptr(),
             dbias.data_ptr(), b, c, h * w, groups, int(act),
             native.stream_ptr(x.device))
     native.check_launch(lib, "gn_relu", code)
-    gn_relu_backward.launches += 1
+    if bf16:
+        gn_relu_backward.bf16_launches += 1
+    else:
+        gn_relu_backward.launches += 1
     return dx, dweight, dbias
 
 
 gn_relu_backward.launches = 0
+gn_relu_backward.bf16_launches = 0
 
 
 class _GNReLU(torch.autograd.Function):
@@ -261,3 +285,4 @@ def gn_relu(x, weight, bias, groups: int = 32, eps: float = 1e-5,
 
 
 gn_relu.launches = 0
+gn_relu.bf16_launches = 0

@@ -3,8 +3,10 @@
     python -m sipmask_tpu_torch.tools.measure serve k4a k4b train
     python -m sipmask_tpu_torch.tools.measure --config \
         sipmaskpp_r101_fpn_ssd_6x serve k5c train
+    python -m sipmask_tpu_torch.tools.measure serve train \
+        --dtype float32 bfloat16
 
-from the root of the checkout, with any of the five modes, in the order
+from the root of the checkout, with any of the six modes, in the order
 given:
 
 - ``serve``: wall ms of single requests (800x1333; 544x544 for the
@@ -30,6 +32,10 @@ given:
   CUDA-event ms of the sweep, the host's enqueue time of a sweep, and the
   device time of its kernels in a ``torch.profiler`` trace, by kernel and
   by conv, with the device kernels a call (the fill of dx included);
+- ``forward``: one image at batch 1: wall ms of a request, of
+  ``Detector.infer`` and of the model's forward, the host's enqueue time
+  of a forward, its device time and kernel count, and its ops by host
+  time (where a batch of 1 spends its time);
 - ``train``: warm train steps at the preset's training shapes (800x1344,
   batch 4; 576x576, batch 8) (median), their sections (forward, loss,
   backward, optimizer), the peak memory, and a ``torch.profiler`` trace of
@@ -38,9 +44,15 @@ given:
 
 ``--config`` names the preset, ``sipmask_r50_fpn_gn_1x`` by default; full
 width, random weights from seed 0, bumped as ``chip_smoke.py`` bumps them
-(and, for a norm-free head, frozen BN calibrated on the batch); f32 with
-TF32 off and cuDNN's benchmark mode on. The first line is the card's name
-and power limit.
+(and, for a norm-free head, frozen BN calibrated on the batch); TF32 off,
+bf16 products summed in f32 (no reduced-precision reductions) and cuDNN's
+benchmark mode on. ``--dtype`` gives the model's ``compute_dtype`` for
+``serve``, ``forward`` and ``train``, float32 by default; with several,
+each mode runs once for each, in the order given (give it after the
+modes). Each profile also gives the share of
+the layout transposes around cuDNN's channels-last kernels (kernel names
+holding ``nchwToNhwc``, ``nhwcToNchw`` or ``transpose``). The first line
+is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -111,12 +123,19 @@ def prepare(model, cfg, images, training=False):
         calibrate_frozen_bn(model.backbone, images)
 
 
-def serve(dev, reps, config):
+def preset(config, dtype):
+    """The preset ``config`` with ``model.compute_dtype`` = ``dtype``."""
+    from ..config import _r, get_config
+    return _r(get_config(config), "model", compute_dtype=dtype)
+
+
+def serve(dev, reps, config, dtype="float32"):
     from torch.profiler import ProfilerActivity, profile
 
     from ..apis.inference import inference_detector, init_detector, preprocess
 
-    det = init_detector(config, dev, seed=SEED)
+    det = init_detector(preset(config, dtype), dev, seed=SEED)
+    log(f"serve {config}, compute_dtype {dtype}")
     batch = det.cfg.train.imgs_per_device
     d = det.cfg.data
     image_hw = d.fixed_size or (min(d.img_scale), max(d.img_scale))
@@ -147,6 +166,58 @@ def serve(dev, reps, config):
         wall = wall_ms(lambda: [det.infer(images, shapes, scales)
                                 for _ in range(2)])
     owners(prof, wall, "batch")
+
+
+def forward(dev, reps, config, dtype="float32"):
+    """One image (batch 1): wall ms of a request, of ``Detector.infer`` and
+    of the model's forward, the host's enqueue time of a forward, and one
+    forward's device time and kernels, with its ops by host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..apis.inference import inference_detector, init_detector, preprocess
+
+    det = init_detector(preset(config, dtype), dev, seed=SEED)
+    d = det.cfg.data
+    image_hw = d.fixed_size or (min(d.img_scale), max(d.img_scale))
+    img = (np.random.RandomState(SEED).rand(*image_hw, 3) * 255).astype(
+        np.uint8)
+    im, shape, scale = preprocess(img, det.cfg)
+    x = torch.from_numpy(im).permute(2, 0, 1)[None].contiguous().to(dev)
+    shapes, scales = torch.from_numpy(shape[None]), torch.from_numpy(
+        scale[None])
+    prepare(det.model, det.cfg, x)
+    for _ in range(3):   # cuDNN times its algorithms at the first shape
+        inference_detector(det, img)
+    with torch.no_grad():
+        fwd = [wall_ms(lambda: det.model(x)) for _ in range(reps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.model(x)
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    log(f"forward {config}, compute_dtype {dtype}, bs 1 {image_hw}")
+    report("request (inference_detector)",
+           [wall_ms(lambda: inference_detector(det, img))
+            for _ in range(reps)])
+    report("Detector.infer", [wall_ms(lambda: det.infer(x, shapes, scales))
+                              for _ in range(reps)])
+    report("model forward", fwd)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            det.model(x)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    log(f"one forward: host enqueue {enqueue:.2f} ms, device "
+        f"{sum(e.device_time for e in kern) / 1e3:.2f} ms in {len(kern)} "
+        f"kernels")
+    ops = sorted((k for k in prof.key_averages()
+                  if k.key.startswith(("aten::", "cudnn"))),
+                 key=lambda k: -k.self_cpu_time_total)[:8]
+    log("  ops by host time: " + "; ".join(
+        f"{k.key} x{k.count} {k.self_cpu_time_total / 1e3:.2f} ms"
+        for k in ops))
 
 
 def k4a(dev, iters=20):
@@ -290,6 +361,7 @@ OWNERS = {"deform_im2col": "K1", "deform_bwd": "K2", "fold_partials": "K2",
           "assemble_masks": "K6"}
 CUDNN = ("cudnn", "xmma", "convolve", "winograd", "implicit", "dgrad",
          "wgrad", "gemm")
+LAYOUT = ("nchwToNhwc", "nhwcToNchw", "transpose")
 
 
 def owners(prof, wall, unit):
@@ -318,21 +390,29 @@ def owners(prof, wall, unit):
         f"contiguous, stacks, casts): "
         f"{sum(e.device_time for e in copies) / 2e3:.3f} ms "
         f"({len(copies) // 2}) per {unit}")
+    layout = [e for e in kern if any(k in e.name for k in LAYOUT)
+              and not any(k in e.name for k in OWNERS)]
+    log(f"  layout transposes (kernel names holding "
+        f"{' or '.join(LAYOUT)}): "
+        f"{sum(e.device_time for e in layout) / 2e3:.3f} ms "
+        f"({len(layout) // 2}) per {unit}, "
+        f"{sum(e.device_time for e in layout) / max(busy * 1e3, 1e-9):.3f} "
+        f"of the kernel time")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:20]:
         log(f"  {ms:9.3f} ms/{unit} {n // 2:5d} launches/{unit}  "
             f"{name[:100]}")
 
 
-def train(dev, reps, config):
+def train(dev, reps, config, dtype="float32"):
     from torch.profiler import ProfilerActivity, profile
 
-    from ..config import get_config
     from ..models.loss import compute_losses
     from ..train import create_train_state, make_train_step
     from ..utils.demo_inputs import train_batch_for
 
-    cfg = get_config(config)
+    cfg = preset(config, dtype)
+    log(f"train {config}, compute_dtype {dtype}")
     state = create_train_state(cfg, dev, seed=SEED)
     batch = train_batch_for(cfg, SEED, dev)
     prepare(state.model, cfg, batch["images"], training=True)
@@ -386,11 +466,15 @@ def train(dev, reps, config):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("modes", nargs="+",
-                    choices=("serve", "k4a", "k4b", "k5c", "train"))
+                    choices=("serve", "forward", "k4a", "k4b", "k5c",
+                             "train"))
     ap.add_argument("--config", default=CONFIG,
                     help="the preset to measure")
     ap.add_argument("--reps", type=int, default=7,
                     help="timed repetitions of a request, batch or step")
+    ap.add_argument("--dtype", nargs="+", default=["float32"],
+                    choices=("float32", "bfloat16"),
+                    help="compute_dtype of serve and train, each in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
@@ -399,14 +483,16 @@ def main(argv=None):
                        text=True, timeout=60, check=True).stdout.strip())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     for mode in args.modes:
         if mode in ("k4a", "k4b", "k5c"):
             {"k4a": k4a, "k4b": k4b, "k5c": k5c}[mode](dev)
-        else:
-            {"serve": serve, "train": train}[mode](dev, args.reps,
-                                                   args.config)
+            continue
+        for dtype in args.dtype:
+            {"serve": serve, "forward": forward, "train": train}[mode](
+                dev, args.reps, args.config, dtype)
 
 
 if __name__ == "__main__":

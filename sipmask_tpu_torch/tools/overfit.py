@@ -3,7 +3,7 @@
 the port's CLIs on one device:
 
     python -m sipmask_tpu_torch.tools.overfit --out-dir build/overfit \\
-        [--legs flagship rescoring vis]
+        [--legs flagship rescoring vis flagship_bf16]
 
 Each leg writes its synthetic set, then runs ``tools/train.py`` and the
 leg's test CLI on a checkpoint, each as its own process with the
@@ -13,6 +13,9 @@ protocol's flags:
   / slab set (8 images of 256x256, seed 0, ``tools/synth_coco.py
   --shapes``), 800 steps, ``tools/test.py`` on the last checkpoint;
 - ``rescoring``: the same with ``model.head.rescoring=True`` at seed 1;
+- ``flagship_bf16``: the flagship leg with ``model.compute_dtype=bfloat16``
+  in training and test (not among the default legs: the JAX artifacts
+  hold no bf16 run);
 - ``vis``: ``sipmask_vis_r50`` at seed 1 on ``tools/synth_ytvis.py``'s 4
   videos of 4 frames at 256x256 (seed 0), ``max_gts`` 4, 1800 steps (2 an
   epoch), ``tools/test_video.py --eval`` on epoch 900.
@@ -71,6 +74,13 @@ LEGS = {
         train=IMAGE_TRAIN, test=("test", IMAGE_TEST), steps=800, epoch=800,
         cols=("loss_cls", "loss_bbox", "loss_mask", "loss_total"),
         at=(50, 100, 200, 300, 400, 500, 600, 700, 800)),
+    "flagship_bf16": dict(
+        config="sipmask_r50_fpn_gn_1x", data="coco", seed=0,
+        train=IMAGE_TRAIN + ["model.compute_dtype=bfloat16"],
+        test=("test", IMAGE_TEST + ["model.compute_dtype=bfloat16"]),
+        steps=800, epoch=800,
+        cols=("loss_cls", "loss_bbox", "loss_mask", "loss_total"),
+        at=(50, 100, 200, 300, 400, 500, 600, 700, 800)),
     "rescoring": dict(
         config="sipmask_r50_fpn_gn_1x", data="coco", seed=1,
         train=IMAGE_TRAIN + ["model.head.rescoring=True"],
@@ -114,7 +124,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default="build/overfit")
     ap.add_argument("--legs", nargs="+", choices=list(LEGS),
-                    default=list(LEGS))
+                    default=["flagship", "rescoring", "vis"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = args.out_dir

@@ -799,3 +799,112 @@ def test_rt_serving_kernels_match_plain(dev, monkeypatch):
         pairs = same.float().argmax(1)
         masks_g, masks_w = got["masks"][i][g], want["masks"][i][w][pairs]
         assert float((masks_g - masks_w).abs().max()) <= 1e-4
+
+
+# ------------------------------------- bf16 variants (compute_dtype bfloat16)
+
+BF16 = torch.bfloat16
+# a bf16 kernel and its plain version round the same f32 values, summed in
+# another order, so a value near a rounding boundary may land one bf16 unit
+# apart: 2**-7 of an output's max bounds one unit anywhere
+BF16_TOL = 2.0 ** -7
+
+
+def _close_to_max(got, want, tol=BF16_TOL):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+
+
+@pytest.mark.parametrize("b,c,g,h,w,stride,far", [
+    (2, 256, 4, 100, 168, 1, True),    # P3: Cg = 64, 16-byte gathers
+    (2, 256, 4, 7, 11, 1, False),      # P7: P % 4 != 0
+    (1, 20, 4, 13, 9, 2, True),        # Cg = 5: scalar gathers
+    (2, 48, 2, 17, 15, 1, True),       # Cg = 24: 16-byte gathers, no CG
+])
+def test_bf16_deform_im2col_kernel_matches_plain(dev, b, c, g, h, w, stride,
+                                                 far):
+    rng = np.random.RandomState(1)
+    ho, wo = deform_sample.out_size(h, w, 3, 3, stride, 1, 1)
+    x = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        dev).to(BF16)
+    off = torch.from_numpy(_offsets(rng, b, g * 18, ho, wo, far)).to(dev)
+    before = (deform_sample.deform_im2col.launches,
+              deform_sample.deform_im2col.bf16_launches)
+    got = deform_sample.deform_im2col(x, off, (3, 3), stride, 1, 1, g)
+    torch.cuda.synchronize()
+    assert (deform_sample.deform_im2col.launches,
+            deform_sample.deform_im2col.bf16_launches) == (before[0],
+                                                           before[1] + 1)
+    want = deform_sample.deform_im2col_plain(x, off, (3, 3), stride, 1, 1, g)
+    _close_to_max([got], [want])
+
+
+@pytest.mark.parametrize("b,c,g,h,w,regime", [
+    (2, 256, 4, 100, 168, "random"),   # P3: 16-byte tile copies
+    (2, 256, 4, 50, 84, "zero"),
+    (2, 256, 4, 7, 11, "far"),         # P % 8 != 0: element copies
+    (1, 20, 4, 9, 13, "random"),       # Cg = 5, odd: scalar lanes
+])
+def test_bf16_deform_conv_backward_kernel_matches_plain(dev, b, c, g, h, w,
+                                                        regime):
+    from sipmask_tpu_torch.ops import deform_conv
+    x, off, w2, dy = _deform_case(dev, b, c, g, h, w, regime)
+    x, w2, dy = x.to(BF16), w2.to(BF16), dy.to(BF16)
+    cols = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    before = deform_conv.deform_conv_backward.bf16_launches
+    got = deform_conv.deform_conv_backward(x, off, cols, w2, dy, (3, 3), 1,
+                                           1, 1, g)
+    torch.cuda.synchronize()
+    assert deform_conv.deform_conv_backward.bf16_launches == before + 1
+    assert [t.dtype for t in got] == [BF16, torch.float32, torch.float32]
+    want = deform_conv.deform_conv_backward_plain(x, off, w2, dy, (3, 3), 1,
+                                                  1, 1, g)
+    _close_to_max(got, want)
+    if regime == "zero":   # the one-sided rule: offsets train from zero
+        assert float(got[1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 100, 168), (2, 256, 7, 11),
+                                   (1, 64, 5, 7)])
+def test_bf16_gn_relu_kernels_match_plain(dev, shape, act):
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy((rng.randn(*shape) * 3 + 1).astype(np.float32)
+                         ).to(dev).to(BF16)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev).to(
+        BF16)
+    c = shape[1]
+    wt = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(dev)
+    bs = torch.from_numpy((rng.randn(c) * 0.2).astype(np.float32)).to(dev)
+    before = (gn_relu.gn_relu.bf16_launches,
+              gn_relu.gn_relu_backward.bf16_launches)
+    y, stats = gn_relu.gn_relu_forward(x, wt, bs, 32, 1e-5, act)
+    back = gn_relu.gn_relu_backward(x, wt, bs, stats, dy, 32, act)
+    torch.cuda.synchronize()
+    assert (gn_relu.gn_relu.bf16_launches,
+            gn_relu.gn_relu_backward.bf16_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want_y, want_stats = gn_relu._forward_plain(x, wt, bs, 32, 1e-5, act)
+    _close_to_max([y, stats], [want_y, want_stats])
+    _close_to_max(back, gn_relu.gn_relu_backward_plain(x, wt, bs, stats, dy,
+                                                       32, act))
+
+
+def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from sipmask_tpu_torch.ops import deform_conv
+    x, off, w2, dy = _deform_case(dev, 1, 16, 4, 6, 7, "random", o=8)
+    xb = x.to(BF16)
+    with pytest.raises(TypeError):    # bf16 offsets: K1 takes f32 ones
+        deform_sample.deform_im2col(xb, off.to(BF16), (3, 3), 1, 1, 1, 4)
+    cols = deform_sample.deform_im2col(xb, off, (3, 3), 1, 1, 1, 4)
+    with pytest.raises(TypeError):    # f32 w2 with bf16 x
+        deform_conv.deform_conv_backward(xb, off, cols, w2, dy.to(BF16),
+                                         (3, 3), 1, 1, 1, 4)
+    wt, bs = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    with pytest.raises(TypeError):    # bf16 weight and bias
+        gn_relu.gn_relu(xb, wt.to(BF16), bs.to(BF16), 4)
+    _, stats = gn_relu.gn_relu_forward(xb, wt, bs, 4)
+    with pytest.raises(ValueError, match="dy"):   # f32 dy with bf16 x
+        gn_relu.gn_relu_backward(xb, wt, bs, stats, x, 4, True)
