@@ -127,9 +127,8 @@ class ModelConfig:
     test: TestConfig = field(default_factory=TestConfig)
     track: TrackConfig = field(default_factory=TrackConfig)
     # compute dtype for conv towers ('float32' or 'bfloat16'); params stay
-    # fp32. The port takes 'bfloat16' for the models without DCN stages,
-    # rescoring or a track branch: sipmask_r50_fpn_gn_1x and the real-time
-    # sipmask_r50_fpn_ssd_6x (models/detector.py)
+    # fp32. The port takes 'bfloat16' for every model it runs
+    # (models/detector.py)
     compute_dtype: str = "float32"
 
 

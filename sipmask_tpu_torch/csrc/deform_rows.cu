@@ -19,12 +19,23 @@
 // -1 and the other +1 (times the other axis's weight), so integer positions
 // (every position at zero offsets, conv_offset's init) still get gradients.
 //
-// Layouts (all contiguous f32), N = B*G images-by-group, Q = H*W:
+// Layouts (all contiguous), N = B*G images-by-group, Q = H*W:
 //   x_rows   (N, Q, Cg)     channels-last rows
-//   pyx      (N, K, P, 2)   absolute (py, px) per tap and output pixel
+//   pyx      (N, K, P, 2)   absolute (py, px) per tap and output pixel, f32
 //   sampled  (N, P, K, Cg)  p-major: row (n, p) is the (K*Cg) im2col row that
 //                           one (B*P, K*C) x (K*C, O) matmul contracts
-//   dx       like x_rows (zeroed by the caller); dpyx like pyx.
+//   dx       like x_rows, f32 (zeroed by the caller); dpyx like pyx.
+//
+// Element types: f32 throughout (deform_rows_{fwd,bwd}_f32), or bf16
+// x_rows, sampled and dsampled with f32 positions (deform_rows_{fwd,bwd}
+// _bf16), the JAX package's compute_dtype="bfloat16" graph. The kernels
+// are templates on the element type: corners are read in bf16 (16-byte
+// vectors of 8 channels where Cg % 8 == 0 and the pointers are aligned,
+// else scalars), weights and the interpolation are f32, and each sampled
+// value is rounded once to bf16 as it is written. The bf16 backward
+// scatters into an f32 dx scratch (float4 reductions, as in f32; there are
+// no bf16 vector atomics to sum in) and a last kernel rounds dx once to
+// bf16; d positions are reduced in f32 in the same fixed order as in f32.
 //
 // What bounds it on an H100. The forward: bytes. It writes sampled, K = 9
 // times the size of x (at the SipMask++ layer2 DCN at 544x544, batch 8:
@@ -54,6 +65,7 @@
 // item of 32 channels pays the corner math that this kernel spreads over
 // Cg.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -65,28 +77,53 @@ namespace {
 constexpr int kThreads = 256;               // 8 warps, one item each
 constexpr int kWarps = kThreads / 32;
 
+using bf16 = __nv_bfloat16;
 using dcn::Corners;
 using dcn::corners;
 
-template <int VEC>
+// A load of VEC channels of element type E: its register type T, channel i
+// of it in f32, and the store of VEC f32 values as one T (bf16 rounded to
+// nearest even).
+template <typename E, int VEC>
 struct Vec;
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   using T = float;
   __device__ static float get(const T& v, int) { return v; }
-  __device__ static void set(T& v, int, float a) { v = a; }
+  __device__ static T pack(const float (&r)[1]) { return r[0]; }
 };
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   using T = float4;
   __device__ static float get(const T& v, int i) {
     return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
   }
-  __device__ static void set(T& v, int i, float a) {
-    if (i == 0) v.x = a;
-    else if (i == 1) v.y = a;
-    else if (i == 2) v.z = a;
-    else v.w = a;
+  __device__ static T pack(const float (&r)[4]) {
+    return make_float4(r[0], r[1], r[2], r[3]);
+  }
+};
+template <>
+struct Vec<bf16, 1> {
+  using T = bf16;
+  __device__ static float get(const T& v, int) { return __bfloat162float(v); }
+  __device__ static T pack(const float (&r)[1]) {
+    return __float2bfloat16_rn(r[0]);
+  }
+};
+template <>
+struct Vec<bf16, 8> {   // 16 bytes: channel i in half i % 2 of word i / 2
+  using T = uint4;      // (little-endian pairs)
+  __device__ static float get(const T& v, int i) {
+    const uint32_t w = i < 2 ? v.x : i < 4 ? v.y : i < 6 ? v.z : v.w;
+    return __uint_as_float(i & 1 ? w & 0xFFFF0000u : w << 16);
+  }
+  __device__ static uint32_t pair(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ static T pack(const float (&r)[8]) {
+    return make_uint4(pair(r[0], r[1]), pair(r[2], r[3]), pair(r[4], r[5]),
+                      pair(r[6], r[7]));
   }
 };
 
@@ -99,12 +136,12 @@ __device__ __forceinline__ void item_of(int64_t item, int P, int K, int& n,
   n = (int)(np / P);
 }
 
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) deform_rows_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ pyx,
-    float* __restrict__ out, int64_t n_items, int H, int W, int Cg, int K,
+    const E* __restrict__ x, const float* __restrict__ pyx,
+    E* __restrict__ out, int64_t n_items, int H, int W, int Cg, int K,
     int P) {
-  using V = Vec<VEC>;
+  using V = Vec<E, VEC>;
   using T = typename V::T;
   const int lane = threadIdx.x & 31;
   const int64_t item = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -122,31 +159,38 @@ __global__ void __launch_bounds__(kThreads) deform_rows_fwd_kernel(
     const T a01 = c.v01 ? xn[c.q01 * cv + v] : zero;
     const T a10 = c.v10 ? xn[c.q10 * cv + v] : zero;
     const T a11 = c.v11 ? xn[c.q11 * cv + v] : zero;
-    T r;
+    float r[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i)
-      V::set(r, i, V::get(a00, i) * c.w00 + V::get(a01, i) * c.w01 +
-                       V::get(a10, i) * c.w10 + V::get(a11, i) * c.w11);
-    o[v] = r;
+      r[i] = V::get(a00, i) * c.w00 + V::get(a01, i) * c.w01 +
+             V::get(a10, i) * c.w10 + V::get(a11, i) * c.w11;
+    o[v] = V::pack(r);
   }
 }
 
-// d*w into dx: one scalar atomic, or one 16-byte vector reduction.
-__device__ __forceinline__ void scatter(float* dst, float d, float w) {
-  atomicAdd(dst, d * w);
-}
-__device__ __forceinline__ void scatter(float4* dst, const float4& d,
+// d*w of VEC channels into an f32 row of dx: scalar atomics, or 16-byte
+// vector reductions (one for 4 channels, two for 8).
+template <int VEC>
+__device__ __forceinline__ void scatter(float* dst, const float (&d)[VEC],
                                         float w) {
-  atomicAdd(dst, make_float4(d.x * w, d.y * w, d.z * w, d.w * w));
+  if constexpr (VEC == 1) {
+    atomicAdd(dst, d[0] * w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4)
+      atomicAdd(reinterpret_cast<float4*>(dst + i),
+                make_float4(d[i] * w, d[i + 1] * w, d[i + 2] * w,
+                            d[i + 3] * w));
+  }
 }
 
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads) deform_rows_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ pyx,
-    const float* __restrict__ dsampled, float* __restrict__ dx,
+    const E* __restrict__ x, const float* __restrict__ pyx,
+    const E* __restrict__ dsampled, float* __restrict__ dx,
     float* __restrict__ dpyx, int64_t n_items, int H, int W, int Cg, int K,
     int P) {
-  using V = Vec<VEC>;
+  using V = Vec<E, VEC>;
   using T = typename V::T;
   const int lane = threadIdx.x & 31;
   const int64_t item = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -157,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) deform_rows_bwd_kernel(
   const Corners c = corners(pyx[pos_off], pyx[pos_off + 1], H, W);
   const int64_t base = (int64_t)n * H * W * Cg;
   const T* xn = reinterpret_cast<const T*>(x + base);
-  T* dxn = reinterpret_cast<T*>(dx + base);
+  float* dxn = dx + base;
   const T* g = reinterpret_cast<const T*>(dsampled + item * Cg);
   const int cv = Cg / VEC;
   const T zero{};
@@ -166,22 +210,25 @@ __global__ void __launch_bounds__(kThreads) deform_rows_bwd_kernel(
   const bool s10 = c.v10 && c.w10 != 0.f, s11 = c.v11 && c.w11 != 0.f;
   float gy = 0.f, gx = 0.f;
   for (int v = lane; v < cv; v += 32) {
-    const T d = g[v];
+    const T dv = g[v];
+    float d[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) d[i] = V::get(dv, i);
     const T a00 = c.v00 ? xn[c.q00 * cv + v] : zero;
     const T a01 = c.v01 ? xn[c.q01 * cv + v] : zero;
     const T a10 = c.v10 ? xn[c.q10 * cv + v] : zero;
     const T a11 = c.v11 ? xn[c.q11 * cv + v] : zero;
-    if (s00) scatter(dxn + c.q00 * cv + v, d, c.w00);
-    if (s01) scatter(dxn + c.q01 * cv + v, d, c.w01);
-    if (s10) scatter(dxn + c.q10 * cv + v, d, c.w10);
-    if (s11) scatter(dxn + c.q11 * cv + v, d, c.w11);
+    const int64_t ch = (int64_t)v * VEC;
+    if (s00) scatter<VEC>(dxn + c.q00 * Cg + ch, d, c.w00);
+    if (s01) scatter<VEC>(dxn + c.q01 * Cg + ch, d, c.w01);
+    if (s10) scatter<VEC>(dxn + c.q10 * Cg + ch, d, c.w10);
+    if (s11) scatter<VEC>(dxn + c.q11 * Cg + ch, d, c.w11);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      const float di = V::get(d, i);
       const float b00 = V::get(a00, i), b01 = V::get(a01, i);
       const float b10 = V::get(a10, i), b11 = V::get(a11, i);
-      gy += di * ((b10 - b00) * c.hx + (b11 - b01) * c.lx);
-      gx += di * ((b01 - b00) * c.hy + (b11 - b10) * c.ly);
+      gy += d[i] * ((b10 - b00) * c.hx + (b11 - b01) * c.lx);
+      gx += d[i] * ((b01 - b00) * c.hy + (b11 - b10) * c.ly);
     }
   }
 #pragma unroll
@@ -195,6 +242,58 @@ __global__ void __launch_bounds__(kThreads) deform_rows_bwd_kernel(
   }
 }
 
+// The bf16 backward's last kernel: dx rounded once from its f32 sums, 8
+// elements a thread where n % 8 == 0 and the pointers are aligned.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) round_bf16_kernel(
+    const float* __restrict__ in, bf16* __restrict__ out, int64_t n) {
+  using V = Vec<bf16, VEC>;
+  const int64_t nv = n / VEC;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < nv;
+       i += (int64_t)gridDim.x * kThreads) {
+    float r[VEC];
+    if constexpr (VEC == 8) {
+      const float4 a = reinterpret_cast<const float4*>(in)[2 * i];
+      const float4 b = reinterpret_cast<const float4*>(in)[2 * i + 1];
+      r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+      r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+    } else {
+      r[0] = in[i];
+    }
+    reinterpret_cast<typename V::T*>(out)[i] = V::pack(r);
+  }
+}
+
+int64_t blocks_of(int64_t n_items) {
+  return (n_items + kWarps - 1) / kWarps;
+}
+
+template <typename E, int VEC>
+int fwd(const void* x, const void* pyx, void* out, int N, int H, int W,
+        int Cg, int K, int P, cudaStream_t st) {
+  const int64_t n_items = (int64_t)N * P * K;
+  if (n_items == 0) return 0;
+  const int64_t blocks = blocks_of(n_items);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  deform_rows_fwd_kernel<E, VEC><<<(unsigned)blocks, kThreads, 0, st>>>(
+      (const E*)x, (const float*)pyx, (E*)out, n_items, H, W, Cg, K, P);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int VEC>
+int bwd(const void* x, const void* pyx, const void* dsampled, void* dx,
+        void* dpyx, int N, int H, int W, int Cg, int K, int P,
+        cudaStream_t st) {
+  const int64_t n_items = (int64_t)N * P * K;
+  if (n_items == 0) return 0;
+  const int64_t blocks = blocks_of(n_items);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  deform_rows_bwd_kernel<E, VEC><<<(unsigned)blocks, kThreads, 0, st>>>(
+      (const E*)x, (const float*)pyx, (const E*)dsampled, (float*)dx,
+      (float*)dpyx, n_items, H, W, Cg, K, P);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -206,20 +305,19 @@ extern "C" {
 int deform_rows_fwd_f32(const void* x, const void* pyx, void* out, int N,
                         int H, int W, int Cg, int K, int P, int vec4,
                         void* stream) {
-  const int64_t n_items = (int64_t)N * P * K;
-  if (n_items == 0) return 0;
-  const int64_t blocks = (n_items + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec4)
-    deform_rows_fwd_kernel<4><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const float*)x, (const float*)pyx, (float*)out, n_items, H, W, Cg,
-        K, P);
-  else
-    deform_rows_fwd_kernel<1><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const float*)x, (const float*)pyx, (float*)out, n_items, H, W, Cg,
-        K, P);
-  return (int)cudaGetLastError();
+  return vec4 ? fwd<float, 4>(x, pyx, out, N, H, W, Cg, K, P, st)
+              : fwd<float, 1>(x, pyx, out, N, H, W, Cg, K, P, st);
+}
+
+// The same with x_rows and sampled bf16 (pyx f32). vec8 != 0 takes 16-byte
+// vectors of 8 channels: Cg % 8 == 0 and 16-byte-aligned pointers.
+int deform_rows_fwd_bf16(const void* x, const void* pyx, void* out, int N,
+                         int H, int W, int Cg, int K, int P, int vec8,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return vec8 ? fwd<bf16, 8>(x, pyx, out, N, H, W, Cg, K, P, st)
+              : fwd<bf16, 1>(x, pyx, out, N, H, W, Cg, K, P, st);
 }
 
 // Backward of deform_rows_fwd_f32 for the cotangent dsampled (N, P, K, Cg):
@@ -228,19 +326,39 @@ int deform_rows_fwd_f32(const void* x, const void* pyx, void* out, int N,
 int deform_rows_bwd_f32(const void* x, const void* pyx, const void* dsampled,
                         void* dx, void* dpyx, int N, int H, int W, int Cg,
                         int K, int P, int vec4, void* stream) {
-  const int64_t n_items = (int64_t)N * P * K;
-  if (n_items == 0) return 0;
-  const int64_t blocks = (n_items + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec4)
-    deform_rows_bwd_kernel<4><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const float*)x, (const float*)pyx, (const float*)dsampled,
-        (float*)dx, (float*)dpyx, n_items, H, W, Cg, K, P);
+  return vec4 ? bwd<float, 4>(x, pyx, dsampled, dx, dpyx, N, H, W, Cg, K, P,
+                              st)
+              : bwd<float, 1>(x, pyx, dsampled, dx, dpyx, N, H, W, Cg, K, P,
+                              st);
+}
+
+// Backward of deform_rows_fwd_bf16: x_rows and dsampled bf16, pyx f32. dx
+// is summed into dx_f32 (N, H*W, Cg) f32, zeroed by the caller, then
+// rounded once into dx (bf16); dpyx (N, K, P, 2) f32. vec8 as for the
+// forward (dx_f32 16-byte aligned too).
+int deform_rows_bwd_bf16(const void* x, const void* pyx,
+                         const void* dsampled, void* dx_f32, void* dx,
+                         void* dpyx, int N, int H, int W, int Cg, int K,
+                         int P, int vec8, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err =
+      vec8 ? bwd<bf16, 8>(x, pyx, dsampled, dx_f32, dpyx, N, H, W, Cg, K, P,
+                          st)
+           : bwd<bf16, 1>(x, pyx, dsampled, dx_f32, dpyx, N, H, W, Cg, K, P,
+                          st);
+  if (err != 0) return err;
+  const int64_t n = (int64_t)N * H * W * Cg;
+  if (n == 0) return 0;
+  const int vec = vec8 ? 8 : 1;
+  const int64_t blocks = (n / vec + kThreads - 1) / kThreads;
+  const unsigned grid = (unsigned)(blocks < 65535 * 8 ? blocks : 65535 * 8);
+  if (vec8)
+    round_bf16_kernel<8><<<grid, kThreads, 0, st>>>((const float*)dx_f32,
+                                                    (bf16*)dx, n);
   else
-    deform_rows_bwd_kernel<1><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const float*)x, (const float*)pyx, (const float*)dsampled,
-        (float*)dx, (float*)dpyx, n_items, H, W, Cg, K, P);
+    round_bf16_kernel<1><<<grid, kThreads, 0, st>>>((const float*)dx_f32,
+                                                    (bf16*)dx, n);
   return (int)cudaGetLastError();
 }
 

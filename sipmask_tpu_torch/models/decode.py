@@ -102,6 +102,8 @@ def decode_batch(outputs, img_shapes, scale_factors, cfg,
         pred_iou = rescore_fn(out["masks"].reshape(b * d, 1, mh, mw))
         lbl = out["labels"].reshape(b * d).clamp(min=0)
         pred_iou = torch.gather(pred_iou, 1, lbl[:, None])[:, 0]
+        # bf16 IoU predictions (the bf16 graph) times the f32 scores: f32,
+        # as JAX promotes them
         out["mask_scores"] = (pred_iou.reshape(b, d) * out["scores"] *
                               out["valid"])
     return out

@@ -1,9 +1,9 @@
 """SipMask detector: backbone -> neck -> head, the port of
 ``sipmask_tpu/models/detector.py`` for the ResNet + FPN models, SipMask++
 (DCN stages, rescoring) and SipMask-VIS (the track branch, a reference
-frame in training) included. ``compute_dtype`` "float32" runs every
-model; "bfloat16" the models without DCN stages, rescoring or a track
-branch (the flagship and the real-time presets), with f32 parameters."""
+frame in training) included. ``compute_dtype`` "float32" or "bfloat16"
+runs every one of them (bf16 with f32 parameters, at the JAX package's cast
+points); ResNeXt groups and HRNet are not ported in either."""
 
 from __future__ import annotations
 
@@ -27,13 +27,6 @@ class SipMask(nn.Module):
             raise NotImplementedError(
                 "the port runs float32 or bfloat16 caffe-ResNet + FPN (extra "
                 "levels from P5) models without ResNeXt groups")
-        if cfg.compute_dtype == "bfloat16" and (
-                any(b.stage_with_dcn) or cfg.head.rescoring
-                or cfg.head.track):
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is ported for ResNet + FPN models "
-                "without DCN stages, rescoring or a track branch; SipMask++ "
-                "and SipMask-VIS in bfloat16 are ROADMAP queue 1 item 5")
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
         self.backbone = ResNet(b.depth, b.out_indices, b.frozen_stages,

@@ -184,6 +184,8 @@ def _rescoring_loss(feat_masks, gt_masks, cof_sel, box_sel, gtidx_sel,
              & sel_valid).float()
     scores = rescore_fn(pred.reshape(b * k, 1, *pred.shape[2:]))  # (BK, C)
     pred_iou = torch.gather(scores, 1, labels_sel.reshape(b * k, 1))[:, 0]
+    # a bf16 pred_iou (the bf16 graph) minus the f32 targets is f32, as in
+    # JAX
     mse = ((pred_iou - iou_t.reshape(b * k)) ** 2 * w.reshape(b * k)).sum()
     # the reference divides by the count exactly; max(., 0.1) only guards
     # the empty case

@@ -12,6 +12,10 @@ Names follow mmdet's ResNet (``conv1``, ``bn1``, ``layer{s}.{b}.conv{1,2,3}``,
 
 ``dtype`` is the compute dtype (``layers.conv2d``): the stem casts the f32
 images to it, and every conv, ReLU, pool and residual sum after runs in it.
+A DCN conv2 in bf16 follows the JAX package's ``DeformConvPack``
+(``sipmask_tpu/models/resnet.py:38-52``): its offset conv runs in bf16 and
+its offsets are upcast to f32, the sampling and the contraction take the
+bf16 input and return bf16, and its frozen BN is applied in bf16.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import deform_conv as dc_ops
-from .layers import FrozenBatchNorm2d, conv_folded_bn
+from .layers import FrozenBatchNorm2d, conv, conv_folded_bn
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -32,21 +36,29 @@ class DeformConvPack(nn.Module):
     """3x3 deformable conv v1 whose offsets come from its own zero-init 3x3
     conv (with bias) on the input (mmdet's DeformConvPack): the sampled
     route, ``deform_conv.deform_conv2d_rows``. Its weight stays unfolded;
-    the block applies the frozen BN after it."""
+    the block applies the frozen BN after it. ``dtype``: the compute dtype
+    of the offset conv and of the result (``forward`` takes another, as
+    ``calibrate_frozen_bn`` runs the f32 graph); the offsets are f32."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 deform_groups: int = 1, stride: int = 1):
+                 deform_groups: int = 1, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride, self.deform_groups = stride, deform_groups
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                3, 3))
         self.conv_offset = nn.Conv2d(in_channels, deform_groups * 18, 3,
                                      stride, 1, bias=True)
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
+        dt = self.dtype if dtype is None else dtype
+        offsets = conv(x, self.conv_offset, dt)
+        if dt == torch.bfloat16:
+            x, offsets = x.to(dt), offsets.float()
         return dc_ops.deform_conv2d_rows(
-            x, self.conv_offset(x), self.weight, stride=self.stride,
-            padding=1, deform_groups=self.deform_groups)
+            x, offsets, self.weight, stride=self.stride, padding=1,
+            deform_groups=self.deform_groups)
 
 
 class Bottleneck(nn.Module):
@@ -58,7 +70,8 @@ class Bottleneck(nn.Module):
         self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, planes, 1, stride, bias=False)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = (DeformConvPack(planes, planes, dcn_deform_groups)
+        self.conv2 = (DeformConvPack(planes, planes, dcn_deform_groups,
+                                     dtype=dtype)
                       if with_dcn else
                       nn.Conv2d(planes, planes, 3, 1, 1, bias=False))
         self.bn2 = FrozenBatchNorm2d(planes)
@@ -72,9 +85,10 @@ class Bottleneck(nn.Module):
         dt = self.dtype
         out = torch.relu(conv_folded_bn(x, self.conv1, self.bn1, dt))
         if isinstance(self.conv2, DeformConvPack):
-            scale, bias = self.bn2.affine()
-            out = self.conv2(out) * scale[:, None, None] + bias[:, None, None]
-            out = torch.relu(out)
+            out = self.conv2(out)
+            scale, bias = (t.to(out.dtype)[:, None, None]
+                           for t in self.bn2.affine())
+            out = torch.relu(out * scale + bias)
         else:
             out = torch.relu(conv_folded_bn(out, self.conv2, self.bn2, dt))
         out = conv_folded_bn(out, self.conv3, self.bn3, dt)

@@ -21,7 +21,9 @@ In the compute dtype ``dtype`` (``layers.conv2d``) every output is in it but
 ``bbox_preds``, which is upcast to f32 before the stride multiply, as in
 JAX (``sipmask_head.py:143-147``); FeatureAlign's offsets are an f32 conv on
 the upcast box prediction, and the deform weight is cast to x's dtype
-(``sipmask_head.py:45-57``).
+(``sipmask_head.py:45-57``). The track branch (its GN towers, the bilinear
+resizes and the 1x1 ``sipmask_track`` on both frames) and the rescoring
+head run in the compute dtype too (``sipmask_head.py:60-81, 154-191``).
 """
 
 from __future__ import annotations
@@ -153,8 +155,11 @@ class SipMaskHead(nn.Module):
 
     def rescore(self, masks):
         """SipMask++ mask rescoring: masks (N, 1, h, w), detached assembled
-        masks with h, w >= 127 -> (N, num_classes) predicted mask IoU."""
-        x = masks.to(self.mask_scoring.weight.dtype)
+        masks with h, w >= 127 -> (N, num_classes) predicted mask IoU, in
+        the compute dtype: in bf16 the f32 masks are cast at the first conv
+        and every layer runs in bf16, as in JAX."""
+        x = masks.to(self.dtype if self.dtype == torch.bfloat16 else
+                     self.mask_scoring.weight.dtype)
         for m in self.convs_scoring:
             x = m(x)
         return torch.relu(conv(x, self.mask_scoring, self.dtype)).amax((2, 3))

@@ -75,7 +75,9 @@ def jitter_boxes(boxes, generator: torch.Generator,
 def _match_ce(track_feats, track_feats_ref, box_sel, sel_valid, gtidx_sel,
               gt_pids, ref_boxes, ref_valid):
     """Per-image match CE, batched: (ce_mean (B,), acc (B,), n_valid
-    (B,))."""
+    (B,)). In the embeddings' dtype, as JAX computes it: in bf16 the
+    product is a bf16 matmul, NEG rounds to -9984, log_softmax runs on the
+    bf16 logits, and ``ce * vf`` promotes to f32."""
     cur = _center_feats_batched(track_feats, box_sel * 2.0)     # (B, K, C)
     ref = _center_feats_batched(track_feats_ref, ref_boxes)     # (B, G, C)
     prod = torch.bmm(cur, ref.transpose(1, 2))                  # (B, K, G)
@@ -112,7 +114,7 @@ def track_match_loss(outputs, batch, box_sel, sel_valid, gtidx_sel):
     ref_bboxes_jit (B, G, 4) in input coordinates, ref_labels (B, G) and
     gt_pids (B, G). Returns (loss_match, match_acc)."""
     ce, acc, n = _match_ce(
-        outputs["track_feats"].float(), outputs["track_feats_ref"].float(),
+        outputs["track_feats"], outputs["track_feats_ref"],
         box_sel, sel_valid, gtidx_sel, batch["gt_pids"],
         batch["ref_bboxes_jit"].float(), batch["ref_labels"] > 0)
     loss_match = ce.sum() / ce.shape[0]
@@ -161,7 +163,9 @@ def tracker_step(state: TrackerState, det_boxes, det_scores, det_labels,
     fresh = torch.as_tensor(is_first, device=dev) | (state.count == 0)
     det_labels = det_labels.long()
 
-    # scores against the memory before the frame
+    # scores against the memory before the frame; bf16 embeddings (the
+    # bf16 graph) meet the f32 memory as JAX's promotion meets them: the
+    # product of their f32 upcasts, in f32
     prod = det_feats.float() @ state.feats.t()               # (D, M)
     col = torch.zeros((d, 1), device=dev)
     match_score = torch.cat([col, torch.where(

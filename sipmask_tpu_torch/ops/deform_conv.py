@@ -35,14 +35,22 @@ takes the kc-major route (``deform_conv.py:139-146``), while layer3 and
 layer4 take the sampled one; the port runs all three on the sampled route:
 the same function, summed in another order.
 
-**bf16** (the JAX package's ``compute_dtype="bfloat16"``, FeatureAlign's
-route only): x and the weight bf16, offsets f32. K1 gives bf16 cols, the
-tap contraction is a bf16 ``torch.matmul`` with f32 sums rounded to bf16
-(JAX's ``preferred_element_type=jnp.float32`` then ``astype``,
-``deform_conv.py:98-108``; the callers turn off cuBLAS's reduced-precision
-bf16 reductions), and K2 takes bf16 operands: dsampled rounded to bf16,
-dW in f32, dX summed in f32 and rounded once, d offsets in f32
-(:func:`deform_conv_backward_plain` states that arithmetic).
+**bf16** (the JAX package's ``compute_dtype="bfloat16"``): x bf16,
+offsets f32. On the im2col route (FeatureAlign) the weight is bf16 too:
+K1 gives bf16 cols, the tap contraction is a bf16 ``torch.matmul`` with
+f32 sums rounded to bf16 (JAX's ``preferred_element_type=jnp.float32``
+then ``astype``, ``deform_conv.py:98-108``; the callers turn off cuBLAS's
+reduced-precision bf16 reductions), and K2 takes bf16 operands: dsampled
+rounded to bf16, dW in f32, dX summed in f32 and rounded once, d offsets
+in f32 (:func:`deform_conv_backward_plain` states that arithmetic). On the
+sampled route (``DeformConvPack``: one deform group, no modulation mask;
+others raise in bf16) the weight stays an f32 parameter and is cast to the
+samples' bf16, as JAX casts it (``w2.astype(sampled.dtype)``,
+``deform_conv.py:210``): K5 gives bf16 samples, the contraction is a bf16
+``torch.matmul`` summed in f32 and rounded once, and so are its two
+backward products, dsampled and dW; dW reaches the f32 weight through the
+cast, rounded to bf16 as JAX's does (its weight cotangent passes the same
+``astype``); K5c gives a bf16 dX and f32 d offsets.
 
 Layouts (NCHW, f32): x (B, C, H, W); offsets (B, G*K*2, Ho, Wo) in the CUDA
 layout ([dy, dx] per tap, group-major), K = kh*kw; mask (B, G*K, Ho, Wo);
@@ -291,6 +299,12 @@ def _rows_inputs(x, offsets, weight, stride, padding, dilation,
                                   dilation, g)
     w2g = weight.reshape(o, g, cg, k).permute(1, 3, 2, 0).reshape(
         g, k * cg, o)
+    if x.dtype == torch.bfloat16:
+        if g > 1 or mask is not None:
+            raise NotImplementedError(
+                "the sampled route in bf16 takes one deform group and no "
+                "modulation mask (DCNv1, as DeformConvPack)")
+        w2g = w2g.to(torch.bfloat16)   # the cast JAX makes, dW rounds in it
     m = None
     if mask is not None:
         p = pyx.shape[2]
@@ -302,7 +316,8 @@ def _rows_inputs(x, offsets, weight, stride, padding, dilation,
 
 
 def _contract(sampled, w2g, b: int):
-    """sampled (B*G, P, K, Cg) . w2g (G, K*Cg, O) -> (B, P, O)."""
+    """sampled (B*G, P, K, Cg) . w2g (G, K*Cg, O) -> (B, P, O), summed in
+    f32 at least and rounded once to the operands' dtype."""
     g, kc, o = w2g.shape
     p = sampled.shape[1]
     out = torch.matmul(sampled.reshape(b, g, p, kc), w2g)   # (B, G, P, O)
@@ -324,7 +339,9 @@ def deform_conv2d_rows_plain(x, offsets, weight, *, stride: int = 1,
                              padding: int = 1, dilation: int = 1,
                              deform_groups: int = 1, mask=None):
     """Plain PyTorch sampled route: :func:`deform_rows_plain`, the optional
-    modulation and one ``torch.matmul``, differentiable by autograd."""
+    modulation and one ``torch.matmul``, differentiable by autograd (in
+    bf16 with the arithmetic of the module note: each bf16 product of the
+    contraction and its backward is summed in f32 and rounded once)."""
     x_rows, pyx, w2g, m = _rows_inputs(x, offsets, weight, stride, padding,
                                        dilation, deform_groups, mask)
     h, w = x.shape[2:]
@@ -352,7 +369,8 @@ class _DeformConvRows(torch.autograd.Function):
         g, kc, o = w2g.shape
         n, p, k, cg = sm.shape
         dout = dout.contiguous()
-        # dsampled = dy . W^T and dW = sampled^T . dy, one matmul each
+        # dsampled = dy . W^T and dW = sampled^T . dy, one matmul each (in
+        # bf16: bf16 operands and results, f32 sums)
         dsm = torch.matmul(dout[:, None], w2g.transpose(1, 2))  # (B,G,P,KC)
         smg = sm.reshape(b, g, p, kc)
         dy = dout.reshape(b * p, o)
@@ -375,13 +393,15 @@ def deform_conv2d_rows(x, offsets, weight, *, stride: int = 1,
     offsets, weight (and mask).
 
     Args:
-      x: (B, C, H, W) f32.
+      x: (B, C, H, W) f32, or bf16 (then the offsets f32 and the weight
+        f32, cast to bf16 inside, as ``DeformConvPack`` feeds it in the JAX
+        package's bf16 graph; one deform group and no mask).
       offsets: (B, G*K*2, Ho, Wo) in the CUDA layout, K = kh*kw.
       weight: (O, C, kh, kw) OIHW.
       mask: optional (B, G*K, Ho, Wo) modulation (sigmoid already applied),
         making this DCNv2.
     Returns:
-      (B, O, Ho, Wo).
+      (B, O, Ho, Wo) in x's dtype.
     """
     if x.device.type == "cpu":
         return deform_conv2d_rows_plain(

@@ -17,8 +17,10 @@ forward kernels (``_sample_pallas_sep``, ``_sample_pallas``) and its dense
 tiers; its backward :func:`deform_rows_backward` replaces
 ``_sample_pallas_bwd`` (K5c). :func:`deform_rows_plain` is ``sample_ref``.
 
-Layouts (f32; K1 also takes a bf16 x, with f32 offsets, and gives bf16
-cols, as the JAX package's compute_dtype="bfloat16" graph samples):
+Layouts (f32; K1 and K5 also take a bf16 x, with f32 offsets or
+positions, and give bf16 cols or samples, as the JAX package's
+compute_dtype="bfloat16" graph samples; K5c then takes a bf16 dsampled and
+gives a bf16 dx and f32 d positions):
   K1: x        (B, C, H, W); deformable group g owns channels g*Cg .. (g+1)*Cg-1.
       offsets  (B, G*K*2, Ho, Wo) in the CUDA layout: channel g*2K + 2*(i*kw+j)
                holds dy and the next one dx, for tap (i, j) of group g.
@@ -37,9 +39,8 @@ import torch
 
 from . import native
 
-_FLOATS = (torch.float32, torch.float64)
-# (x, offsets) dtypes K1's plain version takes; the kernels take the first
-# and the last
+# (x, offsets) dtypes K1's and K5's plain versions take (K5: x_rows and
+# pyx); the kernels take the first and the last
 _K1_DTYPES = ((torch.float32, torch.float32), (torch.float64, torch.float64),
               (torch.bfloat16, torch.float32))
 
@@ -292,10 +293,10 @@ def _check_rows(x_rows, pyx, h: int, w: int):
     if q != h * w or pyx.shape[0] != n:
         raise ValueError(f"x_rows {tuple(x_rows.shape)} and pyx "
                          f"{tuple(pyx.shape)} do not fit a {h}x{w} map")
-    if x_rows.dtype not in _FLOATS or pyx.dtype != x_rows.dtype:
-        raise TypeError(f"float32 or float64 (the plain versions; the "
-                        f"kernels take float32), got {x_rows.dtype} and "
-                        f"{pyx.dtype}")
+    if (x_rows.dtype, pyx.dtype) not in _K1_DTYPES:
+        raise TypeError(f"x_rows and pyx float32, float64 (the plain "
+                        f"versions), or x_rows bfloat16 with float32 pyx, "
+                        f"got {x_rows.dtype} and {pyx.dtype}")
     if x_rows.device != pyx.device:
         raise ValueError(f"x_rows on {x_rows.device}, pyx on {pyx.device}")
     return n, cg, pyx.shape[1], pyx.shape[2]
@@ -305,8 +306,14 @@ def deform_rows_plain(x_rows, pyx, h: int, w: int):
     """Plain PyTorch K5: ``deform_gather.sample_ref``, four gathers, each
     corner zero outside the map; differentiable by autograd (``floor`` has
     no gradient, which gives the one-sided position derivative).
-    Returns (N, P, K, Cg), contiguous."""
+    Returns (N, P, K, Cg), contiguous. A bf16 x_rows (f32 pyx) is sampled
+    in f32 and each value rounded once to bf16, as the kernel does; its
+    autograd then gives :func:`deform_rows_backward_plain`'s bf16
+    arithmetic."""
     n, cg, k, p = _check_rows(x_rows, pyx, h, w)
+    if x_rows.dtype == torch.bfloat16:
+        return deform_rows_plain(x_rows.float(), pyx, h, w).to(
+            torch.bfloat16)
     py, px = pyx[..., 0], pyx[..., 1]                       # (N, K, P)
     y0, x0 = torch.floor(py), torch.floor(px)
     out = 0.0
@@ -325,7 +332,13 @@ def deform_rows_plain(x_rows, pyx, h: int, w: int):
 
 def deform_rows_backward_plain(x_rows, pyx, dsampled, h: int, w: int):
     """Plain PyTorch K5c: (dx_rows, dpyx) of :func:`deform_rows_plain` for
-    the cotangent ``dsampled`` (N, P, K, Cg), by autograd."""
+    the cotangent ``dsampled`` (N, P, K, Cg), by autograd. bf16 x_rows and
+    dsampled (f32 pyx): the f32 sampling of their upcasts differentiated in
+    f32, dx summed in f32 and rounded once to bf16, dpyx f32."""
+    if x_rows.dtype == torch.bfloat16:
+        dx, dpyx = deform_rows_backward_plain(x_rows.float(), pyx,
+                                              dsampled.float(), h, w)
+        return dx.to(torch.bfloat16), dpyx
     with torch.enable_grad():
         xs, pp = (t.detach().requires_grad_(True) for t in (x_rows, pyx))
         out = deform_rows_plain(xs, pp, h, w)
@@ -336,7 +349,9 @@ def _rows_lib():
     lib = native.load("deform_rows")
     if lib.deform_rows_fwd_f32.argtypes is None:
         for fn, n_ptr in ((lib.deform_rows_fwd_f32, 3),
-                          (lib.deform_rows_bwd_f32, 5)):
+                          (lib.deform_rows_fwd_bf16, 3),
+                          (lib.deform_rows_bwd_f32, 5),
+                          (lib.deform_rows_bwd_bf16, 6)):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
@@ -344,15 +359,25 @@ def _rows_lib():
 
 
 def _rows_launch_args(x_rows, pyx, tensors):
-    """Checks of the CUDA path; returns the vec4 flag."""
+    """Checks of the CUDA path (``tensors``: x_rows, pyx and, backward,
+    dsampled); returns (bf16, vec): whether the bf16 kernels run, and
+    whether they take 16-byte vectors (4 f32 or 8 bf16 channels: Cg a
+    multiple of that and every pointer 16-byte aligned)."""
     if x_rows.device.type != "cuda":
         raise ValueError(f"no K5 kernel for device {x_rows.device}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("the K5 kernels take float32")
+    bf16 = x_rows.dtype == torch.bfloat16
+    if x_rows.dtype not in (torch.float32, torch.bfloat16) or \
+            pyx.dtype != torch.float32 or \
+            any(t.dtype != x_rows.dtype for t in tensors[2:]):
+        raise TypeError(f"the K5 kernels take float32 or bfloat16 x_rows "
+                        f"(and dsampled) with float32 pyx, got "
+                        f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x_rows, pyx and dsampled must be contiguous")
     cg = x_rows.shape[2]
-    return int(cg % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+    vec = 8 if bf16 else 4
+    return bf16, int(cg % vec == 0 and all(t.data_ptr() % 16 == 0
+                                           for t in tensors))
 
 
 def deform_rows(x_rows, pyx, h: int, w: int):
@@ -361,10 +386,12 @@ def deform_rows(x_rows, pyx, h: int, w: int):
     ``deform_gather.sample_bilinear_rows``.
 
     CPU tensors take :func:`deform_rows_plain`; CUDA tensors launch
-    ``csrc/deform_rows.cu`` (contiguous f32 only) and raise on anything it
-    does not take. The kernel records no gradient, so on CUDA it also raises
-    when one is wanted: differentiate through
-    ``deform_conv.deform_conv2d_rows``, whose backward is K5c.
+    ``csrc/deform_rows.cu`` (contiguous; f32, or a bf16 x_rows with f32
+    pyx, which gives bf16 samples) and raise on anything it does not take.
+    f32 calls count in ``launches``, bf16 calls in ``bf16_launches``. The
+    kernel records no gradient, so on CUDA it also raises when one is
+    wanted: differentiate through ``deform_conv.deform_conv2d_rows``, whose
+    backward is K5c.
     """
     if x_rows.device.type == "cpu":
         return deform_rows_plain(x_rows, pyx, h, w)
@@ -374,22 +401,26 @@ def deform_rows(x_rows, pyx, h: int, w: int):
         raise RuntimeError("deform_rows records no gradient on CUDA: "
                            "differentiate through "
                            "deform_conv.deform_conv2d_rows")
-    vec4 = _rows_launch_args(x_rows, pyx, (x_rows, pyx))
+    bf16, vec = _rows_launch_args(x_rows, pyx, (x_rows, pyx))
     out = torch.empty((n, p, k, cg), device=x_rows.device,
-                      dtype=torch.float32)
+                      dtype=x_rows.dtype)
     if out.numel() == 0:
         return out
     lib = _rows_lib()
-    with torch.cuda.device(x_rows.device):
-        code = lib.deform_rows_fwd_f32(
-            x_rows.data_ptr(), pyx.data_ptr(), out.data_ptr(), n, h, w, cg,
-            k, p, vec4, native.stream_ptr(x_rows.device))
+    launch = lib.deform_rows_fwd_bf16 if bf16 else lib.deform_rows_fwd_f32
+    with native.device_guard(x_rows.device):
+        code = launch(x_rows.data_ptr(), pyx.data_ptr(), out.data_ptr(), n,
+                      h, w, cg, k, p, vec, native.stream_ptr(x_rows.device))
     native.check_launch(lib, "deform_rows", code)
-    deform_rows.launches += 1
+    if bf16:
+        deform_rows.bf16_launches += 1
+    else:
+        deform_rows.launches += 1
     return out
 
 
 deform_rows.launches = 0
+deform_rows.bf16_launches = 0
 
 
 def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
@@ -398,7 +429,10 @@ def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
     the one-sided floor rule of ``deform_gather._dtent``. CPU tensors take
     :func:`deform_rows_backward_plain`; CUDA tensors zero dx and launch the
     kernel: dpyx gives the same bits on every call, dx's sums change order
-    (atomics)."""
+    (atomics). bf16 x_rows and dsampled (f32 pyx): dx is summed into an f32
+    scratch and rounded once to bf16 by the kernel's last launch; dpyx is
+    f32. f32 calls count in ``launches``, bf16 calls in
+    ``bf16_launches``."""
     if x_rows.device.type == "cpu":
         return deform_rows_backward_plain(x_rows, pyx, dsampled, h, w)
     n, cg, k, p = _check_rows(x_rows, pyx, h, w)
@@ -407,20 +441,32 @@ def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
         raise ValueError(f"dsampled {tuple(dsampled.shape)} on "
                          f"{dsampled.device} does not fit {(n, p, k, cg)} "
                          f"on {x_rows.device}")
-    vec4 = _rows_launch_args(x_rows, pyx, (x_rows, pyx, dsampled))
-    dx = torch.zeros_like(x_rows)
+    bf16, vec = _rows_launch_args(x_rows, pyx, (x_rows, pyx, dsampled))
+    dx32 = torch.zeros_like(x_rows, dtype=torch.float32)
+    dx = torch.empty_like(x_rows) if bf16 else dx32
     dpyx = torch.empty_like(pyx)
     if dsampled.numel() == 0:
-        return dx, dpyx.zero_()
+        return dx.zero_(), dpyx.zero_()
     lib = _rows_lib()
     with native.device_guard(x_rows.device):
-        code = lib.deform_rows_bwd_f32(
-            x_rows.data_ptr(), pyx.data_ptr(), dsampled.data_ptr(),
-            dx.data_ptr(), dpyx.data_ptr(), n, h, w, cg, k, p, vec4,
-            native.stream_ptr(x_rows.device))
+        stream = native.stream_ptr(x_rows.device)
+        if bf16:
+            code = lib.deform_rows_bwd_bf16(
+                x_rows.data_ptr(), pyx.data_ptr(), dsampled.data_ptr(),
+                dx32.data_ptr(), dx.data_ptr(), dpyx.data_ptr(), n, h, w,
+                cg, k, p, vec, stream)
+        else:
+            code = lib.deform_rows_bwd_f32(
+                x_rows.data_ptr(), pyx.data_ptr(), dsampled.data_ptr(),
+                dx.data_ptr(), dpyx.data_ptr(), n, h, w, cg, k, p, vec,
+                stream)
     native.check_launch(lib, "deform_rows", code)
-    deform_rows_backward.launches += 1
+    if bf16:
+        deform_rows_backward.bf16_launches += 1
+    else:
+        deform_rows_backward.launches += 1
     return dx, dpyx
 
 
 deform_rows_backward.launches = 0
+deform_rows_backward.bf16_launches = 0

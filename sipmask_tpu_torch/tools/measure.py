@@ -5,8 +5,10 @@
         sipmaskpp_r101_fpn_ssd_6x serve k5c train
     python -m sipmask_tpu_torch.tools.measure serve train \
         --dtype float32 bfloat16
+    python -m sipmask_tpu_torch.tools.measure --config sipmask_vis_r50 \
+        video train --dtype float32 bfloat16
 
-from the root of the checkout, with any of the six modes, in the order
+from the root of the checkout, with any of the seven modes, in the order
 given:
 
 - ``serve``: wall ms of single requests (800x1333; 544x544 for the
@@ -36,18 +38,28 @@ given:
   ``Detector.infer`` and of the model's forward, the host's enqueue time
   of a forward, its device time and kernel count, and its ops by host
   time (where a batch of 1 spends its time);
+- ``video`` (a tracking preset, SipMask-VIS): an in-memory video of 8
+  frames of 720x1280 (``chip_smoke.py`` phase 16's four moving shapes)
+  through ``run_video_inference``
+  at batch 1 a frame, tracked twice: ms a frame by section (``model`` with
+  the decode and the embeddings, ``track``, ``paste`` with the RLEs),
+  median over the frames of the second pass, with its peak memory; then a
+  ``torch.profiler`` trace of a third pass: kernel time a frame by owner
+  and the device's idle share;
 - ``train``: warm train steps at the preset's training shapes (800x1344,
-  batch 4; 576x576, batch 8) (median), their sections (forward, loss,
-  backward, optimizer), the peak memory, and a ``torch.profiler`` trace of
-  two steps: kernel time by owner (and the copy kernels' share of it) and
-  the device's idle share of the wall.
+  batch 4; 576x576, batch 8; VIS: 384x640, batch 4, with reference
+  frames) (median), their sections (forward, loss, backward, optimizer),
+  the peak memory, and a ``torch.profiler`` trace of two steps: kernel
+  time by owner (and the copy kernels' share of it) and the device's idle
+  share of the wall.
 
 ``--config`` names the preset, ``sipmask_r50_fpn_gn_1x`` by default; full
 width, random weights from seed 0, bumped as ``chip_smoke.py`` bumps them
 (and, for a norm-free head, frozen BN calibrated on the batch); TF32 off,
 bf16 products summed in f32 (no reduced-precision reductions) and cuDNN's
 benchmark mode on. ``--dtype`` gives the model's ``compute_dtype`` for
-``serve``, ``forward`` and ``train``, float32 by default; with several,
+``serve``, ``forward``, ``video`` and ``train``, float32 by default; with
+several,
 each mode runs once for each, in the order given (give it after the
 modes). Each profile also gives the share of
 the layout transposes around cuDNN's channels-last kernels (kernel names
@@ -73,6 +85,8 @@ LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # 800x1344
 # k5c: SipMask++'s DCN conv2 of each R101 stage at 576x576, (Cg, h, w)
 PP_DCN_TRAIN = [(128, 72, 72), (256, 36, 36), (512, 18, 18)]
 PP_BATCH = 8
+# video: chip_smoke.py phase 16's video, 8 frames of 720x1280
+VIDEO_FRAMES, VIDEO_HW = 8, (720, 1280)
 
 
 def log(*args):
@@ -404,17 +418,57 @@ def owners(prof, wall, unit):
             f"{name[:100]}")
 
 
+def video(dev, reps, config, dtype="float32"):
+    """A tracking preset's video: ms a frame by section, peak memory, and
+    a profiled pass's kernel time a frame by owner and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..apis.inference import init_detector
+    from ..apis.test_video import run_video_inference
+    from ..utils.demo_inputs import (MemoryVideo, bump_weights,
+                                     moving_shapes_video)
+
+    det = init_detector(preset(config, dtype), dev, seed=SEED)
+    if not det.cfg.model.head.track:
+        raise SystemExit(f"video: {config} does not track")
+    log(f"video {config}, compute_dtype {dtype}, {VIDEO_FRAMES} frames "
+        f"{VIDEO_HW}")
+    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+    clip = MemoryVideo(moving_shapes_video(VIDEO_FRAMES, *VIDEO_HW, SEED))
+    run_video_inference(det, clip, progress=False)   # cuDNN's search
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    run_video_inference(det, clip, progress=False, timings=timings)
+    for section, ms in timings.items():
+        report(f"{section} ms a frame", ms)
+    log(f"peak memory of the video: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = wall_ms(lambda: run_video_inference(det, clip,
+                                                   progress=False))
+    owners(prof, wall, f"video of {VIDEO_FRAMES} frames")
+
+
 def train(dev, reps, config, dtype="float32"):
     from torch.profiler import ProfilerActivity, profile
 
     from ..models.loss import compute_losses
     from ..train import create_train_state, make_train_step
-    from ..utils.demo_inputs import train_batch_for
+    from ..utils.demo_inputs import train_batch_for, vis_pair_batch
 
     cfg = preset(config, dtype)
     log(f"train {config}, compute_dtype {dtype}")
     state = create_train_state(cfg, dev, seed=SEED)
-    batch = train_batch_for(cfg, SEED, dev)
+    track = cfg.model.head.track
+    if track:   # current and reference frames at the preset's bucket
+        d = cfg.data
+        h, w = (-(-min(d.img_scale) // d.size_divisor) * d.size_divisor,
+                -(-max(d.img_scale) // d.size_divisor) * d.size_divisor)
+        batch = vis_pair_batch(cfg.train.imgs_per_device, h, w, d.max_gts,
+                               cfg.model.head.num_classes, SEED, dev)
+    else:
+        batch = train_batch_for(cfg, SEED, dev)
     prepare(state.model, cfg, batch["images"], training=True)
     rescore = state.model.rescore if cfg.model.head.rescoring else None
     log(f"train batch {tuple(batch['images'].shape)}")
@@ -433,7 +487,8 @@ def train(dev, reps, config, dtype="float32"):
         out, t = {}, time.perf_counter
         torch.cuda.synchronize()
         t0 = t()
-        heads = state.model(batch["images"])
+        heads = state.model(batch["images"],
+                            batch["ref_images"] if track else None)
         torch.cuda.synchronize()
         out["forward"] = t() - t0
         t0 = t()
@@ -467,14 +522,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("modes", nargs="+",
                     choices=("serve", "forward", "k4a", "k4b", "k5c",
-                             "train"))
+                             "video", "train"))
     ap.add_argument("--config", default=CONFIG,
                     help="the preset to measure")
     ap.add_argument("--reps", type=int, default=7,
                     help="timed repetitions of a request, batch or step")
     ap.add_argument("--dtype", nargs="+", default=["float32"],
                     choices=("float32", "bfloat16"),
-                    help="compute_dtype of serve and train, each in turn")
+                    help="compute_dtype of serve, forward, video and "
+                         "train, each in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
@@ -491,7 +547,8 @@ def main(argv=None):
             {"k4a": k4a, "k4b": k4b, "k5c": k5c}[mode](dev)
             continue
         for dtype in args.dtype:
-            {"serve": serve, "forward": forward, "train": train}[mode](
+            {"serve": serve, "forward": forward, "video": video,
+             "train": train}[mode](
                 dev, args.reps, args.config, dtype)
 
 

@@ -3,7 +3,8 @@
 the port's CLIs on one device:
 
     python -m sipmask_tpu_torch.tools.overfit --out-dir build/overfit \\
-        [--legs flagship rescoring vis flagship_bf16]
+        [--legs flagship rescoring vis flagship_bf16 rescoring_bf16 \
+                vis_bf16]
 
 Each leg writes its synthetic set, then runs ``tools/train.py`` and the
 leg's test CLI on a checkpoint, each as its own process with the
@@ -13,9 +14,9 @@ protocol's flags:
   / slab set (8 images of 256x256, seed 0, ``tools/synth_coco.py
   --shapes``), 800 steps, ``tools/test.py`` on the last checkpoint;
 - ``rescoring``: the same with ``model.head.rescoring=True`` at seed 1;
-- ``flagship_bf16``: the flagship leg with ``model.compute_dtype=bfloat16``
-  in training and test (not among the default legs: the JAX artifacts
-  hold no bf16 run);
+- ``flagship_bf16``, ``rescoring_bf16``, ``vis_bf16``: those legs with
+  ``model.compute_dtype=bfloat16`` in training and test (not among the
+  default legs: the JAX artifacts hold no bf16 run);
 - ``vis``: ``sipmask_vis_r50`` at seed 1 on ``tools/synth_ytvis.py``'s 4
   videos of 4 frames at 256x256 (seed 0), ``max_gts`` 4, 1800 steps (2 an
   epoch), ``tools/test_video.py --eval`` on epoch 900.
@@ -74,13 +75,6 @@ LEGS = {
         train=IMAGE_TRAIN, test=("test", IMAGE_TEST), steps=800, epoch=800,
         cols=("loss_cls", "loss_bbox", "loss_mask", "loss_total"),
         at=(50, 100, 200, 300, 400, 500, 600, 700, 800)),
-    "flagship_bf16": dict(
-        config="sipmask_r50_fpn_gn_1x", data="coco", seed=0,
-        train=IMAGE_TRAIN + ["model.compute_dtype=bfloat16"],
-        test=("test", IMAGE_TEST + ["model.compute_dtype=bfloat16"]),
-        steps=800, epoch=800,
-        cols=("loss_cls", "loss_bbox", "loss_mask", "loss_total"),
-        at=(50, 100, 200, 300, 400, 500, 600, 700, 800)),
     "rescoring": dict(
         config="sipmask_r50_fpn_gn_1x", data="coco", seed=1,
         train=IMAGE_TRAIN + ["model.head.rescoring=True"],
@@ -95,6 +89,11 @@ LEGS = {
               "match_acc"),
         at=(50, 100, 400, 600, 900, 1200, 1800)),
 }
+BF16 = ["model.compute_dtype=bfloat16"]
+LEGS.update({f"{leg}_bf16": dict(
+    LEGS[leg], train=LEGS[leg]["train"] + BF16,
+    test=(LEGS[leg]["test"][0], LEGS[leg]["test"][1] + BF16))
+    for leg in ("flagship", "rescoring", "vis")})
 
 
 def run(cmd, log_path):

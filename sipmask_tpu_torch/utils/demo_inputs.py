@@ -190,7 +190,9 @@ def calibrate_frozen_bn(backbone, images):
     (~5e6 at R101's C5), which saturates every score of a norm-free head.
     Each channel's variance gets the layer's mean variance added, so that a
     channel with almost no spread is not scaled up by orders of magnitude:
-    without that floor, f32 rounding grows ~1000x through R101.
+    without that floor, f32 rounding grows ~1000x through R101. The
+    statistics come from the f32 parameters in the images' dtype, whatever
+    the model's compute dtype: a bf16 model gets the f32 model's BN.
     """
     from ..models.layers import FrozenBatchNorm2d
 
@@ -211,7 +213,8 @@ def calibrate_frozen_bn(backbone, images):
     for stage in range(4):
         for blk in getattr(bb, f"layer{stage + 1}"):
             out = torch.relu(_bn(fit(blk.bn1, conv(x, blk.conv1)), blk.bn1))
-            raw2 = (blk.conv2(out) if hasattr(blk.conv2, "conv_offset")
+            raw2 = (blk.conv2(out, out.dtype)
+                    if hasattr(blk.conv2, "conv_offset")
                     else conv(out, blk.conv2))
             out = torch.relu(_bn(fit(blk.bn2, raw2), blk.bn2))
             out = _bn(fit(blk.bn3, conv(out, blk.conv3)), blk.bn3)
@@ -224,3 +227,46 @@ def calibrate_frozen_bn(backbone, images):
 def _bn(x, bn):
     scale, bias = bn.affine()
     return x * scale[:, None, None] + bias[:, None, None]
+
+
+def moving_shapes_video(n_frames, h, w, seed):
+    """An in-memory video of BGR uint8 frames: dark noise and four shapes
+    (two ellipses, two boxes) moving linearly; the first ellipse and the
+    first box start half a frame apart on one row and swap places."""
+    rng = np.random.RandomState(seed)
+    size = np.array([w, h], np.float64)
+    start = rng.uniform(0.15, 0.85, (4, 2)) * size
+    vel = rng.uniform(-0.06, 0.06, (4, 2)) * size
+    start[0] = (0.25 * w, 0.5 * h)
+    start[1] = (0.75 * w, 0.5 * h)
+    vel[0] = (0.5 * w / (n_frames - 1), 0.0)
+    vel[1] = -vel[0]
+    axes = rng.uniform(0.05, 0.12, (4, 2)) * size
+    colors = rng.randint(90, 255, (4, 3))
+    yy, xx = np.mgrid[:h, :w]
+    frames = []
+    for f in range(n_frames):
+        img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+        for k in range(4):
+            (cx, cy), (a, b) = start[k] + vel[k] * f, axes[k]
+            if k % 2 == 0:   # ellipses
+                m = ((xx - cx) / a) ** 2 + ((yy - cy) / b) ** 2 <= 1
+            else:
+                m = (np.abs(xx - cx) <= a) & (np.abs(yy - cy) <= b)
+            img[m] = colors[k]
+        frames.append(img)
+    return frames
+
+
+class MemoryVideo:
+    """One video held in memory, with ``YTVOSDataset``'s test interface
+    (``run_video_inference`` takes it)."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def iter_videos(self):
+        yield 1, 0, len(self.frames)
+
+    def load_frame(self, vid_idx, frame_id):
+        return self.frames[frame_id]

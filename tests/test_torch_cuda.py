@@ -908,3 +908,90 @@ def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(dev):
     _, stats = gn_relu.gn_relu_forward(xb, wt, bs, 4)
     with pytest.raises(ValueError, match="dy"):   # f32 dy with bf16 x
         gn_relu.gn_relu_backward(xb, wt, bs, stats, x, 4, True)
+
+
+@pytest.mark.parametrize("n,h,w,cg,k,regime,misalign", [
+    (2, 17, 17, 512, 9, "random", False),  # layer4 at 544: 16-byte vectors
+    (2, 68, 68, 128, 9, "random", False),  # layer2 at 544
+    (2, 34, 34, 256, 9, "zero", False),    # every position on the grid
+    (2, 36, 36, 256, 9, "6px", False),
+    (1, 9, 7, 12, 9, "random", False),     # Cg % 8 != 0: scalars
+    (1, 9, 7, 6, 9, "6px", False),
+    (2, 17, 17, 64, 9, "random", True),    # Cg % 8 == 0, pointers not
+])                                          # 16-byte aligned: scalars
+def test_bf16_deform_rows_kernels_match_plain(dev, n, h, w, cg, k, regime,
+                                              misalign):
+    """K5 and K5c in bf16 (bf16 x_rows and dsampled, f32 positions; a third
+    of the random positions +-300 px out) against their plain bf16
+    versions, each output within one bf16 unit of its max; d positions the
+    same bits on every call."""
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    p = h * w
+    x, pyx, g = _rows_case(dev, n, h, w, cg, k, p, regime, seed=5)
+    x, g = x.to(BF16), g.to(BF16)
+    if misalign:   # the same values one element into a buffer
+        buf = torch.empty(x.numel() + 1, device=dev, dtype=BF16)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(x.shape)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    before = (ds.deform_rows.bf16_launches,
+              ds.deform_rows_backward.bf16_launches,
+              ds.deform_rows.launches, ds.deform_rows_backward.launches)
+    got = ds.deform_rows(x, pyx, h, w)
+    dx, dp = ds.deform_rows_backward(x, pyx, g, h, w)
+    again = ds.deform_rows_backward(x, pyx, g, h, w)[1]
+    torch.cuda.synchronize()
+    assert (ds.deform_rows.bf16_launches,
+            ds.deform_rows_backward.bf16_launches,
+            ds.deform_rows.launches, ds.deform_rows_backward.launches) == (
+        before[0] + 1, before[1] + 2, before[2], before[3])
+    assert (got.dtype, dx.dtype, dp.dtype) == (BF16, BF16, torch.float32)
+    _close_to_max([got], [ds.deform_rows_plain(x, pyx, h, w)])
+    _close_to_max([dx, dp], ds.deform_rows_backward_plain(x, pyx, g, h, w))
+    assert torch.equal(dp, again)
+    if regime == "zero":   # the one-sided rule at integer positions
+        assert float(dp.abs().max()) > 0
+
+
+@pytest.mark.parametrize("cg", [64, 6])
+def test_bf16_deform_rows_backward_kernels(dev, cg):
+    """A bf16 K5c call is the zeroing of its f32 dx, its scatter kernel
+    and the kernel that rounds dx once to bf16, and no other device
+    work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    h = w = 18
+    x, pyx, g = _rows_case(dev, 2, h, w, cg, 9, h * w, "random", seed=7)
+    x, g = x.to(BF16), g.to(BF16)
+    ds.deform_rows_backward(x, pyx, g, h, w)   # builds
+    torch.cuda.synchronize()
+    sessions = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            ds.deform_rows_backward(x, pyx, g, h, w)
+            torch.cuda.synchronize()
+        sessions.append([e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and "spin_kernel" not in e.name])
+    assert all(len(names) <= 3 for names in sessions), sessions
+    names = max(sessions, key=len)
+    assert len(names) == 3, sessions
+    for part in ("deform_rows_bwd_kernel", "round_bf16_kernel",
+                 "FillFunctor"):
+        assert sum(part in n for n in names) == 1, (part, names)
+
+
+def test_bf16_rows_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from sipmask_tpu_torch.ops import deform_sample as ds
+    x, pyx, g = _rows_case(dev, 1, 6, 5, 8, 9, 30, "random")
+    xb, gb = x.to(BF16), g.to(BF16)
+    with pytest.raises(TypeError):    # bf16 positions
+        ds.deform_rows(xb, pyx.to(BF16), 6, 5)
+    with pytest.raises(TypeError):    # f32 dsampled with bf16 x_rows
+        ds.deform_rows_backward(xb, pyx, g, 6, 5)
+    with pytest.raises(TypeError):    # bf16 dsampled with f32 x_rows
+        ds.deform_rows_backward(x, pyx, gb, 6, 5)

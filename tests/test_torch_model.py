@@ -105,9 +105,9 @@ def test_unported_configs_raise():
     from sipmask_tpu.config import _r
     for cfg in (get_config("sipmask_x101_fpn_gn_ms_2x"),
                 get_config("sipmask_hrnet_w32_fpn_gn_1x"),
-                _r(get_config("sipmask_vis_r50"), "model",
+                _r(get_config("sipmask_x101_fpn_gn_ms_2x"), "model",
                    compute_dtype="bfloat16"),
-                _r(get_config("sipmaskpp_r101_fpn_ssd_6x"), "model",
+                _r(get_config("sipmask_hrnet_w32_fpn_gn_1x"), "model",
                    compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             build_model(cfg.model)
