@@ -4,12 +4,14 @@ NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It drives four presets at full width with random weights from a seed
+It drives seven presets at full width with random weights from a seed
 through the port's entry points, serving and then training each: the
 high-accuracy ``sipmask_r50_fpn_gn_1x``, SipMask++
 ``sipmaskpp_r101_fpn_ssd_6x``, the real-time ``sipmask_r50_fpn_ssd_6x`` and
 SipMask-VIS ``sipmask_vis_r50``, then all four again with
-``compute_dtype="bfloat16"``.
+``compute_dtype="bfloat16"``; then ResNeXt-101 ``sipmask_x101_fpn_gn_ms_2x``
+and HRNet-W32 ``sipmask_hrnet_w32_fpn_gn_1x`` in f32 and bf16, and the
+SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
 
 1. finds the card (no CUDA is an error), prints ``nvidia-smi``'s name and
    power limit and the backend flags it sets (TF32 off: plain f32; bf16
@@ -153,16 +155,32 @@ SipMask-VIS ``sipmask_vis_r50``, then all four again with
     bounds of phase 20, the matched detections' object ids too), and
     trains it in bf16 for 3 steps at 384x640, batch 4, with reference
     frames (first step kernels vs plain: losses and gradients within
-    stated bounds).
+    stated bounds);
+27. serves ResNeXt-101 32x4d (grouped conv2s) as phases 4-5 (3 requests at
+    800x1333, a batch of 4 at 800x1344 twice, then plain) and trains it as
+    phases 7-8 (3 SGD steps at batch 4, then plain), each path with one
+    more batch or step under the profiler (peak memory, the device's idle
+    share); then one bf16 batch twice with plain and f32 comparisons as
+    phase 20, and 3 bf16 steps as phase 21;
+28. the same for HRNet-W32 with HRFPN (levels 100x168 ... 12x21, 6x10:
+    floor pools), its first step with every K1, K2, K4a and K4b call held
+    against its plain version on the call's own inputs (CHECKED_TOL), and
+    those calls replayed through each kernel and its plain version in
+    turns (ms a five-level sweep at HRFPN's shapes);
+29. trains the benchmark fork (GIoU on ltrb, the NMS-0.9 dedup of the mask
+    positives, the x0.5 cap) as phase 7-8, logging the dedup's selected and
+    kept positives and its ms, the kept counts of the kernel and plain runs
+    compared (within 1%, and fewer kept than selected), then serves it as
+    phases 4-5 (hard NMS at IoU 0.6).
 
 Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20-22 and
-24-26) is driven with every launch count set to 0 just before it and read
+24-29) is driven with every launch count set to 0 just before it and read
 just after;
 a kernel of the path that did not launch fails the run, and so does an f32
 kernel variant on a bf16 path. Any failure raises (non-zero exit, no
 result). Each phase's seconds are logged. The second-to-last line is a JSON
 object of the kernels, the six bf16 variants as kernels of their own
-(launches summed over the twenty paths, with each path's count beside them;
+(launches summed over the thirty paths, with each path's count beside them;
 errors and times from phases 3, 6, 9, 19 and 23; each kernel's bound and a
 one-call PyTorch equivalent's time where there is one); the last is the
 device line.
@@ -201,6 +219,16 @@ LOSS_TOL = 1e-4   # relative: forward values differ by the kernels' rounding
 # backward of ~70 layers, and cuDNN's algorithm picks in the two runs
 GRAD_TOL = 1e-3
 MASK_HW, MAX_POS, MAX_GTS, TRAIN_STEPS = (400, 672), 512, 64, 3
+# phases 27-29: the last three image presets, at the flagship's shapes
+X101_CONFIG = "sipmask_x101_fpn_gn_ms_2x"
+HR_CONFIG = "sipmask_hrnet_w32_fpn_gn_1x"
+FORK_CONFIG = "sipmask_benchmark_r50_fpn_1x"
+# each K1, K2, K4a and K4b call of an HRNet step against its plain version
+# on the call's own inputs, relative to each output's max: phase 3's K1
+# bound; K2 and K4 ten times phase 6's, as the path's activations span
+# more magnitudes than phase 6's unit normals
+CHECKED_TOL = {"deform_im2col": 1e-5, "deform_conv_backward": 1e-4,
+               "gn_relu_forward": 1e-4, "gn_relu_backward": 1e-4}
 PP_CONFIG = "sipmaskpp_r101_fpn_ssd_6x"
 PP_HW, PP_TRAIN_HW, PP_BATCH, PP_MAX_POS = (544, 544), (576, 576), 8, 256
 # the R101 DCN stages' conv2 at 544x544 (serving) and 576x576 (training):
@@ -265,6 +293,22 @@ BF16_KERNEL_TOL = 2.0 ** -7
 # 7.2e-3 to 7.6e-3; the limits are about three times the readings
 BF16_HEAD_TOL = 2e-2
 BF16_MATCH, BF16_MATCH_MIN = (1.0, 1e-2), 0.9
+# HRNet-W32 in bf16, kernels vs plain: the same one-unit differences of K1
+# and K4a in the head (each call held within BF16_KERNEL_TOL on its own
+# inputs: read 2.8e-3 to 5.0e-3) move more of its detections past
+# BF16_MATCH than the flagship's: 0.81-1.0 of an image's matched in three
+# calls (head outputs 8.2e-3 to 1.0e-2 apart); the limit lets about 2.5
+# times the largest miss share (0.19) through
+BF16_HR_MATCH_MIN = 0.5
+# and its first step: each K1, K2, K4a and K4b call within BF16_KERNEL_TOL
+# of its plain version on its own inputs (read 1.8e-3 to 5.3e-3); the
+# head's one-unit differences then reach the stem through HRNet's backward
+# (~250 convs): loss_mask 7.4e-5 and 1.3e-4 relative in two calls,
+# gradients 3.5e-2 and 3.6e-2 of a tensor's max at the stem's conv2 (the
+# rest up to 2.1e-2, the median over the tensors 4.4e-3 and 4.5e-3). About
+# three to four times the readings
+BF16_HR_LOSS_TOL, BF16_HR_GRAD_TOL = 5e-4, 0.1
+BF16_HR_GRAD_MEDIAN_TOL = 1.5e-2
 BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-4, 2.5e-2
 # SipMask++ in bf16, kernels vs plain. Every K5 and K5c call of the path is
 # held against its plain version on the call's own inputs within
@@ -374,6 +418,14 @@ PATH_KERNELS = {   # the kernels each driven path must launch
                           "mask_bce_forward", "mask_bce_backward",
                           "gn_relu_bf16", "gn_relu_backward_bf16"),
 }
+# ResNeXt-101, HRNet-W32 with HRFPN and the benchmark fork run the
+# flagship's kernels on each path
+for _p in ("x101", "hrnet", "fork"):
+    for _kind in ("serving", "training"):
+        PATH_KERNELS[f"{_p} {_kind}"] = PATH_KERNELS[f"hi-acc {_kind}"]
+        if _p != "fork":
+            PATH_KERNELS[f"{_p} bf16 {_kind}"] = \
+                PATH_KERNELS[f"hi-acc bf16 {_kind}"]
 # the f32 variants, none of which a bf16 path may launch
 F32_VARIANTS = ("deform_im2col", "deform_conv_backward", "gn_relu",
                 "gn_relu_backward", "deform_rows", "deform_rows_backward")
@@ -1184,7 +1236,8 @@ def check_bf16_head(head):
 
 def bf16_serving(dev, name, smi, label, preset, imgs, batch_n, path,
                  prepare=None, f32_tol=BF16_F32_TOL, pin=False,
-                 head_tol=BF16_HEAD_TOL, match_min=BF16_MATCH_MIN):
+                 head_tol=BF16_HEAD_TOL, match_min=BF16_MATCH_MIN,
+                 checked=()):
     """The serving path of ``preset`` in bf16: 3 requests through
     ``inference_detector`` (``imgs[:3]``), a batch of ``batch_n``
     (``imgs[3:]``) twice through ``Detector.infer``, launches counted; then
@@ -1199,7 +1252,8 @@ def bf16_serving(dev, name, smi, label, preset, imgs, batch_n, path,
     and that run and the plain run have the backbone's ReLUs and DCN
     sampling floors pinned to those of one plain forward
     (:func:`plain_pins`); how far the f32 forward's lie from them is
-    logged."""
+    logged. ``checked``: kernel wrappers (no pins) whose every call is held
+    against its plain version on the same inputs in such a rerun."""
     from sipmask_tpu_torch.apis.inference import (inference_detector,
                                                   init_detector, preprocess)
     from sipmask_tpu_torch.utils.demo_inputs import bump_weights
@@ -1283,6 +1337,10 @@ def bf16_serving(dev, name, smi, label, preset, imgs, batch_n, path,
             f"max relative error "
             f"{', '.join(f'{e:.2e}' for e in errs['deform_rows'])} (tol "
             f"{BF16_KERNEL_TOL})")
+    elif checked:
+        with checked_calls(checked) as errs:
+            head_k, dec_k = run_batch(det, batch, capture)
+        log_checked(label, errs)
     before = read_launches()
     with plain_kernels(), pin_plain():
         head_p, dec_p = run_batch(det, batch, capture)
@@ -1356,6 +1414,46 @@ def phase_bf16_rt_serving(dev, name, smi):
         f32_tol=None)
 
 
+def phase_bf16_preset_train(dev, name, smi, label, preset):
+    """Phases 27e and 28e: ``preset`` in bf16, as phase 21 trains the
+    flagship, each K1, K2, K4a and K4b call of the kernels' first step held
+    within BF16_KERNEL_TOL of its plain version on the same inputs; HRNet
+    with its own end-to-end bounds (BF16_HR_*)."""
+    from sipmask_tpu_torch.utils.demo_inputs import train_batch
+    hr = preset == HR_CONFIG
+    return bf16_train(dev, name, smi, f"bf16 {label}", preset,
+                      f"{label} bf16 training",
+                      lambda cfg: train_batch(BATCH, 800, 1344, MAX_GTS, SEED,
+                                              dev),
+                      ("bbox_head.feat_align.conv_offset.weight",),
+                      loss_tol=BF16_HR_LOSS_TOL if hr else BF16_LOSS_TOL,
+                      grad_tol=BF16_HR_GRAD_TOL if hr else BF16_GRAD_TOL,
+                      grad_median_tol=BF16_HR_GRAD_MEDIAN_TOL if hr else None,
+                      checked=("deform_im2col", "deform_conv_backward",
+                               "gn_relu_forward", "gn_relu_backward"))
+
+
+def time_recorded(record, path):
+    """K1, K2, K4a and K4b at the path's own shapes: the calls of one step
+    recorded by :func:`checked_calls`, replayed through each kernel and its
+    plain version in turns; ms a five-level sweep (a step's calls over the
+    five levels)."""
+    specs = checkable()
+    for n, calls in record.items():
+        mod, plain, _ = specs[n]
+        kern = getattr(mod, n)
+        with torch.no_grad():   # the forward wrappers record no gradient
+            k, p = turns(f"{n}, the {len(calls)} calls of one {path} step",
+                         lambda: [plain(*a) for a in calls],
+                         lambda: [kern(*a) for a in calls], iters=3)
+        sweeps = len(calls) / 5
+        shapes = sorted({tuple(a[0].shape[2:]) for a in calls})
+        log(f"{n} at the {path} shapes {shapes}: kernel {k / sweeps:.4f} "
+            f"ms, plain {p / sweeps:.4f} ms a five-level sweep")
+    record.clear()
+    torch.cuda.empty_cache()
+
+
 def phase_bf16_train(dev, name, smi):
     """Phase 21: the flagship in bf16: TRAIN_STEPS SGD steps at 800x1344,
     batch 4, launches counted, losses, frozen stages and f32 gradients
@@ -1370,7 +1468,7 @@ def phase_bf16_train(dev, name, smi):
 def bf16_train(dev, name, smi, label, preset, path, make_batch, trains,
                calibrate=False, pin=False, loss_tol=BF16_LOSS_TOL,
                loss_tols=None, grad_tol=BF16_GRAD_TOL,
-               grad_median_tol=None):
+               grad_median_tol=None, checked=()):
     """The train step of ``preset`` in bf16: TRAIN_STEPS SGD steps on
     ``make_batch(cfg)``, launches counted (no f32 variant), finite losses
     with loss_mask > 0, frozen stages unchanged, f32 parameters with
@@ -1385,6 +1483,7 @@ def bf16_train(dev, name, smi, label, preset, path, make_batch, trains,
     plain forward (:func:`plain_pins`; how far the f32 forward's lie is
     logged), and each K5 and K5c call of the kernels' step is held
     against its plain version on the same inputs (:func:`checked_calls`).
+    ``checked``: kernel wrappers (no pins) held so in the kernels' step.
     """
     from sipmask_tpu_torch.config import get_config
     from sipmask_tpu_torch.train import create_train_state, make_train_step
@@ -1462,14 +1561,16 @@ def bf16_train(dev, name, smi, label, preset, path, make_batch, trains,
             if pin:
                 moved = stack.enter_context(pinned(state.model.backbone,
                                                    *pins))
-            if pin and run == "kernels":
+            if (pin or checked) and run == "kernels":
                 errs = stack.enter_context(checked_calls(
-                    ("deform_rows", "deform_rows_backward")))
+                    checked or ("deform_rows", "deform_rows_backward")))
             vals, _ = run_step(step, batch, f"{label} {run} train step 0"
                                + how, name, smi)
         if pin:
             log(f"{label} {run}: positions moved per DCN conv {moved}")
-        if pin and run == "kernels":
+        if checked and run == "kernels":
+            log_checked(label, errs)
+        elif pin and run == "kernels":
             log(f"{label}: each K5 and K5c call of the step against its "
                 f"plain version on the same inputs, max relative error "
                 + "; ".join(f"{n} " + ", ".join(f"{e:.2e}" for e in v)
@@ -1518,20 +1619,33 @@ def run_step(step, batch, label, name, smi):
     return vals, ms
 
 
-def phase_train(dev, name, smi):
-    """Phases 7 and 8: TRAIN_STEPS SGD steps with the kernels, then the
-    first step again from the same weights with the plain versions."""
+def phase_train(dev, name, smi, preset=CONFIG, path="hi-acc training",
+                checked=(), record=None, profile=False, reg_bias=None):
+    """Phases 7 and 8: TRAIN_STEPS SGD steps of ``preset`` with the kernels,
+    then the first step again from the same weights with the plain
+    versions. ``checked``: kernel wrappers whose every call of the first
+    step is held against its plain version on the call's own inputs
+    (:func:`checked_calls`, CHECKED_TOL; ``record`` keeps their
+    arguments). ``profile``: one more step under ``torch.profiler`` gives
+    the device's idle share. With the benchmark fork's loss, the dedup's
+    counts and ms are logged and its kept counts compared. ``reg_bias``:
+    the fcos_reg bias in place of bump_weights' 2 (distances of reg_bias
+    strides a side)."""
     from sipmask_tpu_torch.config import get_config
     from sipmask_tpu_torch.train import create_train_state, make_train_step
     from sipmask_tpu_torch.utils.demo_inputs import bump_weights, train_batch
 
-    cfg = get_config(CONFIG)
+    cfg = get_config(preset)
+    fork = cfg.model.head.benchmark_loss_extras
     if (cfg.train.max_pos, cfg.data.max_gts, cfg.train.imgs_per_device) != (
             MAX_POS, MAX_GTS, BATCH):
         raise AssertionError("the preset's max_pos, max_gts or batch moved")
     # ---- 7. the train step
     state = create_train_state(cfg, dev, seed=SEED)
     bump_weights(state.model, torch.Generator().manual_seed(SEED))
+    if reg_bias is not None:
+        with torch.no_grad():
+            state.model.bbox_head.fcos_reg.bias.fill_(reg_bias)
     init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     params = dict(state.model.named_parameters())
     frozen = {n: p.detach().clone() for n, p in params.items()
@@ -1546,7 +1660,15 @@ def phase_train(dev, name, smi):
     torch.cuda.reset_peak_memory_stats()
     losses, peaks = [], []
     for i in range(TRAIN_STEPS):
-        vals, _ = run_step(step, batch, f"train step {i}", name, smi)
+        with contextlib.ExitStack() as stack:
+            if i == 0 and checked:
+                errs = stack.enter_context(checked_calls(
+                    checked, CHECKED_TOL, record))
+            if i == 0 and fork:
+                dedup_k = stack.enter_context(dedup_counts())
+            vals, _ = run_step(step, batch, f"{path} step {i}", name, smi)
+        if i == 0 and checked:
+            log_checked(f"{path} step 0 (tol {CHECKED_TOL})", errs)
         losses.append(vals)
         if i == 0:
             first_grads = {n: p.grad.detach().clone()
@@ -1554,7 +1676,7 @@ def phase_train(dev, name, smi):
         peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         torch.cuda.reset_peak_memory_stats()
     launches = read_launches()
-    check_path_launches("hi-acc training", launches)
+    check_path_launches(path, launches)
     log("peak device memory per train step (torch.cuda.max_memory_allocated;"
         " step 0 holds cuDNN's algorithm search): " + ", ".join(
             f"{p:.2f} GiB" for p in peaks))
@@ -1576,18 +1698,31 @@ def phase_train(dev, name, smi):
     log(f"max |grad| of feat_align.conv_offset: {off_g:.3e}")
     if not off_g > 0:
         raise AssertionError("feat_align.conv_offset has a zero gradient")
-    log("train checks passed: finite losses, loss_mask > 0, frozen stages "
-        "unchanged, finite gradients everywhere")
+    log(f"{path} checks passed: finite losses, loss_mask > 0, frozen "
+        f"stages unchanged, finite gradients everywhere")
+    if profile:
+        idle_share(f"{path} step", lambda: step(batch), name, smi)
     del state, step, params
     torch.cuda.empty_cache()
 
     # ---- 8. the first step again with the plain versions
     state = create_train_state(cfg, dev, state_dict=init)
     step = make_train_step(state, cfg)
-    with plain_kernels():
-        vals, _ = run_step(step, batch, "plain train step 0", name, smi)
-    if read_launches() != launches:
+    before = read_launches()
+    with plain_kernels(), (dedup_counts() if fork
+                           else contextlib.nullcontext()) as dedup_p:
+        vals, _ = run_step(step, batch, f"{path} plain step 0", name, smi)
+    if read_launches() != before:
         raise AssertionError("the plain train step launched a kernel")
+    if fork:
+        log(f"{path}: the dedup (NMS-0.9 over each image's selected "
+            f"positives) in step 0, (selected, kept, ms) kernels "
+            f"{dedup_k}, plain {dedup_p}")
+        kept_k, kept_p = dedup_k[0][1], dedup_p[0][1]
+        if not (dedup_k[0][0] == dedup_p[0][0] and kept_k < dedup_k[0][0]
+                and abs(kept_k - kept_p) <= max(2, 0.01 * kept_p)):
+            raise AssertionError(f"the dedup's counts disagree or it kept "
+                                 f"every positive: {dedup_k} vs {dedup_p}")
     worst_loss = max(abs(vals[k] - losses[0][k]) / max(abs(vals[k]), 1e-12)
                      for k in vals)
     log(f"losses, kernels vs plain: max relative difference "
@@ -1706,16 +1841,18 @@ def matched_share(a, b, i, box_px=0.01, score_abs=1e-4):
     return float(same.any(1).float().mean())
 
 
-def phase_serving(dev, name, smi):
-    """Phases 4 and 5: the serving path with the kernels, then the same
-    batch with the plain versions."""
+def phase_serving(dev, name, smi, preset=CONFIG, path="hi-acc serving",
+                  profile=False):
+    """Phases 4 and 5: the serving path of ``preset`` with the kernels,
+    then the same batch with the plain versions. ``profile``: one more
+    batch under ``torch.profiler`` gives the device's idle share."""
     from sipmask_tpu_torch.apis.inference import (inference_detector,
                                                   init_detector, preprocess)
     from sipmask_tpu_torch.utils.demo_inputs import bump_weights
 
     # ---- 4. the serving path
     gen = torch.Generator().manual_seed(SEED)
-    det = init_detector(CONFIG, dev, seed=SEED)
+    det = init_detector(preset, dev, seed=SEED)
     bump_weights(det.model, gen)
     rng = np.random.RandomState(SEED)
     imgs = [(rng.rand(*IMAGE_HW, 3) * 255).astype(np.uint8)
@@ -1735,20 +1872,22 @@ def phase_serving(dev, name, smi):
         res = inference_detector(det, imgs[i])
         ms = (time.perf_counter() - t0) * 1e3
         n = len(res["labels"])
-        log(f"request {i}: {IMAGE_HW} image -> {n} detections, masks "
-            f"{res['masks'].shape}, {ms:.1f} ms wall on {name} ({smi})")
+        log(f"{path} request {i}: {IMAGE_HW} image -> {n} detections, "
+            f"masks {res['masks'].shape}, {ms:.1f} ms wall on {name} ({smi})")
         if n == 0 or not np.isfinite(res["boxes"]).all():
             raise AssertionError(f"request {i}: no valid or finite result")
         if res["masks"].shape != (n, *IMAGE_HW):
             raise AssertionError(f"request {i}: masks {res['masks'].shape}")
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):   # the first run is the first at the batch shapes
         t0 = time.perf_counter()
         head_k, dec_k = run_batch(det, batch, capture)
         ms = (time.perf_counter() - t0) * 1e3
-        log(f"batch of {tuple(images.shape)} through Detector.infer: "
-            f"{ms:.1f} ms wall on {name} ({smi})")
+        log(f"{path} batch of {tuple(images.shape)} through Detector.infer: "
+            f"{ms:.1f} ms wall on {name} ({smi}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     launches = read_launches()
-    check_path_launches("hi-acc serving", launches)
+    check_path_launches(path, launches)
     valid = dec_k["valid"].sum(1).tolist()
     log(f"valid detections per image of the batch: {valid}")
     if min(valid) <= 0:
@@ -1782,7 +1921,55 @@ def phase_serving(dev, name, smi):
     if min(shares) < MATCH_MIN or \
             dec_k["valid"].sum(1).tolist() != dec_p["valid"].sum(1).tolist():
         raise AssertionError("decoded detections disagree")
+    if profile:
+        idle_share(f"{path} batch", lambda: run_batch(det, batch, capture),
+                   name, smi)
+    del det
+    torch.cuda.empty_cache()
     return launches
+
+
+def idle_share(label, fn, name, smi):
+    """Log the wall ms, the device's busy ms (the union of its kernels'
+    intervals) and idle share of one fn() under ``torch.profiler`` (after
+    a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    from sipmask_tpu_torch.tools.measure import busy_ms, kernel_events
+    busy = busy_ms(kernel_events(prof))
+    log(f"{label} under the profiler: {wall:.1f} ms wall, device busy "
+        f"{busy:.1f} ms (kernel time {device_busy_ms(prof):.1f} ms), "
+        f"device idle share {1 - busy / wall:.3f} on {name} ({smi})")
+
+
+@contextlib.contextmanager
+def dedup_counts():
+    """Within the context each call of the loss's ``hard_nms`` (the
+    benchmark fork's NMS-0.9 dedup) is timed to a synchronise and its
+    counts kept: yields a list of (selected positives, kept, ms)."""
+    import sipmask_tpu_torch.models.loss as loss_mod
+    from sipmask_tpu_torch.ops.nms import NEG
+    real, calls = loss_mod.hard_nms, []
+
+    def counted(boxes, scores, thr, max_out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(boxes, scores, thr, max_out)
+        torch.cuda.synchronize()
+        calls.append((int((scores > NEG / 2).sum()), int(out[2].sum()),
+                      (time.perf_counter() - t0) * 1e3))
+        return out
+    loss_mod.hard_nms = counted
+    try:
+        yield calls
+    finally:
+        loss_mod.hard_nms = real
 
 
 # ------------------------------------------------------------- SipMask++
@@ -2384,46 +2571,84 @@ def log_pin_gap(label, pins, other):
         f"{flips:.3e} of the backbone's ReLU inputs on the other side of 0")
 
 
-@contextlib.contextmanager
-def checked_calls(names, tol=BF16_KERNEL_TOL):
-    """Within the context every call of the named ``deform_sample``
-    wrappers ("deform_rows" K5, "deform_rows_backward" K5c) is also
-    computed by its plain version on the same inputs; each output must lie
-    within ``tol`` of its max. Yields {name: [max relative error a call]};
-    raises on the first call beyond ``tol``."""
+def log_checked(label, errs):
+    """Log :func:`checked_calls`' errors: the calls and the worst of each
+    kernel."""
+    log(f"{label}: each call against its plain version on the same inputs, "
+        + "; ".join(f"{n} {len(v)} calls, max relative error "
+                    f"{max(v, default=0.0):.2e}" for n, v in errs.items()))
+
+
+def checkable():
+    """{wrapper: (module, plain version on the wrapper's arguments, number
+    of leading outputs compared)} of the kernel wrappers
+    :func:`checked_calls` can hold call by call: K1, K2, K4a (its y; the
+    statistics it keeps feed K4b, held too), K4b, K5 and K5c."""
+    from sipmask_tpu_torch.ops import deform_conv as dc
     from sipmask_tpu_torch.ops import deform_sample as ds
-    real = {n: getattr(ds, n) for n in names}
+    from sipmask_tpu_torch.ops import gn_relu as gn
+    return {
+        "deform_im2col": (ds, ds.deform_im2col_plain, 1),
+        "deform_conv_backward": (
+            dc, lambda x, off, cols, w2, dy, *conf:
+            dc.deform_conv_backward_plain(x, off, w2, dy, *conf), 3),
+        "gn_relu_forward": (
+            gn, lambda x, w, b, groups, eps, act, keep=True:
+            gn._forward_plain(x, w, b, groups, eps, act), 1),
+        "gn_relu_backward": (gn, gn.gn_relu_backward_plain, 3),
+        "deform_rows": (ds, ds.deform_rows_plain, 2),
+        "deform_rows_backward": (ds, ds.deform_rows_backward_plain, 2),
+    }
+
+
+@contextlib.contextmanager
+def checked_calls(names, tol=BF16_KERNEL_TOL, record=None):
+    """Within the context every call of the named kernel wrappers (keys of
+    :func:`checkable`) is also computed by its plain version on the same
+    inputs; each compared output must lie within ``tol`` (a float, or
+    {name: tol}) of its max. Yields {name: [max relative error a call]};
+    raises on the first call beyond its tol. ``record``: a dict that gets
+    each call's arguments, a list by name (to time the calls after)."""
+    specs = checkable()
+    real = {n: getattr(specs[n][0], n) for n in names}
     errs = {n: [] for n in names}
+    tols = tol if isinstance(tol, dict) else {n: tol for n in names}
 
     def checked(n):
-        plain = getattr(ds, n + "_plain")
+        _, plain, n_cmp = specs[n]
 
         def call(*args):
             got = real[n](*args)
             want = plain(*args)
-            pairs = zip(*(t if isinstance(t, tuple) else (t,)
-                          for t in (got, want)))
+            if record is not None:
+                record.setdefault(n, []).append(args)
+            pairs = list(zip(*(t if isinstance(t, tuple) else (t,)
+                               for t in (got, want))))[:n_cmp]
             errs[n].append(max(errors(g.float(), w.float())[1]
                                for g, w in pairs))
-            if not errs[n][-1] <= tol:
+            if not errs[n][-1] <= tols[n]:
                 raise AssertionError(f"{n} call {len(errs[n])} on the path's "
                                      f"inputs: {errs[n][-1]} of its max "
-                                     f"from the plain version (tol {tol})")
+                                     f"from the plain version (tol "
+                                     f"{tols[n]})")
             return got
         return call
+    # a wrapper counts its launches on its module name
     counts = ("launches", "bf16_launches")
-    for n in names:   # the wrapper counts its launches on its module name
+    for n in names:
         call = checked(n)
         for c in counts:
-            setattr(call, c, getattr(real[n], c))
-        setattr(ds, n, call)
+            if hasattr(real[n], c):
+                setattr(call, c, getattr(real[n], c))
+        setattr(specs[n][0], n, call)
     try:
         yield errs
     finally:
         for n, fn in real.items():
             for c in counts:
-                setattr(fn, c, getattr(getattr(ds, n), c))
-            setattr(ds, n, fn)
+                if hasattr(fn, c):
+                    setattr(fn, c, getattr(getattr(specs[n][0], n), c))
+            setattr(specs[n][0], n, fn)
 
 
 # ------------------------------------------------ the train and test drivers
@@ -3537,6 +3762,48 @@ def phase_bf16_vis_train(dev, name, smi):
         loss_tol=BF16_VIS_LOSS_TOL)
 
 
+def last_presets(dev, name, smi, timed):
+    """Phases 27-29: ResNeXt-101 32x4d and HRNet-W32 with HRFPN served and
+    trained as the flagship (phases 4-8, HRNet's first step with each K1,
+    K2, K4a and K4b call held against its plain version and then those
+    calls timed at its shapes), then in bf16 (phases 20-21); the benchmark
+    fork trained (with its dedup's counts) and served. ``timed(label, fn,
+    *args)`` runs a phase. Returns {path: launches}."""
+    paths = {}
+    for label, preset in (("27", X101_CONFIG), ("28", HR_CONFIG)):
+        p = "x101" if preset == X101_CONFIG else "hrnet"
+        paths[f"{p} serving"] = timed(
+            f"{label}a", phase_serving, dev, name, smi, preset,
+            f"{p} serving", True)
+        record = {} if p == "hrnet" else None
+        paths[f"{p} training"] = timed(
+            f"{label}b", phase_train, dev, name, smi, preset,
+            f"{p} training", ("deform_im2col", "deform_conv_backward",
+                              "gn_relu_forward", "gn_relu_backward")
+            if p == "hrnet" else (), record, True)
+        if record:
+            timed(f"{label}c", time_recorded, record, "hrnet training")
+        rng = np.random.RandomState(SEED)
+        imgs = [(rng.rand(*IMAGE_HW, 3) * 255).astype(np.uint8)
+                for _ in range(3 + BATCH)]
+        paths[f"{p} bf16 serving"] = timed(
+            f"{label}d", bf16_serving, dev, name, smi, f"bf16 {p}", preset,
+            imgs, BATCH, f"{p} bf16 serving", None, BF16_F32_TOL, False,
+            BF16_HEAD_TOL, BF16_HR_MATCH_MIN if p == "hrnet"
+            else BF16_MATCH_MIN, ("deform_im2col", "gn_relu_forward"))
+        paths[f"{p} bf16 training"] = timed(
+            f"{label}e", phase_bf16_preset_train, dev, name, smi, p, preset)
+    # boxes of 10 strides a side: a neighbour's box, a stride away,
+    # overlaps it by more than 0.9 and the dedup drops positives (at
+    # bump_weights' 2 strides the overlap is ~0.6 and it keeps them all)
+    paths["fork training"] = timed("29a", phase_train, dev, name, smi,
+                                   FORK_CONFIG, "fork training", (), None,
+                                   True, 10.0)
+    paths["fork serving"] = timed("29b", phase_serving, dev, name, smi,
+                                  FORK_CONFIG, "fork serving", True)
+    return paths
+
+
 def build_kernels():
     """Phase 2: one nvcc per source of KERNELS, all started together; logs
     each build's seconds and ptxas's register and spill lines."""
@@ -3694,6 +3961,9 @@ def main():
                                       smi, True)
     paths["vis bf16 training"] = timed("26b", phase_bf16_vis_train, dev,
                                        name, smi)
+    # ---- 27-29. ResNeXt-101 32x4d, HRNet-W32 with HRFPN, and the
+    # SipMask-benchmark fork's loss
+    paths.update(last_presets(dev, name, smi, timed))
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -54,6 +54,26 @@ def giou_loss(pred, target, weight=None, avg_factor=None, eps: float = 1e-7):
                    avg_factor)
 
 
+def giou_loss_ltrb(pred, target, weight=None, avg_factor=None):
+    """fcos_core's IOULoss(loss_type='giou') on (l, t, r, b) distances
+    (the SipMask-benchmark fork): areas (l+r)*(t+b) with no +1, the IoU
+    smoothed as (inter + 1) / (union + 1), the enclosing box + 1e-7."""
+    pl, pt, pr, pb = pred.unbind(-1)
+    tl, tt, tr, tb = target.unbind(-1)
+    target_area = (tl + tr) * (tt + tb)
+    pred_area = (pl + pr) * (pt + pb)
+    w_inter = torch.minimum(pl, tl) + torch.minimum(pr, tr)
+    g_w = torch.maximum(pl, tl) + torch.maximum(pr, tr)
+    h_inter = torch.minimum(pb, tb) + torch.minimum(pt, tt)
+    g_h = torch.maximum(pb, tb) + torch.maximum(pt, tt)
+    ac_union = g_w * g_h + 1e-7
+    inter = w_inter * h_inter
+    union = target_area + pred_area - inter
+    ious = (inter + 1.0) / (union + 1.0)
+    gious = ious - (ac_union - union) / ac_union
+    return _reduce(1 - gious, weight, avg_factor)
+
+
 def bce_with_logits(logits, targets, weight=None, avg_factor=None):
     return _reduce(sigmoid_bce(logits, targets), weight, avg_factor)
 

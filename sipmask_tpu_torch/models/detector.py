@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from .fpn import FPN
+from .hrnet import HRFPN, HRNET_WIDTHS, HRNet
 from .resnet import ResNet
 from .sipmask_head import SipMaskHead
 
@@ -20,19 +21,27 @@ class SipMask(nn.Module):
         """cfg: a ``ModelConfig`` (``sipmask_tpu_torch.config``)."""
         super().__init__()
         b, f = cfg.backbone, cfg.fpn
-        if (b.type != "resnet" or b.style != "caffe" or b.groups != 1
-                or f.type != "fpn" or not f.add_extra_convs
-                or f.extra_convs_on_inputs or not f.relu_before_extra_convs
-                or cfg.compute_dtype not in ("float32", "bfloat16")):
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                "the port runs float32 or bfloat16 caffe-ResNet + FPN (extra "
-                "levels from P5) models without ResNeXt groups")
+                f"compute_dtype {cfg.compute_dtype!r}: the port runs float32 "
+                "and bfloat16")
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
-        self.backbone = ResNet(b.depth, b.out_indices, b.frozen_stages,
-                               b.stage_with_dcn, b.dcn_deform_groups, dtype)
-        self.neck = FPN(f.in_channels, f.out_channels, f.start_level,
-                        f.num_outs, dtype)
+        if b.type == "hrnet":
+            self.backbone = HRNet(b.hrnet_width, b.frozen_stages, dtype)
+            in_channels = HRNET_WIDTHS[b.hrnet_width]
+        else:
+            self.backbone = ResNet(b.depth, b.out_indices, b.frozen_stages,
+                                   b.stage_with_dcn, b.dcn_deform_groups,
+                                   b.groups, b.base_width, b.style, dtype)
+            in_channels = f.in_channels
+        if f.type == "hrfpn":
+            self.neck = HRFPN(in_channels, f.out_channels, f.num_outs, dtype)
+        else:
+            self.neck = FPN(in_channels, f.out_channels, f.start_level,
+                            f.num_outs, f.add_extra_convs,
+                            f.extra_convs_on_inputs,
+                            f.relu_before_extra_convs, dtype)
         self.bbox_head = SipMaskHead(cfg.head, dtype)
 
     def extract_feats(self, images):

@@ -40,6 +40,14 @@ class FrozenBatchNorm2d(nn.Module):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         return scale, self.bias - self.running_mean * scale
 
+    def forward(self, x):
+        """The BN applied unfolded, ``x * scale + bias`` in x's dtype (the
+        JAX package's ``FrozenBatchNorm.__call__``: in bf16 the scale and
+        the bias are rounded to bf16 first)."""
+        scale, bias = self.affine()
+        return (x * scale.to(x.dtype)[:, None, None]
+                + bias.to(x.dtype)[:, None, None])
+
 
 def conv2d(x, weight, bias, dtype, stride=1, padding=0, dilation=1,
            groups=1):
@@ -136,6 +144,11 @@ def resize_bilinear(x, out_h: int, out_w: int):
     once)."""
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=False)
+
+
+def repeat2d(x, f: int):
+    """Integer-factor nearest upsample (pixel repetition), NCHW."""
+    return x.repeat_interleave(f, 2).repeat_interleave(f, 3)
 
 
 def resize_nearest(x, out_h: int, out_w: int):

@@ -2,13 +2,18 @@
 
 ``compute_losses`` covers the mmdet image path: focal classification loss
 (avg factor num_pos + num_imgs), centerness-weighted -log IoU box loss on
-stride-normalised decoded boxes, centerness BCE, and the SP mask loss over a
-static top-``max_pos`` selection of each image's positives, ranked by the
-no-grad weighting sigmoid(cls score) x IoU(gt/2, det box), SipMask++'s
-rescoring MSE (``loss_iou``) and SipMask-VIS's match loss (``loss_match``,
-with ``match_acc`` as a metric). The VIS fork decodes the box loss's boxes
-without the stride division. The benchmark fork's loss deltas and GIoU
-raise NotImplementedError.
+stride-normalised decoded boxes (GIoU with ``iou_loss_mode="giou"``),
+centerness BCE, and the SP mask loss over a static top-``max_pos`` selection
+of each image's positives, ranked by the no-grad weighting sigmoid(cls
+score) x IoU(gt/2, det box), SipMask++'s rescoring MSE (``loss_iou``) and
+SipMask-VIS's match loss (``loss_match``, with ``match_acc`` as a metric).
+The VIS fork decodes the box loss's boxes without the stride division.
+``benchmark_loss_extras`` gives the SipMask-benchmark fork's deltas: the
+cls normaliser max(num_pos, 1), fcos_core's ltrb-GIoU on relu'd
+stride-normalised distances, det boxes from the relu'd regression, no
++1e-4 in the weighting normaliser, an NMS-0.9 dedup of the selected
+positives ranked by their gt-label score, and the loss_mask > 1 -> x0.5
+cap.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from ..core.points import all_points
 from ..core.targets import centerness_target, fcos_targets
 from ..ops import mask_loss
 from ..ops.crop_split import assemble_masks
+from ..ops.nms import NEG, hard_nms
 from .track import track_match_loss
 
 
@@ -64,10 +70,6 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
     loss_mask, loss_iou when rescoring, loss_match and the metric match_acc
     when tracking with a reference frame).
     """
-    if cfg.benchmark_loss_extras or cfg.iou_loss_mode != "log":
-        raise NotImplementedError(
-            "the port's loss covers the mmdet and VIS forks: -log IoU, no "
-            "benchmark-fork extras")
     if cfg.rescoring and rescore_fn is None:
         raise ValueError("a rescoring head needs rescore_fn")
     dev = outputs["feat_masks"].device
@@ -87,11 +89,14 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
                                      tgt["gt_inds"])
     pos = labels > 0
     num_pos = pos.sum()
+    extras = cfg.benchmark_loss_extras
 
-    # classification, avg factor num_pos + num_imgs
+    # classification, avg factor num_pos + num_imgs (the benchmark fork:
+    # max(num_pos, 1))
     loss_cls = L.sigmoid_focal_loss(
         cls_logits, labels, nc, cfg.focal_gamma, cfg.focal_alpha,
-        avg_factor=num_pos + b) * cfg.loss_cls_weight
+        avg_factor=num_pos.clamp(min=1) if extras else num_pos + b
+    ) * cfg.loss_cls_weight
 
     # box and centerness on stride-normalised decoded boxes; the VIS fork
     # decodes them unnormalised (with the +1 IoU convention the per-level
@@ -100,18 +105,31 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
     posf = pos.float()
     w_ctr = ctr_targets * posf
     pts = points[None].expand(b, p, 2)
-    div = 1.0 if cfg.track else strides[None, :, None]
-    loss_bbox = L.iou_loss(
-        distance2bbox(pts, bbox_preds / div),
-        distance2bbox(pts, bbox_targets / div), weight=w_ctr,
-        avg_factor=w_ctr.sum().clamp(min=1e-6)) * cfg.loss_bbox_weight
+    strd = strides[None, :, None]
+    avg_ctr = w_ctr.sum().clamp(min=1e-6)
+    if extras:
+        # fcos_core's GIoU on relu'd stride-normalised ltrb distances
+        loss_bbox = L.giou_loss_ltrb(
+            torch.relu(bbox_preds) / strd, bbox_targets / strd,
+            weight=w_ctr, avg_factor=avg_ctr)
+    else:
+        div = 1.0 if cfg.track else strd
+        iou_fn = L.giou_loss if cfg.iou_loss_mode == "giou" else L.iou_loss
+        loss_bbox = iou_fn(
+            distance2bbox(pts, bbox_preds / div),
+            distance2bbox(pts, bbox_targets / div), weight=w_ctr,
+            avg_factor=avg_ctr)
+    loss_bbox = loss_bbox * cfg.loss_bbox_weight
     loss_centerness = L.bce_with_logits(
         ctr_logits, ctr_targets, weight=posf,
         avg_factor=num_pos.clamp(min=1)) * cfg.loss_centerness_weight
 
     # mask loss: per image, the top max_pos positives by the no-grad
-    # weighting; boxes in mask (stride-2) coordinates
-    bbox_dt = distance2bbox(pts, bbox_preds.detach()) / 2.0   # (B, P, 4)
+    # weighting; boxes in mask (stride-2) coordinates, from the relu'd
+    # regression in the benchmark fork
+    det_dist = bbox_preds.detach()
+    bbox_dt = distance2bbox(pts, det_dist.relu() if extras else det_dist
+                            ) / 2.0                           # (B, P, 4)
     area = ((bbox_dt[..., 2] - bbox_dt[..., 0]) *
             (bbox_dt[..., 3] - bbox_dt[..., 1]))
     valid = pos & (area > 1.0)
@@ -133,19 +151,37 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
     gtidx_sel = torch.gather(gt_inds, 1, topi)
     w_sel = torch.where(sel_valid, torch.gather(w_raw, 1, topi),
                         torch.zeros_like(topw))
-    # weighting renormalised over the selected set (mmdet's +1e-4)
-    w_norm = w_sel / (w_sel.sum(1, keepdim=True) + 1e-4).clamp(
-        min=1e-20) * n_sel[:, None]
+    # weighting renormalised over the selected set (mmdet's +1e-4; the
+    # benchmark fork adds nothing)
+    w_norm = w_sel / (w_sel.sum(1, keepdim=True)
+                      + (0.0 if extras else 1e-4)).clamp(min=1e-20) \
+        * n_sel[:, None]
+    if extras:
+        # the benchmark fork's NMS-0.9 dedup of the selected positives
+        # (+1 IoU), ranked by the sigmoid of their gt label's logit; the
+        # weighting above keeps the count before it, the per-pixel divisor
+        # below takes the count after it
+        nms_scores = torch.where(sel_valid, torch.gather(cls_score, 1, topi),
+                                 torch.full_like(topw, NEG))
+        kidx, _, kvalid = hard_nms(box_sel, nms_scores, 0.9, k)
+        kept = torch.zeros((b, k + 1), dtype=torch.bool, device=dev)
+        kept.scatter_(1, torch.where(kvalid, kidx, k), True)
+        final_valid = sel_valid & kept[:, :k]
+    else:
+        final_valid = sel_valid
+    n_final = final_valid.sum(1).float().clamp(min=1.0)
 
     pre = mask_loss.mask_bce_loss(feat_masks, cof_sel, box_sel,
-                                  batch["gt_masks"], gtidx_sel, sel_valid)
+                                  batch["gt_masks"], gtidx_sel, final_valid)
     csz = center_size(box_sel)
     ones = torch.ones_like(topw)
-    bw = torch.where(sel_valid, csz[..., 2], ones)
-    bh = torch.where(sel_valid, csz[..., 3], ones)
-    pre = pre / bw / bh / n_sel[:, None]
-    loss_mask = torch.where(sel_valid, pre * w_norm,
+    bw = torch.where(final_valid, csz[..., 2], ones)
+    bh = torch.where(final_valid, csz[..., 3], ones)
+    pre = pre / bw / bh / n_final[:, None]
+    loss_mask = torch.where(final_valid, pre * w_norm,
                             torch.zeros_like(pre)).sum() / b
+    if extras:   # the benchmark fork caps a runaway mask loss
+        loss_mask = torch.where(loss_mask > 1.0, loss_mask * 0.5, loss_mask)
     out = dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
                loss_centerness=loss_centerness, loss_mask=loss_mask)
     if cfg.rescoring:

@@ -1,7 +1,12 @@
-"""Caffe-style ResNet-50/101 backbone (NCHW) with optional DCN stages, the
-port of ``sipmask_tpu/models/resnet.py`` without the ResNeXt groups.
+"""Caffe-style ResNet-50/101 and ResNeXt backbones (NCHW) with optional DCN
+stages, the port of ``sipmask_tpu/models/resnet.py``.
 
-Caffe style: a block's stride sits on its first 1x1 conv. Every BatchNorm is
+Caffe style (the default) puts a block's stride on its first 1x1 conv,
+pytorch style on its 3x3 conv. With ``groups``
+> 1 the blocks are ResNeXt's (mmdet's resnext.py): conv2 is a grouped 3x3
+conv of width ``int(planes * base_width / 64) * groups`` (X101 32x4d:
+groups 32, base_width 4). A DCN block with groups is refused, as the JAX
+package refuses it. Every BatchNorm is
 frozen and folded into the conv before it; the stem and the first
 ``frozen_stages`` stages are frozen too. A stage with DCN (SipMask++) puts a
 ``DeformConvPack`` in place of conv2 of every third block (b % 3 == 0), as
@@ -64,18 +69,28 @@ class DeformConvPack(nn.Module):
 class Bottleneck(nn.Module):
     def __init__(self, in_channels: int, planes: int, stride: int = 1,
                  downsample: bool = False, with_dcn: bool = False,
-                 dcn_deform_groups: int = 1,
+                 dcn_deform_groups: int = 1, groups: int = 1,
+                 base_width: int = 4, style: str = "caffe",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if with_dcn and groups != 1:
+            raise NotImplementedError(
+                "a DCN conv2 with ResNeXt groups (the JAX package refuses "
+                "it too)")
         self.dtype = dtype
-        self.conv1 = nn.Conv2d(in_channels, planes, 1, stride, bias=False)
-        self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = (DeformConvPack(planes, planes, dcn_deform_groups,
+        width = (planes if groups == 1
+                 else int(planes * (base_width / 64)) * groups)
+        # caffe style strides the first 1x1 conv, pytorch style the 3x3
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = nn.Conv2d(in_channels, width, 1, s1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(width)
+        self.conv2 = (DeformConvPack(width, width, dcn_deform_groups, s2,
                                      dtype=dtype)
                       if with_dcn else
-                      nn.Conv2d(planes, planes, 3, 1, 1, bias=False))
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+                      nn.Conv2d(width, width, 3, s2, 1, groups=groups,
+                                bias=False))
+        self.bn2 = FrozenBatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
         self.bn3 = FrozenBatchNorm2d(planes * 4)
         self.downsample = (nn.Sequential(
             nn.Conv2d(in_channels, planes * 4, 1, stride, bias=False),
@@ -85,10 +100,7 @@ class Bottleneck(nn.Module):
         dt = self.dtype
         out = torch.relu(conv_folded_bn(x, self.conv1, self.bn1, dt))
         if isinstance(self.conv2, DeformConvPack):
-            out = self.conv2(out)
-            scale, bias = (t.to(out.dtype)[:, None, None]
-                           for t in self.bn2.affine())
-            out = torch.relu(out * scale + bias)
+            out = torch.relu(self.bn2(self.conv2(out)))
         else:
             out = torch.relu(conv_folded_bn(out, self.conv2, self.bn2, dt))
         out = conv_folded_bn(out, self.conv3, self.bn3, dt)
@@ -103,7 +115,8 @@ class ResNet(nn.Module):
                  out_indices: Tuple[int, ...] = (0, 1, 2, 3),
                  frozen_stages: int = 1,
                  stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
-                 dcn_deform_groups: int = 1,
+                 dcn_deform_groups: int = 1, groups: int = 1,
+                 base_width: int = 4, style: str = "caffe",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -120,7 +133,8 @@ class ResNet(nn.Module):
                     in_ch, planes, stride=(1 if stage == 0 or b else 2),
                     downsample=b == 0,
                     with_dcn=stage_with_dcn[stage] and b % 3 == 0,
-                    dcn_deform_groups=dcn_deform_groups, dtype=dtype))
+                    dcn_deform_groups=dcn_deform_groups, groups=groups,
+                    base_width=base_width, style=style, dtype=dtype))
                 in_ch = planes * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         # frozen_stages (mmdet's _freeze_stages): the stem and the first

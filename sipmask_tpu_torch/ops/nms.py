@@ -1,12 +1,14 @@
-"""Exact multiclass hard NMS and YOLACT's fast NMS, the ports of
-``sipmask_tpu/ops/nms.py:multiclass_nms_idx`` (its hard path) and
-``fast_nms``.
+"""Exact single-class and multiclass hard NMS and YOLACT's fast NMS, the
+ports of ``sipmask_tpu/ops/nms.py:hard_nms``, ``multiclass_nms_idx`` (its
+hard path) and ``fast_nms``.
 
-Plain PyTorch: it is not a Pallas kernel in the JAX package either. The
-algorithm is the same wave-batched greedy over the full (N, C) score matrix
-(see the JAX source for why it is exact); ``jax.lax.top_k`` becomes a stable
-descending sort, which keeps its lower-index-first order among equal scores.
-The loop condition is read on the host once per wave.
+Plain PyTorch: they are not Pallas kernels in the JAX package either. The
+multiclass algorithm is the same wave-batched greedy over the full (N, C)
+score matrix (see the JAX source for why it is exact); ``jax.lax.top_k``
+becomes a stable descending sort, which keeps its lower-index-first order
+among equal scores. The loop condition is read on the host once per wave.
+:func:`hard_nms` works the greedy over the N x N IoU matrix instead, one
+host read per round.
 """
 
 from __future__ import annotations
@@ -22,6 +24,55 @@ def _top(x, k: int):
     """``lax.top_k`` on the last axis: descending, ties lower index first."""
     s, i = torch.sort(x, dim=-1, descending=True, stable=True)
     return s[..., :k], i[..., :k]
+
+
+def hard_nms(boxes, scores, iou_thr: float, max_out: int):
+    """Greedy hard NMS with the +1 IoU, batched over leading dimensions:
+    the JAX package's ``hard_nms`` (without its class_ids and plus1
+    options) on each row.
+
+    The greedy visits the candidates in the order of a stable descending
+    sort (``jnp.argmax``'s: ties to the lower index) and keeps a candidate
+    unless a kept one before it overlaps it by more than ``iou_thr``; a
+    kept pick never suppresses itself, however degenerate. That keep set
+    is the only fixed point of ``keep[t] = live[t] and no kept s < t
+    overlaps t``, and iterating the rule from ``keep = live`` makes at
+    least one more position final each round, so the loop ends in at most
+    N rounds, each one read on the host (a few where few suppressions
+    chain).
+
+    Args:
+      boxes: (..., N, 4); scores: (..., N), invalid candidates must carry a
+        score <= NEG/2.
+      max_out: number of greedy selections.
+    Returns keep_idx (..., max_out) long (-1 when empty), keep_scores
+    (NEG when empty) and valid, the picks in greedy order.
+    """
+    n = scores.shape[-1]
+    s, order = _top(scores, n)
+    b = torch.gather(boxes, -2, order[..., None].expand(boxes.shape))
+    live = s > NEG / 2
+    sup = torch.triu(bbox_overlaps(b, b) > iou_thr, diagonal=1)  # s < t
+    keep = live
+    for _ in range(n):
+        new = live & ~(sup & keep[..., :, None]).any(-2)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    pos = torch.arange(n, device=scores.device).expand(keep.shape)
+    rank, at = torch.sort(torch.where(keep, pos, n), dim=-1)
+    rank, at = rank[..., :max_out], at[..., :max_out]
+    valid = rank < n
+    if max_out > n:
+        pad = (0, max_out - n)
+        valid = torch.nn.functional.pad(valid, pad)
+        at = torch.nn.functional.pad(at, pad)
+    keep_idx = torch.where(valid, torch.gather(order, -1, at.clamp(max=n - 1)),
+                           torch.full_like(at, -1))
+    keep_scores = torch.where(valid, torch.gather(s, -1, at.clamp(max=n - 1)),
+                              torch.full(at.shape, NEG, dtype=s.dtype,
+                                         device=s.device))
+    return keep_idx, keep_scores, valid
 
 
 def multiclass_nms_idx(boxes, scores, score_thr: float, iou_thr: float,

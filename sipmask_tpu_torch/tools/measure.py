@@ -378,13 +378,31 @@ CUDNN = ("cudnn", "xmma", "convolve", "winograd", "implicit", "dgrad",
 LAYOUT = ("nchwToNhwc", "nhwcToNchw", "transpose")
 
 
+def busy_ms(kern):
+    """ms during which at least one of the kernel events ``kern`` ran: the
+    union of their device intervals. cuDNN runs the kernels of some
+    grouped convolutions (ResNeXt's) side by side, so their summed times
+    can exceed the wall."""
+    total, start, end = 0.0, None, None
+    for s, e in sorted((k.time_range.start, k.time_range.end)
+                       for k in kern):
+        if end is None or s > end:
+            total += 0.0 if end is None else end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return (total + (0.0 if end is None else end - start)) / 1e3
+
+
 def owners(prof, wall, unit):
-    """Log the device's idle share over the profiled two ``unit``s and the
-    kernel time per ``unit`` by owner and by kernel name."""
+    """Log the device's idle share over the profiled two ``unit``s (from
+    the time some kernel ran, :func:`busy_ms`) and the kernel time per
+    ``unit`` by owner and by kernel name."""
     kern = kernel_events(prof)
     busy = sum(e.device_time for e in kern) / 1e3
     log(f"profiled 2 x {unit}: wall {wall:.1f} ms, kernel time {busy:.1f} "
-        f"ms, device idle share {1 - busy / wall:.3f}")
+        f"ms, device busy {busy_ms(kern):.1f} ms, device idle share "
+        f"{1 - busy_ms(kern) / wall:.3f}")
     by_name, by_owner = {}, {}
     for e in kern:
         t, n = by_name.get(e.name, (0.0, 0))

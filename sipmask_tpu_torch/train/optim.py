@@ -3,8 +3,9 @@
 SGD with momentum 0.9 and weight decay 1e-4, torch-SGD semantics
 (v = m*v + (g + wd*p); p -= lr*v), and mmcv's paramwise options: parameters
 named ``*.bias`` take ``bias_lr_mult`` x the lr and ``bias_decay_mult`` x the
-decay. Frozen parameters (``requires_grad`` False: the backbone stem and the
-first ``frozen_stages`` stages) are in no group. The schedule is mmcv's
+decay. Frozen parameters (``requires_grad`` False: a ResNet's stem and first
+``frozen_stages`` stages; HRNet's stage 1 but not its stem, as the JAX
+package's labels have it) are in no group. The schedule is mmcv's
 warmup ('constant' or 'linear') then x0.1 at each epoch milestone; the
 caller sets every group's lr from it before each step
 (:func:`set_lr`). With ``grad_clip`` set, :func:`clip_gradients` scales the

@@ -8,8 +8,17 @@ JAX trees map onto them with the same rules (a DCN block's
 ``layer{s}_{b}/conv2/{kernel,conv_offset}`` becomes
 ``layer{s}.{b}.conv2.{weight,conv_offset}``, SipMask-VIS's
 ``head/track_convs_{i}/(conv|gn)`` becomes ``bbox_head.track_convs.{i}``,
-and SipMask++'s ``rescoring/*`` lands on the head as
-``convs_scoring.{i}.conv`` and ``mask_scoring``).
+SipMask++'s ``rescoring/*`` lands on the head as
+``convs_scoring.{i}.conv`` and ``mask_scoring``, and HRNet's and HRFPN's
+names become mmdet's, the ones ``torch_convert._hrnet_backbone`` and its
+HRFPN section read: ``stem_conv{1,2}`` -> ``conv{1,2}``,
+``t{s}_conv{i}`` -> ``transition{s-1}.{i}.0``, ``t{s}_new{i}`` ->
+``transition{s-1}.{i}.0.0``, ``stage{s}_m{m}/branch{i}_block{b}`` ->
+``stage{s}.{m}.branches.{i}.{b}``, ``fuse/up_{j}_{i}_conv`` ->
+``fuse_layers.{i}.{j}.0``, ``fuse/down_{j}_{i}_{k}_conv`` ->
+``fuse_layers.{i}.{j}.{k}.0`` (their BNs ``.1``), ``neck/reduction`` ->
+``neck.reduction_conv.conv``, ``neck/fpn_conv{i}`` ->
+``neck.fpn_convs.{i}.conv``).
 """
 
 from __future__ import annotations
@@ -38,6 +47,24 @@ def _jax_path_to_torch(name: str) -> str:
     """``torch_convert._flax_path_to_torch``'s rules."""
     n = name
     n = re.sub(r"^backbone/layer(\d)_(\d+)/", r"backbone.layer\1.\2.", n)
+    n = re.sub(r"^backbone/stem_(conv|bn)(\d)/", r"backbone.\1\2.", n)
+    n = re.sub(r"^backbone/t(\d)_(conv|bn)(\d)/",
+               lambda m: f"backbone.transition{int(m[1]) - 1}.{m[3]}."
+               f"{0 if m[2] == 'conv' else 1}.", n)
+    n = re.sub(r"^backbone/t(\d)_new(bn)?(\d)/",
+               lambda m: f"backbone.transition{int(m[1]) - 1}.{m[3]}.0."
+               f"{1 if m[2] else 0}.", n)
+    n = re.sub(r"^backbone/stage(\d)_m(\d+)/branch(\d)_block(\d+)/",
+               r"backbone.stage\1.\2.branches.\3.\4.", n)
+    n = re.sub(r"^backbone/stage(\d)_m(\d+)/fuse/up_(\d)_(\d)_(conv|bn)/",
+               lambda m: f"backbone.stage{m[1]}.{m[2]}.fuse_layers.{m[4]}."
+               f"{m[3]}.{0 if m[5] == 'conv' else 1}.", n)
+    n = re.sub(r"^backbone/stage(\d)_m(\d+)/fuse/down_(\d)_(\d)_(\d)_"
+               r"(conv|bn)/",
+               lambda m: f"backbone.stage{m[1]}.{m[2]}.fuse_layers.{m[4]}."
+               f"{m[3]}.{m[5]}.{0 if m[6] == 'conv' else 1}.", n)
+    n = n.replace("neck/reduction/", "neck.reduction_conv.conv.")
+    n = re.sub(r"^neck/fpn_conv(\d)/", r"neck.fpn_convs.\1.conv.", n)
     n = n.replace("downsample_conv/kernel", "downsample.0.weight")
     n = n.replace("downsample_bn/", "downsample.1/")
     n = re.sub(r"^neck/lateral_(\d)/", r"neck.lateral_convs.\1.conv.", n)
@@ -93,15 +120,17 @@ def _kaiming(w, gen: torch.Generator):
 
 
 def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator,
-               track: bool = False):
+               track: bool = False, hrfpn: bool = False):
     """The reference's init per conv (``layers.conv_init`` specs); ``track``:
-    the SipMask-VIS head, whose ``sip_cof`` draws with std 0.01."""
+    the SipMask-VIS head, whose ``sip_cof`` draws with std 0.01; ``hrfpn``:
+    an HRFPN neck, kaiming like the backbone."""
     w = conv.weight
     o, i, kh, kw = w.shape
     with torch.no_grad():
         if name.endswith("conv_offset"):   # FeatureAlign's and DCN's
             w.zero_()
-        elif name.startswith("backbone.") or ".convs_scoring." in name:
+        elif (name.startswith("backbone.") or ".convs_scoring." in name
+              or hrfpn and name.startswith("neck.")):
             _kaiming(w, gen)
         elif name.startswith("neck."):
             bound = math.sqrt(6.0 / ((i + o) * kh * kw))   # xavier uniform
@@ -118,20 +147,21 @@ def _conv_init(name: str, conv: nn.Conv2d, gen: torch.Generator,
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights with the reference's schemes: kaiming fan_out for the
-    backbone (DCN weights included) and the rescoring convs, xavier-uniform
-    for the FPN, normal(0.01) for the head, SipMask-VIS's track branch
+    backbone (DCN weights included), an HRFPN neck and the rescoring convs,
+    xavier-uniform for the FPN, normal(0.01) for the head, SipMask-VIS's track branch
     included (0.001 for ``mask_scoring``, and for ``sip_cof`` unless the
     head tracks), the focal prior bias on ``fcos_cls``, zero
     ``conv_offset`` weights and biases, identity frozen BN and GroupNorm,
     unit scales.
     Draws from ``generator`` in module order, so a seed fixes the weights
     on any device."""
-    track = any(n.endswith("sipmask_track") for n, _ in
-                model.named_modules())
+    names = [n for n, _ in model.named_modules()]
+    track = any(n.endswith("sipmask_track") for n in names)
+    hrfpn = "neck.reduction_conv" in names
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, nn.Conv2d):
-                _conv_init(name, m, generator, track)
+                _conv_init(name, m, generator, track, hrfpn)
             elif isinstance(m, DeformConvPack):
                 _kaiming(m.weight, generator)
             elif isinstance(m, GroupNorm32):

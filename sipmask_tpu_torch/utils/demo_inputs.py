@@ -205,28 +205,23 @@ def calibrate_frozen_bn(backbone, images):
         return raw
 
     def conv(x, m):
-        return F.conv2d(x, m.weight, None, m.stride, m.padding)
+        return F.conv2d(x, m.weight, None, m.stride, m.padding, 1, m.groups)
 
     bb = backbone
-    x = torch.relu(_bn(fit(bb.bn1, conv(images, bb.conv1)), bb.bn1))
+    x = torch.relu(bb.bn1(fit(bb.bn1, conv(images, bb.conv1))))
     x = F.max_pool2d(x, 3, 2, 1)
     for stage in range(4):
         for blk in getattr(bb, f"layer{stage + 1}"):
-            out = torch.relu(_bn(fit(blk.bn1, conv(x, blk.conv1)), blk.bn1))
+            out = torch.relu(blk.bn1(fit(blk.bn1, conv(x, blk.conv1))))
             raw2 = (blk.conv2(out, out.dtype)
                     if hasattr(blk.conv2, "conv_offset")
                     else conv(out, blk.conv2))
-            out = torch.relu(_bn(fit(blk.bn2, raw2), blk.bn2))
-            out = _bn(fit(blk.bn3, conv(out, blk.conv3)), blk.bn3)
+            out = torch.relu(blk.bn2(fit(blk.bn2, raw2)))
+            out = blk.bn3(fit(blk.bn3, conv(out, blk.conv3)))
             if blk.downsample is not None:
                 ds = blk.downsample
-                x = _bn(fit(ds[1], conv(x, ds[0])), ds[1])
+                x = ds[1](fit(ds[1], conv(x, ds[0])))
             x = torch.relu(out + x)
-
-
-def _bn(x, bn):
-    scale, bias = bn.affine()
-    return x * scale[:, None, None] + bias[:, None, None]
 
 
 def moving_shapes_video(n_frames, h, w, seed):

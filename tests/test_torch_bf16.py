@@ -706,14 +706,13 @@ def test_bf16_train_step_runs_in_f32_params():
 
 
 def test_bf16_presets_build_and_the_rest_refuse():
-    """bf16 builds all four families with f32 parameters: the flagship,
-    the real-time preset, SipMask++ (DCN stages, rescoring) and
-    SipMask-VIS (the track branch; its multi-scale variant too). ResNeXt
-    groups and HRNet, which the port does not run in any dtype, still
-    refuse it."""
-    for name in ("sipmask_r50_fpn_gn_1x", "sipmask_r50_fpn_ssd_6x",
-                 "sipmaskpp_r101_fpn_ssd_6x", "sipmask_vis_r50",
-                 "sipmask_vis_r50_ms"):
+    """bf16 builds every preset with f32 parameters: the flagship, the
+    real-time preset, SipMask++ (DCN stages, rescoring), SipMask-VIS (the
+    track branch; its multi-scale variant too), ResNeXt-101, HRNet-W32 with
+    HRFPN and the benchmark fork. A compute dtype the port has no graph for
+    (float16) still refuses."""
+    from sipmask_tpu.config import list_configs
+    for name in list_configs():
         m = build_model(_r(get_config(name), "model",
                            compute_dtype="bfloat16").model)
         assert m.backbone.dtype == m.bbox_head.dtype == BF, name
@@ -721,11 +720,13 @@ def test_bf16_presets_build_and_the_rest_refuse():
     dcn = build_model(_r(get_config("sipmaskpp_r101_fpn_ssd_6x"), "model",
                          compute_dtype="bfloat16").model)
     assert dcn.backbone.layer3[0].conv2.dtype == BF
-    for name in ("sipmask_x101_fpn_gn_ms_2x", "sipmask_hrnet_w32_fpn_gn_1x"):
-        with pytest.raises(NotImplementedError, match="ResNeXt"):
-            build_model(_r(get_config(name), "model",
-                           compute_dtype="bfloat16").model)
-
+    hr = build_model(_r(get_config("sipmask_hrnet_w32_fpn_gn_1x"), "model",
+                        compute_dtype="bfloat16").model)
+    assert hr.backbone.stage3[0].dtype == BF
+    assert hr.neck.reduction_conv.dtype == BF
+    with pytest.raises(NotImplementedError, match="float16"):
+        build_model(_r(get_config("sipmask_r50_fpn_gn_1x"), "model",
+                       compute_dtype="float16").model)
 
 
 def test_train_and_test_clis_take_bf16_from_cfg_options(tmp_path):

@@ -168,9 +168,16 @@ def test_grad_clip_scales_by_the_global_norm():
 
 
 def test_drivers_refuse_what_is_not_ported(synth, tmp_path):
-    resnext = _r(_cfg(), "model.backbone", groups=32)
-    with pytest.raises(NotImplementedError, match="ResNeXt"):
-        train_detector(resnext, *synth, str(tmp_path), device="cpu")
+    """Soft-NMS (``test.nms_type``) and the ``proposal_fast`` metric are not
+    ported: the test driver refuses them."""
+    from sipmask_tpu_torch.apis.inference import init_detector
+    from sipmask_tpu_torch.apis.test import run_inference
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    soft = _r(_cfg(), "model.test", nms_type="soft_nms")
+    with pytest.raises(NotImplementedError, match="soft-NMS"):
+        run_inference(init_detector(soft, "cpu"),
+                      CocoDataset(*synth, test_mode=True), batch_size=2,
+                      progress=False)
     from sipmask_tpu_torch.apis.test import evaluate_coco
     with pytest.raises(NotImplementedError, match="proposal_fast"):
         evaluate_coco([], synth[0], metrics=("proposal_fast",))

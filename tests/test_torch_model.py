@@ -102,15 +102,27 @@ def test_init_weights_schemes_and_seed():
 
 
 def test_unported_configs_raise():
-    from sipmask_tpu.config import _r
-    for cfg in (get_config("sipmask_x101_fpn_gn_ms_2x"),
-                get_config("sipmask_hrnet_w32_fpn_gn_1x"),
-                _r(get_config("sipmask_x101_fpn_gn_ms_2x"), "model",
-                   compute_dtype="bfloat16"),
-                _r(get_config("sipmask_hrnet_w32_fpn_gn_1x"), "model",
-                   compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            build_model(cfg.model)
+    """Every preset of ``list_configs()`` builds, in f32 and in bf16 (no
+    NotImplementedError remains): ResNeXt-101 32x4d with grouped conv2s,
+    HRNet-W32 with HRFPN, the benchmark fork. What the JAX package cannot
+    build either, a DCN stage with groups, still raises."""
+    from sipmask_tpu.config import _r, list_configs
+    for name in list_configs():
+        for dtype in ("float32", "bfloat16"):
+            m = build_model(_r(get_config(name), "model",
+                               compute_dtype=dtype).model)
+            assert m.backbone.dtype == getattr(torch, dtype), name
+    x101 = build_model(get_config("sipmask_x101_fpn_gn_ms_2x").model)
+    assert x101.backbone.layer4[2].conv2.groups == 32
+    assert x101.backbone.layer1[0].conv2.weight.shape == (128, 4, 3, 3)
+    hr = build_model(get_config("sipmask_hrnet_w32_fpn_gn_1x").model)
+    assert [m.conv1.weight.shape[0] for m in
+            (b[0] for b in hr.backbone.stage4[2].branches)] == [32, 64, 128,
+                                                                256]
+    assert hr.neck.reduction_conv.conv.weight.shape == (256, 480, 1, 1)
+    with pytest.raises(NotImplementedError, match="DCN"):
+        build_model(_r(get_config("sipmaskpp_r101_fpn_ssd_6x"),
+                       "model.backbone", groups=32).model)
 
 
 def test_backbone_matches_jax(outputs):

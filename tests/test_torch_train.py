@@ -123,13 +123,25 @@ def test_compute_losses_reproduces_golden_loss():
 
 
 def test_compute_losses_refuses_unported_branches():
+    """The branches the port once refused now run: the benchmark fork's
+    extras and ``iou_loss_mode="giou"`` on the golden's synthetic outputs
+    give the JAX package's losses (tests/test_torch_backbones.py holds
+    them where the dedup drops positives and the cap fires)."""
     head, out, batch = _synthetic_outputs()
+    jout = jax.tree_util.tree_map(jnp.asarray, out)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     for field, value in (("benchmark_loss_extras", True),
                          ("iou_loss_mode", "giou")):
         cfg = _r(shrunk_cfg(), "model.head", num_classes=8,
                  **{field: value}).model.head
-        with pytest.raises(NotImplementedError):
-            _port_losses(cfg, out, batch)
+        got = _port_losses(cfg, out, batch)
+        want = jax.jit(lambda o, b: j_compute_losses(o, b, cfg, max_pos=16))(
+            jout, jbatch)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], float(want[k]),
+                                       rtol=LOSS_RTOL, atol=1e-6,
+                                       err_msg=f"{field} {k}")
 
 
 def test_losses_from_jax_init_reproduce_golden():
