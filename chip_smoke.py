@@ -115,6 +115,12 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     batch 4 (bounds with bf16 tensors at 2 bytes an element and K2's
     products at the dense bf16 tensor-core rate; F.grid_sample and
     F.group_norm with ReLU and its autograd in bf16 as the library calls);
+    K2 bf16 (wgmma GEMMs fed by TMA, a float4 scatter) also gives
+    the same d offsets and dw2 bits in two calls, logs its sweep's split
+    by device kernel with its GEMMs' TFLOP/s beside ``torch.matmul`` in
+    bf16 on the same two products (a yardstick), and runs the kernels the
+    source states in one call at P3 (six) and at P5 (seven: the copy of dy
+    and cols into padded rows);
 20. serves the flagship in bf16: 3 requests of one 800x1333 image and a
     batch of 4 at 800x1344 twice, launches counted (bf16 kernels only), the
     head outputs bf16 but the f32 box regressions, then the batch with the
@@ -493,22 +499,23 @@ def bound(nbytes, flops, tf32_flops=0.0, tc_rate=TF32_FLOP_PER_S):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def launch_split(label, fn, attempts=3):
+def launch_split(label, fn, attempts=3, want=None):
     """Profile one fn() after a warm-up: log the launches and device ms of
     each device kernel it runs; return ({name: (launches, ms)}, kernels).
 
     The profiler in the card's sandbox sometimes misses kernels of a
-    session (the first one, or all), never adds any: each session starts
+    session (the first ones, or all), never adds any: each session starts
     with a marker kernel, and of ``attempts`` sessions (more, up to
-    4 * ``attempts``, while every one has seen nothing) the one that saw
+    4 * ``attempts``, while every one has seen nothing, or fewer than
+    ``want`` kernels where fn() is known to run ``want``) the one that saw
     the most kernels counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = []
-    while len(seen) < attempts or (not max(map(len, seen))
-                                   and len(seen) < 4 * attempts):
+    while len(seen) < attempts or (
+            max(map(len, seen)) < (want or 1) and len(seen) < 4 * attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
@@ -1041,9 +1048,22 @@ def phase_bf16_kernels(dev):
                     f"{'zero' if zero else 'random'} offsets (dx, doffsets, "
                     f"dw2)", [t.float() for t in got],
                     [t.float() for t in want], BF16_KERNEL_TOL))
+            rel = [errors(a.float(), e.float())[1]
+                   for a, e in zip(got, want)]
+            log(f"K2 bf16 {h}x{w} {'zero' if zero else 'random'}: relative "
+                f"to max |plain| dx {rel[0]:.3e}, doffsets {rel[1]:.3e}, "
+                f"dw2 {rel[2]:.3e}")
             if zero and not float(got[1].abs().max()) > 0:
                 raise AssertionError("K2 bf16 gives zero offset gradients "
                                      "at zero offsets")
+            # dW2 (partials folded in order) and d offsets (fixed shuffle
+            # trees) take no atomics: the same bits from call to call
+            again = deform_conv.deform_conv_backward(x, o, cols, w2, dy,
+                                                     (3, 3), 1, 1, 1, g)
+            if not (torch.equal(again[1], got[1])
+                    and torch.equal(again[2], got[2])):
+                raise AssertionError("two K2 bf16 calls gave different "
+                                     "d offsets or dw2 bits")
     # the tap contraction after K1 is a bf16 torch.matmul: it must sum in
     # f32 (JAX's preferred_element_type) and round once
     x, off = bf16_k1_inputs(BATCH, *LEVELS[0], gen, dev)
@@ -1142,12 +1162,59 @@ def phase_bf16_kernels(dev):
             for x, o, w2, dy, _c in k2_in], k2_sweep, iters=5)
     gemm_flops = sum(4 * cols.numel() * w2.shape[0]
                      for x, o, w2, dy, cols in k2_in)
-    split, _ = launch_split(f"K2 bf16 deform_conv_backward all 5 levels "
-                            f"bs{BATCH}", k2_sweep)
+    # a call is 6 device kernels, 7 where P % 8 != 0 (below)
+    sweep_kernels = sum(6 + (h * w % 8 != 0) for h, w in LEVELS)
+    split, n_kern = launch_split(f"K2 bf16 deform_conv_backward all 5 "
+                                 f"levels bs{BATCH}", k2_sweep,
+                                 want=sweep_kernels)
     gemm_ms = sum(ms for name, (_, ms) in split.items() if "gemm" in name)
-    log(f"K2 bf16 GEMMs: {gemm_ms:.4f} ms device time for "
-        f"{gemm_flops / 1e9:.1f} GFLOP of bf16 products, "
-        f"{gemm_flops / max(gemm_ms, 1e-9) / 1e9:.1f} TFLOP/s")
+    pad_ms = sum(ms for name, (_, ms) in split.items() if "pad_rows" in name)
+    if n_kern == sweep_kernels:
+        log(f"K2 bf16 GEMMs: {gemm_ms:.4f} ms device time for "
+            f"{gemm_flops / 1e9:.1f} GFLOP of bf16 products, "
+            f"{gemm_flops / max(gemm_ms, 1e-9) / 1e9:.1f} TFLOP/s; with "
+            f"the copies of dy and cols into padded rows ({pad_ms:.4f} ms) "
+            f"{gemm_flops / max(gemm_ms + pad_ms, 1e-9) / 1e9:.1f} "
+            f"TFLOP/s; device time a sweep "
+            f"{sum(ms for _, ms in split.values()):.4f} ms")
+    else:
+        log(f"K2 bf16 GEMMs: no profiler session saw all {sweep_kernels} "
+            f"kernels of the sweep (the most: {n_kern}); no rate")
+    # a call is the kernels csrc/deform_col2im.cu states: at P3 (P % 8 ==
+    # 0) the transpose of x (zeroing the dX scratch), the wgmma dcols and
+    # dW2 GEMMs on TMA, the fold, the scatter and the transpose of dX; at
+    # P5 (P % 8 == 2) the copy of dy and cols into padded rows before the
+    # GEMMs
+    call_kernels = ["deform_bwd_transpose_kernel"] * 2 + [
+        "deform_bwd_gemm_wgmma_dcols", "deform_bwd_gemm_wgmma_dw2",
+        "fold_partials_kernel", "deform_col2im_bf16x4_kernel"]
+    for i, want in ((0, call_kernels),
+                    (2, call_kernels + ["pad_rows_kernel"])):
+        x, o, w2, dy, cols = k2_in[i]
+        split, n_kern = launch_split(
+            f"K2 bf16 deform_conv_backward, one call at {LEVELS[i]} "
+            f"bs{BATCH}", lambda: deform_conv.deform_conv_backward(
+                x, o, cols, w2, dy, (3, 3), 1, 1, 1, g), attempts=5,
+            want=len(want))
+        names = [n for n, (c, _) in split.items() for _ in range(c)]
+        if n_kern != len(want) or any(
+                sum(k in n for n in names) != want.count(k)
+                for k in set(want)):
+            raise AssertionError(f"a K2 bf16 call at {LEVELS[i]} ran "
+                                 f"{names}, not {want}")
+    # yardstick of the GEMM part (not K2's function, so not library_ms):
+    # torch.matmul in bf16 on the same two products
+    mm_dcols = cuda_ms(lambda: [
+        torch.matmul(w2.t(), dy.reshape(dy.shape[0], dy.shape[1], -1))
+        for x, o, w2, dy, cols in k2_in], iters=5)
+    mm_dw2 = cuda_ms(lambda: [
+        torch.matmul(dy.reshape(dy.shape[0], dy.shape[1], -1),
+                     cols.transpose(1, 2)).sum(0)
+        for x, o, w2, dy, cols in k2_in], iters=5)
+    log(f"yardstick, torch.matmul bf16 on K2's products, 5 levels "
+        f"bs{BATCH}: dcols {mm_dcols:.4f} ms "
+        f"({gemm_flops / 2 / mm_dcols / 1e9:.1f} TFLOP/s), dW2 "
+        f"{mm_dw2:.4f} ms ({gemm_flops / 2 / mm_dw2 / 1e9:.1f} TFLOP/s)")
     col_flops = sum(16 * cols.numel() for *_, cols in k2_in)
     # read x, offsets, cols, w2, dy; write dx (bf16), d offsets and dw2 (f32)
     k2_bytes = sum(nbytes(x, o, cols, w2, dy) + nbytes(x) + nbytes(o)

@@ -9,8 +9,9 @@
 ``cols``, as the JAX code saves ``sampT``. The backward is K2
 (:func:`deform_conv_backward`, ``csrc/deform_col2im.cu``), which computes
 every product of the TPU kernel itself: the two GEMMs (on the tensor cores
-in 3xTF32, f32-accurate; :func:`tf32_split_matmul_plain` states the
-split), the col2im and the position gradients. On CPU tensors it is
+in 3xTF32, f32-accurate, :func:`tf32_split_matmul_plain` states the split;
+in bf16 on wgmma fed by TMA, :func:`col2im_schedule` mirrors the plan),
+the col2im and the position gradients. On CPU tensors it is
 :func:`deform_conv2d_plain`, autograd through ``deform_im2col_plain``.
 
 **The sampled route** (:func:`deform_conv2d_rows`, the SipMask++ backbone's
@@ -152,11 +153,160 @@ def tf32_split_matmul_plain(a, b):
     return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
 
 
+# K2's work split (csrc/deform_col2im.cu), mirrored by col2im_schedule
+GEMM_TILE = 128       # mma.sync GEMM tiles (kBM = kBN), wgmma dW2 tiles
+DCOLS_TILE_N = 192    # columns of a wgmma dcols block (kDcN), in one group
+DW2_CHUNK = 2048      # pixels of a dW2 partial (kSplitK)
+WGMMA_DEPTH, MMA_DEPTH = 64, 32   # pixels a stage, wgmma and mma.sync
+H100_SMS = 132
+
+
+def col2im_route(p: int, kc: int, kcg: int, o: int) -> str:
+    """How a bf16 K2 call's GEMMs run, as ``route`` in
+    ``csrc/deform_col2im.cu`` decides by shape (for 16-byte aligned
+    tensors, which the allocator gives): "mma.sync" unless KC % 8 == 0,
+    K*Cg is a multiple of 192 (a dcols block in one group) and O <= 256
+    (W2's slice in shared memory); then "wgmma" (TMA-fed) where P % 8 == 0
+    (16-byte rows), else "padded" (the wgmma GEMMs on copies of dy and
+    cols with rows of P rounded up to 8)."""
+    if kc % 8 or kcg % DCOLS_TILE_N or o > 256:
+        return "mma.sync"
+    return "wgmma" if p % 8 == 0 else "padded"
+
+
+def _cover(rects, shape):
+    """Write counts of rectangles ``rects`` (n, 5) int64 rows (z, r0, r1,
+    c0, c1), half-open, on the grid cut at every rectangle's edges and at
+    the ends of ``shape`` (Z, R, C): returns (counts (Z, cells_r,
+    cells_c), row edges, column edges); each cell is wholly inside or
+    outside every rectangle."""
+    z, r0, r1, c0, c1 = (t.contiguous() for t in rects.unbind(1))
+    rows, cols = shape[1], shape[2]
+    er = torch.unique(torch.cat([r0, r1, torch.tensor([0, rows])]))
+    ec = torch.unique(torch.cat([c0, c1, torch.tensor([0, cols])]))
+    i0, i1 = torch.searchsorted(er, r0), torch.searchsorted(er, r1)
+    j0, j1 = torch.searchsorted(ec, c0), torch.searchsorted(ec, c1)
+    diff = torch.zeros((shape[0], len(er), len(ec)), dtype=torch.int64)
+    for i, j, sign in ((i0, j0, 1), (i0, j1, -1), (i1, j0, -1),
+                       (i1, j1, 1)):
+        diff.index_put_((z, i, j), torch.full_like(z, sign), accumulate=True)
+    counts = diff.cumsum(1).cumsum(2)[:, :-1, :-1]
+    return counts, er, ec
+
+
+def col2im_schedule(b: int, g: int, cg: int, k: int, p: int, o: int):
+    """K2's bf16 plan in plain PyTorch (for the tests): how
+    ``csrc/deform_col2im.cu`` cuts a bf16 call with B = b, G = g, Cg = cg,
+    K = k taps, P = p pixels and O = o outputs on an H100 (132 SMs).
+    Returns a dict:
+
+    - ``route``: the GEMMs', :func:`col2im_route`; ``padded``, for the
+      "padded" route, write counts of the copies of dy and cols (B*O +
+      B*KC rows of P rounded up to 8), else None;
+    - ``dcols``: write counts of the dcols GEMM's epilogues over (B*G, P,
+      K*Cg), on cells (:func:`_cover`: counts, row edges, column edges);
+      ``dcols_spans``: each block's columns of KC, [n0, n1);
+    - ``partial``: write counts of the dW2 partials (B*splits, O, KC), on
+      cells; ``chunks``: each split's pixels (k0, k1) and the first pixel
+      of each of its stages;
+    - ``scatter``: "half-warp" (Cg % 4 == 0: one (image·group,
+      pixel, tap) a half-warp) or "warp" (a warp per (image·group, pixel)
+      over its K taps), and ``items``, how many times each (image·group,
+      pixel, tap) is taken, (B*G, P, K)."""
+    def span(n, size):
+        return -(-n // size)
+    kcg = k * cg
+    kc, n = g * kcg, b * g
+    route = col2im_route(p, kc, kcg, o)
+    wgmma = route != "mma.sync"
+    splits = span(p, DW2_CHUNK)
+    padded = None
+    if route == "padded":   # a thread per 8 elements (16 bytes) of a row
+        p8, rows = span(p, 8) * 8, b * (o + kc)
+        i = torch.arange(rows * (p8 // 8))
+        first = i % (p8 // 8) * 8
+        padded = torch.bincount(
+            ((i // (p8 // 8) * p8 + first)[:, None]
+             + torch.arange(8)).reshape(-1),
+            minlength=rows * p8).reshape(rows, p8)
+    rects, spans = [], []
+    if wgmma:
+        # grid (per_n, KC/192): block (x, y) walks pixel tiles x, x + per_n,
+        # ... of 128 over the images; consumer c writes 64 of its rows
+        n_tiles, tpi = kc // DCOLS_TILE_N, span(p, 128)
+        per_n = max(1, min(b * tpi, H100_SMS // n_tiles))
+        for y in range(n_tiles):
+            n0 = y * DCOLS_TILE_N
+            grp, r0 = n0 // kcg, n0 % kcg
+            spans.append((n0, n0 + DCOLS_TILE_N))
+            for x in range(per_n):
+                tile = torch.arange(x, b * tpi, per_n)
+                for c in range(2):
+                    m0 = tile % tpi * 128 + 64 * c
+                    keep = m0 < p
+                    m0 = m0[keep]
+                    rects.append(torch.stack([
+                        tile[keep] // tpi * g + grp, m0,
+                        torch.clamp(m0 + 64, max=p),
+                        torch.full_like(m0, r0),
+                        torch.full_like(m0, r0 + DCOLS_TILE_N)], 1))
+    else:
+        # grid (ceil(KC/128), ceil(P/128), B): each column of a block's
+        # tile to its group's rows
+        for bx in range(span(kc, GEMM_TILE)):
+            n0, n1 = bx * GEMM_TILE, min(kc, (bx + 1) * GEMM_TILE)
+            spans.append((n0, n1))
+            for grp in range(n0 // kcg, span(n1, kcg)):
+                c0, c1 = max(n0, grp * kcg), min(n1, (grp + 1) * kcg)
+                m0 = torch.arange(span(p, GEMM_TILE)) * GEMM_TILE
+                for image in range(b):
+                    rects.append(torch.stack([
+                        torch.full_like(m0, image * g + grp), m0,
+                        torch.clamp(m0 + GEMM_TILE, max=p),
+                        torch.full_like(m0, c0 - grp * kcg),
+                        torch.full_like(m0, c1 - grp * kcg)], 1))
+    dcols = _cover(torch.cat(rects), (n, p, kcg))
+    # dW2 partials: z = image * splits + split; tiles of 128 o x 128 n
+    tm, tn = span(o, GEMM_TILE), span(kc, GEMM_TILE)
+    if wgmma:   # persistent: tile = x, x + grid, ...; o fastest
+        tiles = b * splits * tm * tn
+        grid = min(tiles, H100_SMS)
+        tile = torch.cat([torch.arange(x, tiles, grid) for x in range(grid)])
+        mt, nt, z = tile % tm, tile // tm % tn, tile // (tm * tn)
+    else:       # grid (tn, tm, B*splits)
+        z, mt, nt = torch.meshgrid(torch.arange(b * splits),
+                                   torch.arange(tm), torch.arange(tn),
+                                   indexing="ij")
+        z, mt, nt = z.reshape(-1), mt.reshape(-1), nt.reshape(-1)
+    partial = _cover(torch.stack([
+        z, mt * GEMM_TILE, torch.clamp((mt + 1) * GEMM_TILE, max=o),
+        nt * GEMM_TILE, torch.clamp((nt + 1) * GEMM_TILE, max=kc)], 1),
+        (b * splits, o, kc))
+    depth = WGMMA_DEPTH if wgmma else MMA_DEPTH
+    chunks = []
+    for split in range(splits):
+        k0 = split * DW2_CHUNK
+        k1 = min(p, k0 + DW2_CHUNK)
+        chunks.append((k0, k1, list(range(k0, k1, depth))))
+    half = cg % 4 == 0
+    if half:   # grid ceil(N*P*K / 16): 16 half-warps a block
+        item = torch.arange(span(n * p * k, 16) * 16)
+        items = torch.bincount(item[item < n * p * k],
+                               minlength=n * p * k).reshape(n, p, k)
+    else:      # grid ceil(N*P / 8): a warp per (n, p), all K taps
+        item = torch.arange(span(n * p, 8) * 8)
+        items = torch.bincount(item[item < n * p], minlength=n * p)
+        items = items.reshape(n, p, 1).expand(n, p, k)
+    return {"route": route, "padded": padded, "dcols": dcols, "dcols_spans": spans, "partial": partial,
+            "chunks": chunks, "scatter": "half-warp" if half else "warp",
+            "items": items}
+
+
 def _lib():
     lib = native.load("deform_col2im")
     if lib.deform_conv_bwd_f32.argtypes is None:
-        lib.deform_conv_bwd_partial_floats.restype = ctypes.c_longlong
-        lib.deform_conv_bwd_partial_floats.argtypes = [ctypes.c_int] * 4
+        lib.deform_conv_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.deform_conv_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
         for fn in (lib.deform_conv_bwd_f32, lib.deform_conv_bwd_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
@@ -206,13 +356,14 @@ def deform_conv_backward(x, offsets, cols, w2, dy, kernel_size=(3, 3),
         raise ValueError(f"grid too large for B*G={b * g}, P={p}")
     lib = _lib()
     # scratch: x and dX as channels-last rows (dX's f32), dcols p-major per
-    # group, the dW2 partials
+    # group, the dW2 partials (in bf16 with P % 8 != 0 also row-padded
+    # copies of dy and cols for TMA)
     x_rows = torch.empty_like(x)
     dx_rows = torch.empty_like(x, dtype=torch.float32)
     dcols = torch.empty((b * g, p, k * (c // g)), device=x.device,
                         dtype=x.dtype)
-    partial = torch.empty((lib.deform_conv_bwd_partial_floats(b, o, kc, p),),
-                          device=x.device, dtype=torch.float32)
+    partial = torch.empty((lib.deform_conv_bwd_scratch_floats(
+        b, o, g, k, c // g, p, bf16),), device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
     doffsets = torch.empty_like(offsets)
     dw2 = torch.empty_like(w2, dtype=torch.float32)

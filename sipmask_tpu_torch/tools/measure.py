@@ -367,7 +367,8 @@ def event_and_host_ms(sweep, iters):
 
 # kernel-name fragments of the port's kernels -> their ids
 OWNERS = {"deform_im2col": "K1", "deform_bwd": "K2", "fold_partials": "K2",
-          "deform_col2im": "K2", "mask_bce_fwd_tiles": "K3a",
+          "deform_col2im": "K2", "pad_rows": "K2",
+          "mask_bce_fwd_tiles": "K3a",
           "mask_bce_fold_tiles": "K3a", "mask_bce_dbasis_tiles": "K3b",
           "mask_bce_dcofs_tiles": "K3b", "mask_bce_fold_dcofs": "K3b",
           "gn_stats": "K4a", "gn_apply": "K4a", "gn_bwd": "K4b",

@@ -842,10 +842,15 @@ def test_bf16_deform_im2col_kernel_matches_plain(dev, b, c, g, h, w, stride,
 
 
 @pytest.mark.parametrize("b,c,g,h,w,regime", [
-    (2, 256, 4, 100, 168, "random"),   # P3: 16-byte tile copies
-    (2, 256, 4, 50, 84, "zero"),
-    (2, 256, 4, 7, 11, "far"),         # P % 8 != 0: element copies
+    (2, 256, 4, 100, 168, "random"),   # P3: the wgmma GEMMs (TMA)
+    (2, 256, 4, 50, 84, "zero"),       # zero-weight corners skipped
+    (2, 256, 4, 7, 11, "far"),         # P % 8 != 0: padded rows
     (1, 20, 4, 9, 13, "random"),       # Cg = 5, odd: scalar lanes
+    (2, 256, 4, 25, 42, "random"),     # P5, P % 8 == 2: padded rows
+    (2, 256, 4, 12, 21, "random"),     # HRFPN's 12x21: padded, P odd
+    (4, 256, 4, 100, 168, "random"),   # batch 4 at P3
+    (1, 256, 4, 13, 21, "zero"),       # the skip on the padded route
+    (2, 32, 4, 25, 42, "random"),      # K*Cg = 72: mma.sync, float4 lanes
 ])
 def test_bf16_deform_conv_backward_kernel_matches_plain(dev, b, c, g, h, w,
                                                         regime):
@@ -864,6 +869,43 @@ def test_bf16_deform_conv_backward_kernel_matches_plain(dev, b, c, g, h, w,
     _close_to_max(got, want)
     if regime == "zero":   # the one-sided rule: offsets train from zero
         assert float(got[1].abs().max()) > 0
+    # dW2 (partials folded in order) and d offsets (fixed shuffle trees)
+    # take no atomics: the same bits from call to call
+    again = deform_conv.deform_conv_backward(x, off, cols, w2, dy, (3, 3),
+                                             1, 1, 1, g)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+@pytest.mark.parametrize("c,h,w,gemms", [
+    (256, 100, 168, ("deform_bwd_gemm_wgmma_dcols",
+                     "deform_bwd_gemm_wgmma_dw2")),       # P % 8 == 0
+    (256, 25, 42, ("pad_rows_kernel", "deform_bwd_gemm_wgmma_dcols",
+                   "deform_bwd_gemm_wgmma_dw2")),         # P % 8 == 2
+    (32, 25, 42, ("deform_bwd_gemm_bf16_kernel",) * 2),   # K*Cg = 72
+])
+def test_bf16_deform_conv_backward_device_kernels(dev, c, h, w, gemms):
+    """A bf16 K2 call is the kernels csrc/deform_col2im.cu states: the
+    transpose of x (which also zeroes the dX scratch), the GEMMs of the
+    route its shape takes (where P % 8 != 0 after the copy of dy and cols
+    into padded rows; mma.sync where K*Cg is no multiple of 192), the fold
+    of the partials, the half-warp scatter (Cg % 4 == 0) and the transpose
+    of dX: six kernels, seven with the copy."""
+    from sipmask_tpu_torch.ops import deform_conv
+    b, g = 2, 4
+    x, off, w2, dy = _deform_case(dev, b, c, g, h, w, "random")
+    x, w2, dy = x.to(BF16), w2.to(BF16), dy.to(BF16)
+    cols = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    sessions = _device_kernels(lambda: deform_conv.deform_conv_backward(
+        x, off, cols, w2, dy, (3, 3), 1, 1, 1, g))
+    n = 4 + len(gemms)
+    assert all(len(names) <= n for names in sessions), sessions
+    names = max(sessions, key=len)
+    assert len(names) == n, sessions
+    want = ["deform_bwd_transpose_kernel", "deform_bwd_transpose_kernel",
+            *gemms, "fold_partials_kernel", "deform_col2im_bf16x4_kernel"]
+    for kernel in set(want):
+        assert sum(kernel in n for n in names) == want.count(kernel), (
+            kernel, names)
 
 
 @pytest.mark.parametrize("act", [True, False])

@@ -10,13 +10,21 @@ the rules they must keep (no card needed):
   (pixel, channel) tile per tap and writes it out in rows: with ragged
   channels and pixel counts, each element must be written exactly once
   (``deform_sample.im2col_schedule``).
+- K2 (``csrc/deform_col2im.cu``) in bf16 routes its two GEMMs by shape to
+  the TMA-fed wgmma kernels (on row-padded copies where P % 8 != 0) or the
+  mma.sync ones, splits dW2 into
+  2048-pixel partials and scatters by half-warp or warp: at every
+  FeatureAlign level the presets run, each dcols element and each partial
+  element is written once, the chunks cover P, each (image·group, pixel,
+  tap) is scattered once, and no wgmma dcols block straddles a group
+  (``deform_conv.col2im_schedule``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sipmask_tpu_torch.ops import deform_sample, mask_assembly
+from sipmask_tpu_torch.ops import deform_conv, deform_sample, mask_assembly
 
 
 def _boxes(regime, rng, b, n, h, w):
@@ -126,3 +134,60 @@ def test_deform_im2col_schedule_writes_each_element_once(b, g, cg, k, ho,
     assert bool((tile == 1).all())
     assert cols.shape == (b, g * k * cg, ho * wo)
     assert bool((cols == 1).all())
+
+
+# FeatureAlign's levels as the presets run them (h, w, batch): 800x1344
+# (flagship, X101, the fork), HRFPN's floor-pooled 12x21 and 6x10, 544
+# (SipMask++ and real-time serving), 576 (their training), VIS's 384x640
+K2_LEVELS = (
+    [(h, w, 4) for h, w in ((100, 168), (50, 84), (25, 42), (13, 21),
+                            (7, 11), (12, 21), (6, 10))]
+    + [(h, w, 8) for h, w in ((68, 68), (34, 34), (17, 17), (9, 9), (5, 5),
+                              (72, 72), (36, 36), (18, 18))]
+    + [(h, w, 4) for h, w in ((48, 80), (24, 40), (12, 20), (6, 10),
+                              (3, 5))])
+
+
+def _cells_cover_once(cover, rows, cols):
+    counts, er, ec = cover
+    assert int(er[0]) == 0 and int(er[-1]) == rows
+    assert int(ec[0]) == 0 and int(ec[-1]) == cols
+    return bool((counts == 1).all())
+
+
+@pytest.mark.parametrize("b,g,cg,h,w,o", [
+    (b, 4, 64, h, w, 256) for h, w, b in K2_LEVELS] + [
+    (1, 4, 5, 13, 9, 20)])   # Cg = 5: odd, the scalar scatter lanes
+def test_deform_col2im_schedule_writes_each_element_once(b, g, cg, h, w, o):
+    k, p = 9, h * w
+    kcg = k * cg
+    plan = deform_conv.col2im_schedule(b, g, cg, k, p, o)
+    # every preset's level on the wgmma GEMMs, by TMA or padded copies
+    assert plan["route"] == ("mma.sync" if cg != 64 else
+                             "wgmma" if p % 8 == 0 else "padded")
+    assert plan["scatter"] == ("half-warp" if cg % 4 == 0 else "warp")
+    if plan["route"] == "padded":   # each element of the copies once
+        assert plan["padded"].shape == (b * (o + g * kcg), -(-p // 8) * 8)
+        assert bool((plan["padded"] == 1).all())
+    # each dcols element (image·group, pixel, column of the group) once
+    assert _cells_cover_once(plan["dcols"], p, kcg)
+    assert plan["dcols"][0].shape[0] == b * g
+    if plan["route"] != "mma.sync":   # a block's columns lie in one group
+        for n0, n1 in plan["dcols_spans"]:
+            assert n0 // kcg == (n1 - 1) // kcg, (n0, n1)
+    # each partial element once per (image, chunk); the chunks cover P
+    splits = -(-p // deform_conv.DW2_CHUNK)
+    assert plan["partial"][0].shape[0] == b * splits
+    assert _cells_cover_once(plan["partial"], o, g * kcg)
+    edges = [0]
+    for k0, k1, starts in plan["chunks"]:
+        assert k0 == edges[-1] and k1 > k0
+        assert k1 - k0 <= deform_conv.DW2_CHUNK
+        depth = (deform_conv.MMA_DEPTH if plan["route"] == "mma.sync"
+                 else deform_conv.WGMMA_DEPTH)
+        assert starts == list(range(k0, k1, depth))
+        edges.append(k1)
+    assert edges[-1] == p and len(edges) == splits + 1
+    # each scatter item (image·group, pixel, tap) once
+    assert plan["items"].shape == (b * g, p, k)
+    assert bool((plan["items"] == 1).all())
