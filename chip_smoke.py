@@ -499,7 +499,21 @@ def bound(nbytes, flops, tf32_flops=0.0, tc_rate=TF32_FLOP_PER_S):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def launch_split(label, fn, attempts=3, want=None):
+def last_runs(kern, want, reps):
+    """The kernels of the last run of fn() among a session's ``kern`` (in
+    launch order) of ``reps`` runs of ``want`` kernels each, where the
+    profiler dropped only a prefix: the last two whole runs must match
+    name for name (a run of another length than ``want`` never does), else
+    []."""
+    names = [e.name for e in kern]
+    k = min(len(kern) // want, reps)
+    if k < 2 or any(names[len(names) - i * want:len(names) - (i - 1) * want]
+                    != names[len(names) - want:] for i in range(2, k + 1)):
+        return []
+    return kern[len(kern) - want:]
+
+
+def launch_split(label, fn, attempts=3, want=None, reps=1):
     """Profile one fn() after a warm-up: log the launches and device ms of
     each device kernel it runs; return ({name: (launches, ms)}, kernels).
 
@@ -508,30 +522,39 @@ def launch_split(label, fn, attempts=3, want=None):
     with a marker kernel, and of ``attempts`` sessions (more, up to
     4 * ``attempts``, while every one has seen nothing, or fewer than
     ``want`` kernels where fn() is known to run ``want``) the one that saw
-    the most kernels counts."""
+    the most kernels counts. With ``reps`` (and ``want``, the kernels of
+    one fn()), a session runs fn() ``reps`` times and counts only with
+    whole last runs (``last_runs``): late in a long run the profiler
+    dropped the first 10 to 41 kernels of a session, which one fn() alone
+    cannot outlast."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    seen = []
+    seen, raw = [], []
     while len(seen) < attempts or (
             max(map(len, seen)) < (want or 1) and len(seen) < 4 * attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
-        seen.append([e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and "spin_kernel" not in e.name])
+        kern = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and "spin_kernel" not in e.name),
+                      key=lambda e: e.time_range.start)
+        raw.append(len(kern))
+        seen.append(last_runs(kern, want, reps) if reps > 1 else kern)
     kern = max(seen, key=len)
     split = {}
     for e in kern:
         n, ms = split.get(e.name, (0, 0.0))
         split[e.name] = (n + 1, ms + e.device_time / 1e3)
     log(f"split of {label}: {len(kern)} device kernels (sessions saw "
-        f"{[len(k) for k in seen]}), "
+        f"{raw}" + (f" in {reps} runs, one whole run in "
+                    f"{sum(map(bool, seen))}" if reps > 1 else "") + "), "
         f"{sum(ms for _, ms in split.values()):.4f} ms device time: "
         + "; ".join(f"{name[:70]} x{n} {ms:.4f} ms" for name, (n, ms) in
                     sorted(split.items(), key=lambda kv: -kv[1][1])))
@@ -1166,7 +1189,7 @@ def phase_bf16_kernels(dev):
     sweep_kernels = sum(6 + (h * w % 8 != 0) for h, w in LEVELS)
     split, n_kern = launch_split(f"K2 bf16 deform_conv_backward all 5 "
                                  f"levels bs{BATCH}", k2_sweep,
-                                 want=sweep_kernels)
+                                 want=sweep_kernels, reps=4)
     gemm_ms = sum(ms for name, (_, ms) in split.items() if "gemm" in name)
     pad_ms = sum(ms for name, (_, ms) in split.items() if "pad_rows" in name)
     if n_kern == sweep_kernels:
@@ -1195,7 +1218,7 @@ def phase_bf16_kernels(dev):
             f"K2 bf16 deform_conv_backward, one call at {LEVELS[i]} "
             f"bs{BATCH}", lambda: deform_conv.deform_conv_backward(
                 x, o, cols, w2, dy, (3, 3), 1, 1, 1, g), attempts=5,
-            want=len(want))
+            want=len(want), reps=4)
         names = [n for n, (c, _) in split.items() for _ in range(c)]
         if n_kern != len(want) or any(
                 sum(k in n for n in names) != want.count(k)
@@ -2691,13 +2714,15 @@ def checked_calls(names, tol=BF16_KERNEL_TOL, record=None):
                 record.setdefault(n, []).append(args)
             pairs = list(zip(*(t if isinstance(t, tuple) else (t,)
                                for t in (got, want))))[:n_cmp]
-            errs[n].append(max(errors(g.float(), w.float())[1]
-                               for g, w in pairs))
+            each = [errors(g.float(), w.float())[1] for g, w in pairs]
+            errs[n].append(max(each))
             if not errs[n][-1] <= tols[n]:
                 raise AssertionError(f"{n} call {len(errs[n])} on the path's "
                                      f"inputs: {errs[n][-1]} of its max "
                                      f"from the plain version (tol "
-                                     f"{tols[n]})")
+                                     f"{tols[n]}; by output "
+                                     f"{[f'{e:.3e}' for e in each]}, input "
+                                     f"shape {tuple(args[0].shape)})")
             return got
         return call
     # a wrapper counts its launches on its module name

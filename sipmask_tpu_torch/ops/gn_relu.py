@@ -65,6 +65,16 @@ def _affine(weight, bias, mean, rstd):
     return sc, bi
 
 
+def _pre_relu(x, sc, bi):
+    """x*sc + bi per (image, channel) in f64, where it is the exact value
+    (a product of two f32 numbers is exact there) that K4a's and K4b's
+    fmaf(x, sc, bi) rounds once: its sign is their ReLU mask even where
+    x*sc + bi rounded twice in f32 would land on the other side of 0, and
+    rounded to f32 it is their y."""
+    return torch.addcmul(bi.double()[:, :, None, None], x.double(),
+                         sc.double()[:, :, None, None])
+
+
 def _forward_plain(x, weight, bias, groups: int, eps: float, act: bool):
     """(y, stats) of the single-pass-variance GroupNorm of
     ``layers._gn_fwd_impl``, then a ReLU when ``act``; a bf16 x is widened
@@ -73,7 +83,7 @@ def _forward_plain(x, weight, bias, groups: int, eps: float, act: bool):
     xf = x.float()
     mean, rstd = _stats_plain(xf, groups, eps)
     sc, bi = _affine(weight, bias, mean, rstd)
-    y = xf * sc[:, :, None, None] + bi[:, :, None, None]
+    y = _pre_relu(xf, sc, bi).float()
     y = torch.relu(y) if act else y
     return y.to(x.dtype), torch.stack([mean, rstd], -1)
 
@@ -122,15 +132,15 @@ def _bwd_coefficients(r1, r2, weight, stats, n: float):
 def gn_relu_backward_plain(x, weight, bias, stats, dy, groups: int,
                            act: bool):
     """Plain PyTorch K4b: ``layers._gn_vjp_bwd`` with the ReLU mask
-    recomputed from x, as ``group_norm._vjp_bwd`` does. Returns (dx,
+    recomputed from x, as ``group_norm._vjp_bwd`` does (the sign of
+    :func:`_pre_relu`, K4b's fmaf). Returns (dx,
     d weight, d bias). bf16 x and dy are widened to f32 and dx rounded once
     to bf16; d weight and d bias are f32."""
     b, c, h, w = x.shape
     dtype, x, dy = x.dtype, x.float(), dy.float()
     if act:
         sc, bi = _affine(weight, bias, *stats.unbind(-1))
-        u = x * sc[:, :, None, None] + bi[:, :, None, None]
-        dy = torch.where(u > 0, dy, torch.zeros_like(dy))
+        dy = torch.where(_pre_relu(x, sc, bi) > 0, dy, torch.zeros_like(dy))
     r1 = dy.sum((2, 3))
     r2 = (dy * x).sum((2, 3))
     a, b2, c2, dweight, dbias = _bwd_coefficients(

@@ -25,7 +25,10 @@ variants that compute K2, each output's error against the plain version
 relative to its max, level by level, dW2's against an f32 product of the
 kernel's own bf16 operands (``dw2_gemm``: the plain version samples its own
 cols, whose bf16 roundings differ from K1's), and whether two calls give
-the same dW2 and d offsets bits. Variants (all without names):
+the same dW2 and d offsets bits; each variant first with offsets of ~2 px
+(a third of them +-300 px), then with zero offsets (integer positions, as
+FeatureAlign's zero-initialised ``conv_offset`` gives: 3 of 4 corners of
+zero weight). Variants (all without names):
 
 - ``base``: the source as it is (wgmma GEMMs at every level, on padded
   copies of dy and cols where P % 8 != 0; the half-warp float4 scatter);
@@ -128,12 +131,12 @@ def bf16_variants(src: str):
     }
 
 
-def build(name, text, built, csrc=native.CSRC_DIR):
+def build(name, text, built):
     OUT.mkdir(parents=True, exist_ok=True)
     cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
     cu.write_text(text)
     res = subprocess.run([native.find_nvcc(), *native.NVCC_FLAGS, "-I",
-                          str(csrc), "-o", str(so), str(cu)],
+                          str(native.CSRC_DIR), "-o", str(so), str(cu)],
                          capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{res.stderr}")
@@ -148,14 +151,8 @@ def build(name, text, built, csrc=native.CSRC_DIR):
 
 
 def scratch_floats(lib):
-    """(b, o, kc, p, bf16) -> the floats of a call's scratch, from a
-    library of this tree (deform_conv_bwd_scratch_floats) or an older one
-    (deform_conv_bwd_partial_floats)."""
-    fn = getattr(lib, "deform_conv_bwd_scratch_floats", None)
-    if fn is None:
-        fn = lib.deform_conv_bwd_partial_floats
-        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 4
-        return lambda b, o, kc, p, bf16: fn(b, o, kc, p)
+    """(b, o, kc, p, bf16) -> the floats of a call's scratch."""
+    fn = lib.deform_conv_bwd_scratch_floats
     fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 7
     return lambda b, o, kc, p, bf16: fn(b, o, G, 9, kc // (9 * G), p,
                                         int(bf16))
@@ -172,7 +169,6 @@ def gemm_ms(lib, dev):
     cols = torch.randn((B, kc, p), generator=gen).to(dev)
     w2 = (torch.randn((O, kc), generator=gen) * 0.01).to(dev)
     dy = torch.randn((B, O, p), generator=gen).to(dev)
-    scratch_floats(lib)
     fn = lib.deform_conv_bwd_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
@@ -209,35 +205,36 @@ def gemm_ms(lib, dev):
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # 800x1344
 
 
-def bf16_case(lib, dev, levels=LEVELS, b=B, zero=False):
+def bf16_case(lib, dev, zero):
     """Per level: the bf16 inputs (offsets ~2 px with a third +-300 px, or
-    all zero), K1's cols, the plain outputs and the scratch of a call (as
+    with ``zero`` all zero: integer positions, where the scatter skips 3 of
+    4 corners), K1's cols, the plain outputs and the scratch of a call (as
     ``deform_conv_backward`` allocates it)."""
     from ..ops import deform_conv, deform_sample
     gen = torch.Generator().manual_seed(0)
     bf, kc = torch.bfloat16, 9 * C
     floats = scratch_floats(lib)
     case = []
-    for h, w in levels:
-        x = torch.randn((b, C, h, w), generator=gen).to(dev).to(bf)
-        off = torch.randn((b, G * 18, h, w), generator=gen) * 2
-        off.view(b, G * 18, h * w)[:, :, :(h * w) // 3] *= 150.0
+    for h, w in LEVELS:
+        x = torch.randn((B, C, h, w), generator=gen).to(dev).to(bf)
+        off = torch.randn((B, G * 18, h, w), generator=gen) * 2
+        off.view(B, G * 18, h * w)[:, :, :(h * w) // 3] *= 150.0
         off = (off * (not zero)).to(dev)
         w2 = (torch.randn((O, kc), generator=gen) * 0.01).to(dev).to(bf)
-        dy = torch.randn((b, O, h, w), generator=gen).to(dev).to(bf)
+        dy = torch.randn((B, O, h, w), generator=gen).to(dev).to(bf)
         cols = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, G)
         want = deform_conv.deform_conv_backward_plain(x, off, w2, dy, (3, 3),
                                                       1, 1, 1, G)
         # dW2 of the kernel's own operands, f32 products and sums
-        want = want + (torch.matmul(dy.reshape(b, O, -1).float(),
+        want = want + (torch.matmul(dy.reshape(B, O, -1).float(),
                                     cols.float().transpose(1, 2)).sum(0),)
-        parts = floats(b, O, kc, h * w, True)
-        bufs = [torch.empty_like(x), torch.empty((b * G, h * w, kc // G),
+        parts = floats(B, O, kc, h * w, True)
+        bufs = [torch.empty_like(x), torch.empty((B * G, h * w, kc // G),
                                                  device=dev, dtype=bf),
                 torch.empty((parts,), device=dev),
                 torch.empty_like(x, dtype=torch.float32), torch.empty_like(x),
                 torch.empty_like(off), torch.empty_like(w2, dtype=torch.float32)]
-        case.append(((x, off, cols, w2, dy), bufs, want, (b, h, w)))
+        case.append(((x, off, cols, w2, dy), bufs, want, (B, h, w)))
     return case
 
 
@@ -265,23 +262,20 @@ def bf16_sweep(lib, dev, case, keep=False):
 def bf16_errors(name, lib, dev, case):
     """Each output's error against the plain version (relative to its max)
     level by level, dW2's against the f32 product of its own operands, and
-    whether two calls give the same dW2 and d offsets bits; returns the
-    worst of the latter dW2 errors."""
+    whether two calls give the same dW2 and d offsets bits."""
     sweep = bf16_sweep(lib, dev, case, keep=True)
     first, second = sweep(), sweep()
     torch.cuda.synchronize()
-    errs, worst = [], 0.0
+    errs = []
     for (got, again), (_, _, want, bhw) in zip(zip(first, second), case):
         rel = [float((g.float() - w.float()).abs().max())
                / max(float(w.float().abs().max()), 1e-30)
                for g, w in zip(got + got[2:], want)]
-        worst = max(worst, rel[3])
         same = (torch.equal(got[1], again[1]), torch.equal(got[2], again[2]))
         errs.append(f"b{bhw[0]} {bhw[1]}x{bhw[2]} dx {rel[0]:.3e} doff "
                     f"{rel[1]:.3e} dw2 {rel[2]:.3e} dw2_gemm {rel[3]:.3e} "
                     f"same bits (doff, dw2) {same}")
     print(f"{name}: errors to max |plain|: " + "; ".join(errs), flush=True)
-    return worst
 
 
 def kernel_name(name: str) -> str:
@@ -292,11 +286,11 @@ def kernel_name(name: str) -> str:
         "__nv_bfloat16", "bf16").strip()
 
 
-def bf16_probe(name, lib, dev, case):
+def bf16_probe(label, name, lib, dev, case):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if name != "storeonly":
-        bf16_errors(name, lib, dev, case)
+        bf16_errors(label, lib, dev, case)
     sweep = bf16_sweep(lib, dev, case)
     sweep()
     torch.cuda.synchronize()
@@ -307,14 +301,16 @@ def bf16_probe(name, lib, dev, case):
         for _ in range(5):
             sweep()
         torch.cuda.synchronize()
-    ms = {}
+    ms, seen = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
             key = kernel_name(e.name)
             ms[key] = ms.get(key, 0.0) + e.device_time / 5e3
+            seen += 1
     flops = sum(4 * B * 9 * C * O * h * w for h, w in LEVELS)
     gemm = sum(v for k, v in ms.items() if "gemm" in k)
-    print(f"{name}: device ms a sweep {sum(ms.values()):.4f}; GEMMs "
+    print(f"{label}: {seen} kernels seen in 5 sweeps; device ms a sweep "
+          f"{sum(ms.values()):.4f}; GEMMs "
           f"{gemm:.4f} ({flops / max(gemm, 1e-9) / 1e9:.1f} TFLOP/s of bf16 "
           f"products); " + "; ".join(f"{k} {v:.4f}" for k, v in
                                      sorted(ms.items(), key=lambda kv: -kv[1])),
@@ -337,9 +333,9 @@ def hgmma(so: Path):
     print(f"{len(counts)} functions with HGMMA", flush=True)
 
 
-def build_all(texts, csrc=native.CSRC_DIR):
+def build_all(texts):
     built = {}
-    threads = [threading.Thread(target=build, args=(n, t, built, csrc))
+    threads = [threading.Thread(target=build, args=(n, t, built))
                for n, t in texts.items()]
     for t in threads:
         t.start()
@@ -358,9 +354,6 @@ def main():
     ap.add_argument("--sass", action="store_true",
                     help="count the HGMMA (wgmma) instructions of each "
                          "function of the base build (cuobjdump -sass)")
-    ap.add_argument("--csrc", type=Path, default=native.CSRC_DIR,
-                    help="the csrc directory whose deform_col2im.cu is "
-                         "edited (another tree's, to time its K2)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k2_gemm_probe: no CUDA device")
@@ -368,18 +361,20 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip(),
           flush=True)
-    src = (args.csrc / "deform_col2im.cu").read_text()
+    src = (native.CSRC_DIR / "deform_col2im.cu").read_text()
     dev = torch.device("cuda", 0)
     if args.bf16 is not None:
-        texts = bf16_variants(src) if args.csrc == native.CSRC_DIR else {
-            "base": src}
+        texts = bf16_variants(src)
         names = args.bf16 or list(texts)
-        libs = build_all({f"bf16_{n}": texts[n] for n in names}, args.csrc)
+        libs = build_all({f"bf16_{n}": texts[n] for n in names})
         if args.sass and "base" in names:
             hgmma(OUT / "bf16_base.so")
-        case = bf16_case(libs[f"bf16_{names[0]}"], dev)
-        for n in names:
-            bf16_probe(n, libs[f"bf16_{n}"], dev, case)
+        for zero in (False, True):
+            case = bf16_case(libs[f"bf16_{names[0]}"], dev, zero)
+            for n in names:
+                bf16_probe(f"{n} {'zero' if zero else 'random'} offsets",
+                           n, libs[f"bf16_{n}"], dev, case)
+            del case
         return
     texts, built = variants(src), {}
     threads = [threading.Thread(target=build, args=(n, t, built))

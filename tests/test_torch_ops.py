@@ -292,6 +292,60 @@ def test_gn_relu_backward_matches_jax(act, b, c, groups):
                                        atol=1e-5)
 
 
+def test_gn_relu_plain_masks_by_the_kernels_fma_sign():
+    """K4a and K4b gate the ReLU on fmaf(x, sc, bi) > 0. Where x*sc + bi
+    rounded twice in f32 is exactly 0 but the exact value is positive (x
+    equal to its group's mean, bi = -fl(x*sc)), the plain K4b passes dy on
+    as the kernels do, and the plain K4a gives their y: an f64 backward
+    with the exact mask, and fmaf's rounding of y."""
+    rng = np.random.RandomState(3)
+    b, c, groups, h, w = 2, 64, 32, 4, 5
+    cg, n = c // groups, float(h * w * c // groups)
+    x = rng.randn(b, c, h, w).astype(np.float32)
+    dy = rng.randn(b, c, h, w).astype(np.float32)
+    weight = np.ones(c, np.float32)
+    bias = np.zeros(c, np.float32)
+    mean = x[:, ::cg, 0, 0].copy()            # each group's first element
+    rstd = np.empty((b, groups), np.float32)
+    for i in range(b):
+        for g in range(groups):
+            while True:   # x0*rstd rounded down in f32: the exact value > 0
+                r = np.float32(rng.rand() + 0.5)
+                if float(mean[i, g]) * float(r) > float(mean[i, g] * r):
+                    break
+            rstd[i, g] = r
+    stats = np.stack([mean, rstd], -1)
+    sc = np.repeat(rstd, cg, 1)[:, :, None, None]
+    bi = (0.0 - np.repeat(mean * rstd, cg, 1))[:, :, None, None]
+    exact = x.astype(np.float64) * sc + bi
+    twice = x * sc + bi                       # f32, two roundings
+    ties = (exact > 0) & ~(twice > 0)
+    assert ties.sum() == b * groups
+
+    dy_eff = np.where(exact > 0, dy, 0.0).astype(np.float64)
+    xd, mean_c = x.astype(np.float64), np.repeat(mean, cg, 1).astype(
+        np.float64)
+    rstd_c = np.repeat(rstd, cg, 1).astype(np.float64)
+    r1, r2 = dy_eff.sum((2, 3)), (dy_eff * xd).sum((2, 3))
+    sdx = (r2 - mean_c * r1) * rstd_c
+    m1 = np.repeat(r1.reshape(b, groups, cg).sum(-1) / n, cg, 1)
+    m2 = np.repeat(sdx.reshape(b, groups, cg).sum(-1) / n, cg, 1)
+    a, b2 = rstd_c, -rstd_c * rstd_c * m2
+    c2 = rstd_c * (mean_c * rstd_c * m2 - m1)
+    want = (a[:, :, None, None] * dy_eff + b2[:, :, None, None] * xd
+            + c2[:, :, None, None], sdx.sum(0), r1.sum(0))
+    got = gn_relu.gn_relu_backward_plain(T(x), T(weight), T(bias), T(stats),
+                                         T(dy), groups, True)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), w_, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w_).max())
+    # the forward's y where the mask flips: fmaf's one rounding, not 0
+    y = gn_relu._pre_relu(T(x), T(sc[:, :, 0, 0]), T(bi[:, :, 0, 0])).float()
+    np.testing.assert_array_equal(y.numpy()[ties],
+                                  exact[ties].astype(np.float32))
+    assert (y.numpy()[ties] > 0).all()
+
+
 # ------------------------------------------------------------------- K3
 
 def _mask_case(seed, b=2, k=20, g=5, h=24, w=40):
