@@ -135,13 +135,14 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
 23. holds the bf16 variants of K5 and K5c (bf16 rows and cotangents, f32
     positions, an f32 dx scratch rounded once) against their plain bf16
     versions at the R101 DCN stages' shapes at 544x544 and 576x576, batch
-    8 (random
-    offsets with a third +-300 px out, and zero offsets) and on the scalar
-    path (Cg = 36), each within one bf16 unit of its output's max, d
-    positions the same bits twice, and times them (bounds at 2 bytes a
-    bf16 element; F.grid_sample in bf16 and its autograd as the library
-    calls; a bf16 K5c call must be its scatter and its rounding after the
-    zeroing of dx);
+    8 (random offsets with a third +-300 px out, and zero offsets), on the
+    vector path at Cg = 36 and on the scalar path (Cg = 18), each within
+    one bf16 unit of its output's max, d positions the same bits twice,
+    and times them (bounds at 2 bytes a bf16 element; F.grid_sample in
+    bf16 and its autograd as the library calls); each stage's call split
+    by device kernel (a K5 call its gather, a K5c call the memset of its
+    f32 dx, its scatter and its rounding, or the phase fails), with the
+    device ms of a SipMask++ pass's 2 + 8 + 1 DCN convs;
 24. serves SipMask++ in bf16 (3 requests at 544x544, a batch of 8 twice;
     no f32 kernel variant may launch), then the batch again with the
     kernels, each K5 call held within one bf16 unit of its plain version
@@ -240,6 +241,9 @@ PP_HW, PP_TRAIN_HW, PP_BATCH, PP_MAX_POS = (544, 544), (576, 576), 8, 256
 # the R101 DCN stages' conv2 at 544x544 (serving) and 576x576 (training):
 # (channels = Cg = O, h, w)
 PP_DCN = [(128, 68, 68), (256, 34, 34), (512, 17, 17)]
+# DCN convs of those stages in one SipMask++ pass (DCN on blocks b % 3 == 0
+# of R101's 4, 23 and 3 blocks)
+PP_DCN_CALLS = (2, 8, 1)
 PP_DCN_TRAIN = [(128, 72, 72), (256, 36, 36), (512, 18, 18)]
 K5_TOL = 1e-5     # abs: the same four f32 products, FMA-fused in the kernel
 K6_TOL = 1e-5     # abs: sigmoid of a 32-term f32 dot summed in another order
@@ -3682,20 +3686,26 @@ def phase_bf16_pp_kernels(dev):
     """Phase 23: the bf16 variants of K5 and K5c against their plain bf16
     versions at the R101 DCN stages' shapes at 544x544 and 576x576, batch
     8 (random offsets with a third of the pixels +-300 px out, and zero
-    offsets), and on the scalar path (Cg % 8 != 0), each within one bf16
-    unit of its output's max, d positions the same bits twice; then times
-    at the serving shapes, bounds (bf16 tensors 2 bytes an element) and
-    library equivalents (``F.grid_sample`` in bf16, and its autograd)."""
+    offsets), on the vector path at Cg % 8 != 0 (Cg = 36) and on the
+    scalar path (Cg % 4 != 0), each within one bf16 unit of its output's
+    max, d positions the same bits twice; then times at the serving
+    shapes, the device ms of each stage's call by kernel (a K5 call one
+    kernel, a K5c call the zeroing, the scatter and the rounding) and of
+    the SipMask++ pass's DCN convs (PP_DCN_CALLS), bounds (bf16 tensors 2
+    bytes an element) and library equivalents (``F.grid_sample`` in bf16,
+    and its autograd)."""
     from sipmask_tpu_torch.ops import deform_sample as ds
 
     bf = torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 6)
     errs = {"deform_rows_bf16": 0.0, "deform_rows_backward_bf16": 0.0}
-    # (path, batch, Cg, h, w): the three stages serving and training, and
-    # Cg = 36 (scalar loads)
+    # (path, batch, Cg, h, w): the three stages serving and training,
+    # Cg = 36 (lanes of 4 channels, a half-warp an item) and Cg = 18
+    # (scalar loads)
     cases = ([("serving", PP_BATCH, c, h, w) for c, h, w in PP_DCN]
              + [("training", PP_BATCH, c, h, w) for c, h, w in PP_DCN_TRAIN]
-             + [("scalar path", 2, 36, 68, 68)])
+             + [("vector path", 2, 36, 68, 68), ("scalar path", 2, 18, 68,
+                                                 68)])
     for path, b, c, h, w in cases:
         for zero in (False, True):
             x, pyx = pp_positions(b, c, h, w, gen, dev, zero)
@@ -3753,19 +3763,38 @@ def phase_bf16_pp_kernels(dev):
         lambda: [torch.autograd.grad(o, lv, g, retain_graph=True)
                  for o, lv, g in graphs], k5c_sweep, iters=10)
     del graphs
-    split, n_kern = launch_split(
-        f"K5c bf16 deform_rows_backward, one call at {PP_DCN[0]} "
-        f"bs{PP_BATCH}",
-        lambda: ds.deform_rows_backward(*k5_in[0][:2], k5c_g[0],
-                                        *k5_in[0][2:]))
-    n_own = sum(n for kname, (n, _) in split.items()
-                if "deform_rows_bwd_kernel" in kname
-                or "round_bf16_kernel" in kname)
-    # the profiler may miss the zeroing of dx, never adds a kernel
-    if n_own != 2 or n_kern - n_own > 1:
-        raise AssertionError(f"a bf16 K5c call ran {n_kern} device kernels, "
-                             f"not its scatter and rounding after the "
-                             f"zeroing of dx: {split}")
+    # each stage's call by device kernel (48 kernels a profiler session,
+    # the last whole run read: late in a long run the card's profiler
+    # drops up to tens of a session's first kernels): K5 its gather, K5c
+    # the zeroing of the f32 dx (a memset), the scatter and the rounding
+    stages = {"deform_rows_bf16": [], "deform_rows_backward_bf16": []}
+    for (x, pyx, h, w), g, (c, *_) in zip(k5_in, k5c_g, PP_DCN):
+        for kname, fn, parts in (
+                ("deform_rows_bf16",
+                 lambda x=x, pyx=pyx, h=h, w=w: ds.deform_rows(x, pyx, h, w),
+                 ("deform_rows_fwd_bf16x4_kernel",)),
+                ("deform_rows_backward_bf16",
+                 lambda x=x, pyx=pyx, g=g, h=h, w=w: ds.deform_rows_backward(
+                     x, pyx, g, h, w),
+                 ("Memset", "deform_rows_bwd_bf16x4_kernel",
+                  "round_bf16_kernel"))):
+            split, n_kern = launch_split(
+                f"{kname}, one call at Cg={c} {h}x{w} bs{PP_BATCH}", fn,
+                want=len(parts), reps=48 // len(parts))
+            if n_kern != len(parts) or any(
+                    sum(n for name, (n, _) in split.items() if part in name)
+                    != 1 for part in parts):
+                raise AssertionError(f"a {kname} call at Cg={c} ran "
+                                     f"{n_kern} device kernels, not "
+                                     f"{', '.join(parts)}: {split}")
+            stages[kname].append(sum(ms for _, ms in split.values()))
+    weights = " + ".join(f"{n} x Cg {c}"
+                         for n, (c, *_) in zip(PP_DCN_CALLS, PP_DCN))
+    for kname, ms in stages.items():
+        log(f"{kname} device ms a call by stage: "
+            + ", ".join(f"Cg {c} {m:.4f}" for (c, *_), m in zip(PP_DCN, ms))
+            + f"; a SipMask++ pass's DCN convs ({weights}): "
+            f"{sum(n * m for n, m in zip(PP_DCN_CALLS, ms)):.4f} ms")
 
     out_elems = sum(x.shape[0] * x.shape[1] * 9 * x.shape[2]
                     for x, *_ in k5_in)

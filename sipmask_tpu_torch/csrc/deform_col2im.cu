@@ -1417,23 +1417,6 @@ __global__ void __launch_bounds__(kThreads) deform_col2im_kernel(
   }
 }
 
-// Four bf16 (8 bytes) as f32.
-__device__ __forceinline__ float4 bf16x4(uint2 v) {
-  return make_float4(__uint_as_float(v.x << 16),
-                     __uint_as_float(v.x & 0xFFFF0000u),
-                     __uint_as_float(v.y << 16),
-                     __uint_as_float(v.y & 0xFFFF0000u));
-}
-
-__device__ __forceinline__ float4 scaled(float4 v, float w) {
-  return make_float4(v.x * w, v.y * w, v.z * w, v.w * w);
-}
-
-// A corner adds to dX when it lies in the map and its weight is not 0.
-__device__ __forceinline__ bool adds(bool valid, float w) {
-  return valid && w != 0.f;
-}
-
 // The bf16 scatter for Cg % 4 == 0. grid (ceil(N*P*K / 16)): a half-warp
 // per (n, p, tap), in that order (the two taps of a warp are neighbours in
 // dcols), lanes along the Cg channels four each; dcols (N, P, K, Cg) and
@@ -1449,7 +1432,6 @@ __global__ void __launch_bounds__(kThreads) deform_col2im_bf16x4_kernel(
                        (threadIdx.x >> 4);
   if (item >= (int64_t)N * P * K) return;
   const int sub = threadIdx.x & 15;
-  const unsigned half = 0xFFFFu << (threadIdx.x & 16);
   const int64_t np = item / K;
   const int tap = (int)(item - np * K);
   const int n = (int)(np / P);
@@ -1460,43 +1442,15 @@ __global__ void __launch_bounds__(kThreads) deform_col2im_bf16x4_kernel(
   const float py = (float)(ho * stride - pad + i * dil) + offsets[off_row];
   const float px = (float)(wo * stride - pad + j * dil) + offsets[off_row + P];
   const Corners c = corners(py, px, H, W);
-  // half-warp-uniform: which corners add to dX
-  const bool a00 = adds(c.v00, c.w00), a01 = adds(c.v01, c.w01);
-  const bool a10 = adds(c.v10, c.w10), a11 = adds(c.v11, c.w11);
   const int cv = Cg / 4;   // vectors of 4 per row
   const int64_t rows = (int64_t)n * H * W;
-  const uint2* xn = reinterpret_cast<const uint2*>(x_rows) + rows * cv;
-  float4* dxn = reinterpret_cast<float4*>(dx_rows) + rows * cv;
-  const uint2* drow = reinterpret_cast<const uint2*>(dcols) + item * cv;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float gy = 0.f, gx = 0.f;
-  for (int v = sub; v < cv; v += 16) {
-    const float4 d = bf16x4(drow[v]);
-    const float4 b00 = c.v00 ? bf16x4(xn[c.q00 * cv + v]) : zero;
-    const float4 b01 = c.v01 ? bf16x4(xn[c.q01 * cv + v]) : zero;
-    const float4 b10 = c.v10 ? bf16x4(xn[c.q10 * cv + v]) : zero;
-    const float4 b11 = c.v11 ? bf16x4(xn[c.q11 * cv + v]) : zero;
-    if (a00) atomicAdd(dxn + c.q00 * cv + v, scaled(d, c.w00));
-    if (a01) atomicAdd(dxn + c.q01 * cv + v, scaled(d, c.w01));
-    if (a10) atomicAdd(dxn + c.q10 * cv + v, scaled(d, c.w10));
-    if (a11) atomicAdd(dxn + c.q11 * cv + v, scaled(d, c.w11));
-    gy += d.x * ((b10.x - b00.x) * c.hx + (b11.x - b01.x) * c.lx);
-    gx += d.x * ((b01.x - b00.x) * c.hy + (b11.x - b10.x) * c.ly);
-    gy += d.y * ((b10.y - b00.y) * c.hx + (b11.y - b01.y) * c.lx);
-    gx += d.y * ((b01.y - b00.y) * c.hy + (b11.y - b10.y) * c.ly);
-    gy += d.z * ((b10.z - b00.z) * c.hx + (b11.z - b01.z) * c.lx);
-    gx += d.z * ((b01.z - b00.z) * c.hy + (b11.z - b10.z) * c.ly);
-    gy += d.w * ((b10.w - b00.w) * c.hx + (b11.w - b01.w) * c.lx);
-    gx += d.w * ((b01.w - b00.w) * c.hy + (b11.w - b10.w) * c.ly);
-  }
-#pragma unroll
-  for (int s = 8; s > 0; s >>= 1) {
-    gy += __shfl_xor_sync(half, gy, s);
-    gx += __shfl_xor_sync(half, gx, s);
-  }
+  const float2 g = dcn::scatter_bf16x4<16>(
+      reinterpret_cast<const uint2*>(x_rows) + rows * cv,
+      reinterpret_cast<float4*>(dx_rows) + rows * cv,
+      reinterpret_cast<const uint2*>(dcols) + item * cv, c, cv, sub);
   if (sub == 0) {
-    doffsets[off_row] = gy;
-    doffsets[off_row + P] = gx;
+    doffsets[off_row] = g.x;
+    doffsets[off_row + P] = g.y;
   }
 }
 

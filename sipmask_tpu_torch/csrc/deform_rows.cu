@@ -24,29 +24,42 @@
 //   pyx      (N, K, P, 2)   absolute (py, px) per tap and output pixel, f32
 //   sampled  (N, P, K, Cg)  p-major: row (n, p) is the (K*Cg) im2col row that
 //                           one (B*P, K*C) x (K*C, O) matmul contracts
-//   dx       like x_rows, f32 (zeroed by the caller); dpyx like pyx.
+//   dx       like x_rows, f32 (zeroed by the caller; in bf16 a scratch
+//            that the C entry zeroes); dpyx like pyx.
 //
 // Element types: f32 throughout (deform_rows_{fwd,bwd}_f32), or bf16
 // x_rows, sampled and dsampled with f32 positions (deform_rows_{fwd,bwd}
-// _bf16), the JAX package's compute_dtype="bfloat16" graph. The kernels
-// are templates on the element type: corners are read in bf16 (16-byte
-// vectors of 8 channels where Cg % 8 == 0 and the pointers are aligned,
-// else scalars), weights and the interpolation are f32, and each sampled
-// value is rounded once to bf16 as it is written. The bf16 backward
-// scatters into an f32 dx scratch (float4 reductions, as in f32; there are
-// no bf16 vector atomics to sum in) and a last kernel rounds dx once to
-// bf16; d positions are reduced in f32 in the same fixed order as in f32.
+// _bf16), the JAX package's compute_dtype="bfloat16" graph. Weights and the
+// interpolation are f32, and each sampled value is rounded once to bf16 as
+// it is written. The bf16 backward scatters into an f32 dx scratch, which
+// its C entry zeroes (cudaMemsetAsync), with float4 reductions (there are
+// no bf16 vector atomics to sum in), and a last kernel rounds dx once to
+// bf16; d positions are f32, summed in a fixed order.
 //
 // What bounds it on an H100. The forward: bytes. It writes sampled, K = 9
 // times the size of x (at the SipMask++ layer2 DCN at 544x544, batch 8:
-// 170 MB, about 0.05 ms at 3.35 TB/s), and reads four corners per element,
-// mostly L2 hits since neighbouring pixels share corners. One warp per
-// (n, p, tap) item, lanes along the Cg contiguous channels, so every corner
-// read and sampled write of a warp touches one contiguous run of channels
-// (16-byte vectors when Cg % 4 == 0); the corners, weights and bounds of an
-// item are worked out once per warp and reused over its channels; each
-// corner's bounds are tested on the float position before any address is
-// formed, so offsets hundreds of pixels out never read outside x.
+// 170 MB in f32, about 0.05 ms at 3.35 TB/s), and reads four corners per
+// element, mostly L2 hits since neighbouring pixels share corners. The f32
+// kernel: one warp per (n, p, tap) item, lanes along the Cg contiguous
+// channels, so every corner read and sampled write of a warp touches one
+// contiguous run of channels (16-byte vectors when Cg % 4 == 0); the
+// corners, weights and bounds of an item are worked out once per warp and
+// reused over its channels; each corner's bounds are tested on the float
+// position before any address is formed, so offsets hundreds of pixels out
+// never read outside x.
+//
+// The bf16 forward with Cg % 4 == 0 (deform_rows_fwd_bf16x4_kernel): lanes
+// of four channels (8-byte loads and stores), 8, 16 or 32 lanes an item by
+// Cg (four passes a lane from Cg = 128 up; no lane idles at Cg = 128,
+// where 16-byte lanes left half a warp idle), so that a warp holds several
+// items side by side. A block takes up to 16 output pixels of one image
+// with all their taps, one contiguous run of sampled rows; it first loads
+// their positions into shared memory tap by tap (runs of consecutive
+// pixels, coalesced), and smaller tiles keep small maps on enough blocks.
+// What bounds it on an H100 (tools/k5c_probe.py --bf16): at Cg = 128 a
+// warp an item with 16-byte lanes took 0.139 ms, these lanes 0.058 ms
+// against a 0.034 ms floor of the same kernel storing sampled without
+// reading x; the rest is the L2's corner reads (four a sampled element).
 //
 // The backward reads sampled's cotangent and x and scatters four adds an
 // element into dx. Taps of neighbouring output pixels land on the same x
@@ -63,11 +76,22 @@
 // accumulates dx in shared memory (tools/k5c_tiles.cu) ran 3x slower on an
 // H100: its shared float atomics are compare-and-swap loops, and a warp
 // item of 32 channels pays the corner math that this kernel spreads over
-// Cg.
+// Cg. The bf16 backward with Cg % 4 == 0 (deform_rows_bwd_bf16x4_kernel)
+// takes K2's bf16 scatter (dcn::scatter_bf16x4): four channels a lane,
+// 8-byte loads of dsampled and x, one float4 reduction a corner, a
+// half-warp an item (kBwdLanes), so that an item's lanes reduce into one
+// contiguous run of dx (16-byte lanes of 8 channels issued two reductions
+// 16 bytes apart, touching twice the L2 lines, and left half a warp idle
+// at Cg = 128); its lane groups loop over the items on a grid of the
+// blocks the card holds at once, loading the next item's position while
+// one is scattered. Measured on an H100 (tools/k5c_probe.py --bf16): the
+// reductions cost 15% of it (plain stores in their place), so what bounds
+// it is the latency of its loads, not the L2's atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "deform_corners.cuh"
@@ -264,6 +288,169 @@ __global__ void __launch_bounds__(kThreads) round_bf16_kernel(
   }
 }
 
+// Rounds of items a lane group of the bf16 forward has in flight: their
+// corner loads are all issued before any interpolation (tools/k5c_probe.py
+// --bf16: items1, items2, items4).
+constexpr int kFwdItems = 1;
+
+// Output pixels of a bf16 forward block (with all their taps): at most
+// kFwdPixels, halved while the grid would hold fewer than kFwdBlocks
+// blocks, 16 for each of an H100's 132 SMs (SipMask++ at 544x544, batch 8:
+// 16 at layer2, 4 at layer3, 1 at layer4).
+constexpr int kFwdPixels = 16;
+constexpr int64_t kFwdBlocks = 16 * 132;
+
+// Lanes of a bf16 item on the vector path (tools/k5c_probe.py --bf16): the
+// forward 8, 16 or 32 by Cg, so that a lane takes 16 channels of an item
+// in four passes from Cg = 128 up (several items a warp side by side), the
+// backward a half-warp at every Cg.
+constexpr int fwd_bf16_lanes(int Cg) {
+  return Cg >= 512 ? 32 : Cg >= 256 ? 16 : 8;
+}
+constexpr int kBwdLanes = 16;
+
+// A corner's four bf16 channels (8 bytes).
+__device__ __forceinline__ uint2 corner_load(const uint2* p) { return *p; }
+
+// Four f32 values rounded to bf16 (to nearest even) as 8 bytes.
+__device__ __forceinline__ uint2 pack_bf16x4(float a, float b, float c,
+                                             float d) {
+  return make_uint2(Vec<bf16, 8>::pair(a, b), Vec<bf16, 8>::pair(c, d));
+}
+
+// The bf16 forward for Cg % 4 == 0. grid (N * ceil(P / pixels)): a block
+// takes ``pixels`` output pixels of one image with all K taps, the items
+// (p, tap) of one contiguous run of sampled rows. Its positions are loaded
+// first, tap by tap (coalesced runs of pixels), into shared memory; then
+// lane group g of LANES lanes takes items g, g + groups, ..., kFwdItems
+// of them a round with their corner loads in flight. x_rows (N, H*W, Cg)
+// and sampled (N, P, K, Cg) bf16 with 8-byte aligned rows, pyx
+// (N, K, P, 2) f32; dynamic shared memory K * pixels float2.
+template <int LANES>
+__global__ void __launch_bounds__(kThreads) deform_rows_fwd_bf16x4_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ pyx,
+    bf16* __restrict__ out, int H, int W, int Cg, int K, int P,
+    int pixels) {
+  extern __shared__ float2 tile_pos[];   // [K][pixels]
+  constexpr int kGroups = kThreads / LANES;
+  const int tiles = (P + pixels - 1) / pixels;
+  const int n = blockIdx.x / tiles;
+  const int p0 = (blockIdx.x - n * tiles) * pixels;
+  const int np = min(pixels, P - p0);
+  const float2* pos = reinterpret_cast<const float2*>(pyx) +
+                      (int64_t)n * K * P + p0;
+  for (int i = threadIdx.x; i < K * pixels; i += kThreads) {
+    const int k = i / pixels, t = i - k * pixels;
+    tile_pos[i] = t < np ? pos[(int64_t)k * P + t] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  const int grp = threadIdx.x / LANES, sub = threadIdx.x % LANES;
+  const int cv = Cg / 4;   // vectors of 4 per row
+  const int items = np * K;
+  const uint2* xn =
+      reinterpret_cast<const uint2*>(x) + (int64_t)n * H * W * cv;
+  uint2* o = reinterpret_cast<uint2*>(out) + ((int64_t)n * P + p0) * K * cv;
+  const uint2 zero = make_uint2(0u, 0u);
+  for (int base = grp; base < items; base += kGroups * kFwdItems) {
+    float w[kFwdItems][4];
+    int64_t q[kFwdItems][4];   // vector offset of a corner in xn, or -1
+    bool live[kFwdItems];
+#pragma unroll
+    for (int i = 0; i < kFwdItems; ++i) {
+      const int item = base + i * kGroups;   // (p - p0) * K + tap
+      live[i] = item < items;
+      const int t = item / K;
+      const float2 py_px =
+          live[i] ? tile_pos[(item - t * K) * pixels + t]
+                  : make_float2(0.f, 0.f);
+      const Corners c = corners(py_px.x, py_px.y, H, W);
+      w[i][0] = c.w00; w[i][1] = c.w01; w[i][2] = c.w10; w[i][3] = c.w11;
+      q[i][0] = live[i] && c.v00 ? c.q00 * cv : -1;
+      q[i][1] = live[i] && c.v01 ? c.q01 * cv : -1;
+      q[i][2] = live[i] && c.v10 ? c.q10 * cv : -1;
+      q[i][3] = live[i] && c.v11 ? c.q11 * cv : -1;
+    }
+    for (int v = sub; v < cv; v += LANES) {
+      uint2 a[kFwdItems][4];
+#pragma unroll
+      for (int i = 0; i < kFwdItems; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          a[i][j] = q[i][j] >= 0 ? corner_load(xn + q[i][j] + v) : zero;
+#pragma unroll
+      for (int i = 0; i < kFwdItems; ++i) {
+        if (!live[i]) continue;
+        const float4 b00 = dcn::bf16x4(a[i][0]), b01 = dcn::bf16x4(a[i][1]);
+        const float4 b10 = dcn::bf16x4(a[i][2]), b11 = dcn::bf16x4(a[i][3]);
+        const float* wi = w[i];
+        o[(int64_t)(base + i * kGroups) * cv + v] = pack_bf16x4(
+            b00.x * wi[0] + b01.x * wi[1] + b10.x * wi[2] + b11.x * wi[3],
+            b00.y * wi[0] + b01.y * wi[1] + b10.y * wi[2] + b11.y * wi[3],
+            b00.z * wi[0] + b01.z * wi[1] + b10.z * wi[2] + b11.z * wi[3],
+            b00.w * wi[0] + b01.w * wi[1] + b10.w * wi[2] + b11.w * wi[3]);
+      }
+    }
+  }
+}
+
+// The bf16 backward for Cg % 4 == 0. LANES lanes per (n, p, tap) item, in
+// that order; lane group g takes items g, g + groups, ... (a grid of at
+// most the blocks the card holds at once), the next item's position loaded
+// while this one is scattered. x_rows and dsampled bf16 with 8-byte
+// aligned rows, dx (N, H*W, Cg) f32 16-byte aligned, zeroed.
+template <int LANES>
+__global__ void __launch_bounds__(kThreads) deform_rows_bwd_bf16x4_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ pyx,
+    const bf16* __restrict__ dsampled, float* __restrict__ dx,
+    float* __restrict__ dpyx, int64_t n_items, int H, int W, int Cg, int K,
+    int P) {
+  const int sub = threadIdx.x % LANES;
+  const int cv = Cg / 4;
+  const int64_t stride = (int64_t)gridDim.x * (kThreads / LANES);
+  int64_t item = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / LANES;
+  int n, p, k;
+  float2 next = make_float2(0.f, 0.f);
+  if (item < n_items) {
+    item_of(item, P, K, n, p, k);
+    next = reinterpret_cast<const float2*>(pyx)[((int64_t)n * K + k) * P + p];
+  }
+  for (; item < n_items; item += stride) {
+    const float2 cur = next;
+    item_of(item, P, K, n, p, k);
+    const int64_t pos_off = (((int64_t)n * K + k) * P + p) * 2;
+    if (item + stride < n_items) {
+      int n2, p2, k2;
+      item_of(item + stride, P, K, n2, p2, k2);
+      next = reinterpret_cast<const float2*>(pyx)[((int64_t)n2 * K + k2) * P +
+                                                  p2];
+    }
+    const Corners c = corners(cur.x, cur.y, H, W);
+    const int64_t rows = (int64_t)n * H * W * cv;
+    const float2 g = dcn::scatter_bf16x4<LANES>(
+        reinterpret_cast<const uint2*>(x) + rows,
+        reinterpret_cast<float4*>(dx) + rows,
+        reinterpret_cast<const uint2*>(dsampled) + item * cv, c, cv, sub);
+    if (sub == 0) {
+      dpyx[pos_off] = g.x;
+      dpyx[pos_off + 1] = g.y;
+    }
+  }
+}
+
+// Blocks of kThreads of ``kernel`` the card holds at once (its SMs times
+// the blocks an SM holds), worked out once per kernel: the grid of the
+// bf16 vector kernels, whose warps loop over their items.
+template <typename Kernel>
+int64_t resident_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, 0))
+    return 0;
+  return (int64_t)sms * per_sm;
+}
+
 int64_t blocks_of(int64_t n_items) {
   return (n_items + kWarps - 1) / kWarps;
 }
@@ -294,6 +481,44 @@ int bwd(const void* x, const void* pyx, const void* dsampled, void* dx,
   return (int)cudaGetLastError();
 }
 
+// Output pixels a bf16 forward block takes (kFwdPixels).
+int fwd_pixels(int N, int P) {
+  int pixels = kFwdPixels;
+  while (pixels > 1 &&
+         (int64_t)N * ((P + pixels - 1) / pixels) < kFwdBlocks)
+    pixels /= 2;
+  return pixels;
+}
+
+template <int LANES>
+int fwd_bf16x4(const void* x, const void* pyx, void* out, int N, int H,
+               int W, int Cg, int K, int P, cudaStream_t st) {
+  const int pixels = fwd_pixels(N, P);
+  const int64_t blocks = (int64_t)N * ((P + pixels - 1) / pixels);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  deform_rows_fwd_bf16x4_kernel<LANES>
+      <<<(unsigned)blocks, kThreads, sizeof(float2) * K * pixels, st>>>(
+          (const bf16*)x, (const float*)pyx, (bf16*)out, H, W, Cg, K, P,
+          pixels);
+  return (int)cudaGetLastError();
+}
+
+template <int LANES>
+int bwd_bf16x4(const void* x, const void* pyx, const void* dsampled,
+               void* dx, void* dpyx, int64_t n_items, int H, int W, int Cg,
+               int K, int P, cudaStream_t st) {
+  static const int64_t cap =
+      resident_blocks(deform_rows_bwd_bf16x4_kernel<LANES>);
+  if (cap == 0) return (int)cudaGetLastError();
+  const int64_t blocks =
+      std::min(cap, (n_items * LANES + kThreads - 1) / kThreads);
+  deform_rows_bwd_bf16x4_kernel<LANES>
+      <<<(unsigned)blocks, kThreads, 0, st>>>(
+          (const bf16*)x, (const float*)pyx, (const bf16*)dsampled,
+          (float*)dx, (float*)dpyx, n_items, H, W, Cg, K, P);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -310,14 +535,20 @@ int deform_rows_fwd_f32(const void* x, const void* pyx, void* out, int N,
               : fwd<float, 1>(x, pyx, out, N, H, W, Cg, K, P, st);
 }
 
-// The same with x_rows and sampled bf16 (pyx f32). vec8 != 0 takes 16-byte
-// vectors of 8 channels: Cg % 8 == 0 and 16-byte-aligned pointers.
+// The same with x_rows and sampled bf16 (pyx f32). vec != 0 takes lanes of
+// four channels (8-byte loads): Cg % 4 == 0 and 8-byte-aligned pointers.
 int deform_rows_fwd_bf16(const void* x, const void* pyx, void* out, int N,
-                         int H, int W, int Cg, int K, int P, int vec8,
+                         int H, int W, int Cg, int K, int P, int vec,
                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return vec8 ? fwd<bf16, 8>(x, pyx, out, N, H, W, Cg, K, P, st)
-              : fwd<bf16, 1>(x, pyx, out, N, H, W, Cg, K, P, st);
+  const int64_t n_items = (int64_t)N * P * K;
+  if (!vec) return fwd<bf16, 1>(x, pyx, out, N, H, W, Cg, K, P, st);
+  if (n_items == 0) return 0;
+  switch (fwd_bf16_lanes(Cg)) {
+    case 8: return fwd_bf16x4<8>(x, pyx, out, N, H, W, Cg, K, P, st);
+    case 32: return fwd_bf16x4<32>(x, pyx, out, N, H, W, Cg, K, P, st);
+    default: return fwd_bf16x4<16>(x, pyx, out, N, H, W, Cg, K, P, st);
+  }
 }
 
 // Backward of deform_rows_fwd_f32 for the cotangent dsampled (N, P, K, Cg):
@@ -334,26 +565,35 @@ int deform_rows_bwd_f32(const void* x, const void* pyx, const void* dsampled,
 }
 
 // Backward of deform_rows_fwd_bf16: x_rows and dsampled bf16, pyx f32. dx
-// is summed into dx_f32 (N, H*W, Cg) f32, zeroed by the caller, then
-// rounded once into dx (bf16); dpyx (N, K, P, 2) f32. vec8 as for the
-// forward (dx_f32 16-byte aligned too).
+// is summed into the scratch dx_f32 (N, H*W, Cg) f32, which this call
+// zeroes, then rounded once into dx (bf16); dpyx (N, K, P, 2) f32. vec as
+// for the forward (dx_f32 16-byte aligned too). Three device operations:
+// the zeroing, the scatter and the rounding.
 int deform_rows_bwd_bf16(const void* x, const void* pyx,
                          const void* dsampled, void* dx_f32, void* dx,
                          void* dpyx, int N, int H, int W, int Cg, int K,
-                         int P, int vec8, void* stream) {
+                         int P, int vec, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int err =
-      vec8 ? bwd<bf16, 8>(x, pyx, dsampled, dx_f32, dpyx, N, H, W, Cg, K, P,
-                          st)
-           : bwd<bf16, 1>(x, pyx, dsampled, dx_f32, dpyx, N, H, W, Cg, K, P,
-                          st);
-  if (err != 0) return err;
   const int64_t n = (int64_t)N * H * W * Cg;
+  const int64_t n_items = (int64_t)N * P * K;
   if (n == 0) return 0;
-  const int vec = vec8 ? 8 : 1;
-  const int64_t blocks = (n / vec + kThreads - 1) / kThreads;
+  int err = (int)cudaMemsetAsync(dx_f32, 0, n * sizeof(float), st);
+  if (err != 0) return err;
+  if (n_items > 0) {
+    if (!vec)
+      err = bwd<bf16, 1>(x, pyx, dsampled, dx_f32, dpyx, N, H, W, Cg, K, P,
+                         st);
+    else
+      err = bwd_bf16x4<kBwdLanes>(x, pyx, dsampled, dx_f32, dpyx, n_items, H,
+                                  W, Cg, K, P, st);
+    if (err != 0) return err;
+  }
+  const int v8 = n % 8 == 0 && (uintptr_t)dx_f32 % 16 == 0 &&
+                 (uintptr_t)dx % 16 == 0;
+  const int vec_n = v8 ? 8 : 1;
+  const int64_t blocks = (n / vec_n + kThreads - 1) / kThreads;
   const unsigned grid = (unsigned)(blocks < 65535 * 8 ? blocks : 65535 * 8);
-  if (vec8)
+  if (v8)
     round_bf16_kernel<8><<<grid, kThreads, 0, st>>>((const float*)dx_f32,
                                                     (bf16*)dx, n);
   else

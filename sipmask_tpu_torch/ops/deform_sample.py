@@ -345,6 +345,153 @@ def deform_rows_backward_plain(x_rows, pyx, dsampled, h: int, w: int):
         return torch.autograd.grad(out, (xs, pp), dsampled)
 
 
+ROWS_THREADS = 256    # threads a K5 / K5c block (kThreads)
+ROWS_FWD_ITEMS = 1    # rounds of items a lane group of the bf16 K5 has in
+                      # flight (kFwdItems)
+ROWS_FWD_PIXELS = 16  # output pixels of a bf16 K5 block, at most
+ROWS_FWD_BLOCKS = 16 * 132   # ... halved while its grid is smaller
+
+
+def rows_lanes(cg: int, backward: bool = False) -> int:
+    """Lanes of an item of the bf16 K5 (``backward``: K5c) on the vector
+    path, Cg % 4 == 0 (``fwd_bf16_lanes``, ``kBwdLanes``): K5 8, 16
+    or 32 by Cg (a lane takes 16 channels in four passes from Cg = 128
+    up), K5c a half-warp."""
+    if backward:
+        return 16
+    return 32 if cg >= 512 else 16 if cg >= 256 else 8
+
+
+def rows_pixels(n: int, p: int) -> int:
+    """Output pixels a bf16 K5 block takes with all their taps
+    (``fwd_pixels``): ROWS_FWD_PIXELS, halved while the grid would hold
+    fewer than ROWS_FWD_BLOCKS blocks."""
+    pixels = ROWS_FWD_PIXELS
+    while pixels > 1 and n * -(-p // pixels) < ROWS_FWD_BLOCKS:
+        pixels //= 2
+    return pixels
+
+
+def rows_schedule(n: int, p: int, k: int, cg: int, dtype=torch.bfloat16,
+                  blocks=None):
+    """How ``csrc/deform_rows.cu`` cuts a K5 and a K5c call with N = n,
+    P = p, K = k and Cg = cg in ``dtype`` (bf16 or f32; pointers aligned
+    for vectors), in plain PyTorch (for the tests). The bf16 K5c on the
+    vector path (Cg % 4 == 0) loops over its items on a grid of at most
+    the blocks the card holds at once: ``blocks`` sets that grid (default:
+    a block for every ROWS_THREADS lanes of items, one round each).
+    Returns a dict with "forward" and "backward", each with ``lanes`` an
+    item, ``items`` a lane group has in flight, ``channels`` a lane,
+    ``load_bytes`` (a lane's load of x), ``order`` of the items,
+    ``idle_lanes`` (lane-instructions of a live item with no channel to
+    take), and:
+
+    - forward: ``pixels`` a block (bf16 vector path); ``positions``
+      (instructions, 32), the position (pyx's (n, tap, p) index) each lane
+      of each load instruction reads, -1 none; ``stores`` (instructions,
+      32), the byte offset into sampled of each lane's store, -1 none;
+      ``written``, write counts of sampled (N, P, K, Cg);
+    - backward: ``reductions``, (item, byte offset in the corner's f32 dX
+      row) of each lane of each reduction instruction (warps, rounds,
+      passes, 32), -1 idle, one instruction a corner; ``read``, read
+      counts of dsampled (N, P, K, Cg); ``dpyx``, write counts of d
+      positions (N, K, P).
+
+    The bf16 vector path: 8-byte lanes of 4 channels, :func:`rows_lanes`
+    lanes an item; the forward's block takes :func:`rows_pixels` output
+    pixels of one image with their K taps, loads their positions tap by
+    tap, and its lane groups take its items ROWS_FWD_ITEMS at a time. Else
+    (f32, or Cg % 4 != 0): a warp an item in (n, p, tap) order, 16-byte
+    f32 vectors or one channel a lane, one item a warp."""
+    def span(a, b):
+        return -(-a // b)
+    bf16 = dtype == torch.bfloat16
+    esize = 2 if bf16 else 4
+    vec = cg % 4 == 0
+    loop = bf16 and vec
+    ch = 4 if vec else 1
+    cv = cg // ch
+    n_items = n * p * k
+    lane = torch.arange(32)
+
+    def pyx_index(item):   # (n, p, tap) order -> pyx's (n, tap, p) index
+        return (item // (p * k) * k + item % k) * p + item // k % p
+
+    # ---- forward
+    pixels = None
+    if loop:
+        lanes, items = rows_lanes(cg), ROWS_FWD_ITEMS
+        pixels = rows_pixels(n, p)
+        groups = ROWS_THREADS // lanes
+        tiles = span(p, pixels)
+        blk = torch.arange(n * tiles)
+        nn, p0 = blk // tiles, blk % tiles * pixels
+        npix = torch.clamp(p - p0, max=pixels)
+        # the positions, thread i of K * pixels: tap i // pixels, pixel
+        # p0 + i % pixels
+        i = torch.arange(span(k * pixels, ROWS_THREADS) * ROWS_THREADS)
+        tap, px = i // pixels, i % pixels
+        pos = (nn[:, None] * k + tap) * p + p0[:, None] + px
+        positions = torch.where((i < k * pixels) & (px < npix[:, None]),
+                                pos, -1).reshape(-1, 32)
+        # round r, slot s: lane group g takes tile item g + (r * items +
+        # s) * groups
+        thread = torch.arange(ROWS_THREADS)
+        rounds = span(pixels * k, groups * items)
+        tile_item = (thread // lanes + groups * (
+            torch.arange(rounds)[:, None, None] * items
+            + torch.arange(items)[:, None]))       # (rounds, items, 256)
+        live = tile_item < (npix * k)[:, None, None, None]   # (b, r, s, 256)
+        row = (nn * p + p0)[:, None, None, None] * k + tile_item
+        v = thread % lanes + lanes * torch.arange(span(cv, lanes))[:, None]
+        live, row = live[:, :, :, None], row[:, :, :, None]  # (.., passes)
+    else:   # a warp an item: every lane loads the item's position
+        lanes, items = 32, 1
+        item = torch.arange(span(n_items, 8) * 8)[:, None]
+        positions = torch.where(item < n_items, pyx_index(item), -1
+                                ).expand(-1, 32)
+        live, row = item < n_items, item
+        v = lane + 32 * torch.arange(span(cv, 32))[:, None, None]
+    ok = live & (v < cv)
+    stores = torch.where(ok, (row * cg + v * ch) * esize, -1).reshape(-1, 32)
+    first_el = stores[stores >= 0] // esize
+    written = torch.bincount((first_el[:, None] + torch.arange(ch)).reshape(
+        -1), minlength=n_items * cg).reshape(n, p, k, cg)
+    forward = {"lanes": lanes, "items": items, "pixels": pixels,
+               "channels": ch, "load_bytes": ch * esize,
+               "order": "n, p, tap", "positions": positions,
+               "stores": stores, "written": written,
+               "idle_lanes": int((live & ~ok).sum())}
+
+    # ---- backward: lanes an item in (n, p, tap) order; lane group g of
+    # G takes items g, g + G, ...
+    lanes = rows_lanes(cg, backward=True) if loop else 32
+    grid = span(n_items * lanes, ROWS_THREADS)
+    if loop and blocks is not None:
+        grid = min(grid, blocks)
+    groups = grid * ROWS_THREADS // lanes
+    rounds = span(n_items, groups)
+    thread = torch.arange(grid * ROWS_THREADS).reshape(-1, 1, 32)
+    item = thread // lanes + groups * torch.arange(rounds)[:, None]
+    sub = (thread % lanes).expand_as(item)            # (warps, rounds, 32)
+    v = sub[:, :, None] + lanes * torch.arange(span(cv, lanes))[:, None]
+    live = (item < n_items)[:, :, None]
+    ok = live & (v < cv)                              # (w, r, passes, 32)
+    red_item = torch.where(ok, item[:, :, None].expand_as(v), -1)
+    red_off = torch.where(ok, v * ch * 4, -1)
+    el = (red_item * cg + v * ch)[ok]
+    read = torch.bincount((el[:, None] + torch.arange(ch)).reshape(-1),
+                          minlength=n_items * cg).reshape(n, p, k, cg)
+    leader = (sub == 0) & (item < n_items)
+    dpyx = torch.bincount(pyx_index(item[leader]), minlength=n_items
+                          ).reshape(n, k, p)
+    backward = {"lanes": lanes, "items": 1, "channels": ch,
+                "load_bytes": ch * esize, "order": "n, p, tap", "reductions": (red_item, red_off),
+                "read": read, "dpyx": dpyx,
+                "idle_lanes": int((live & ~ok).sum())}
+    return {"forward": forward, "backward": backward}
+
+
 def _rows_lib():
     lib = native.load("deform_rows")
     if lib.deform_rows_fwd_f32.argtypes is None:
@@ -361,8 +508,9 @@ def _rows_lib():
 def _rows_launch_args(x_rows, pyx, tensors):
     """Checks of the CUDA path (``tensors``: x_rows, pyx and, backward,
     dsampled); returns (bf16, vec): whether the bf16 kernels run, and
-    whether they take 16-byte vectors (4 f32 or 8 bf16 channels: Cg a
-    multiple of that and every pointer 16-byte aligned)."""
+    whether they take vectors of 4 channels (Cg % 4 == 0; f32: 16-byte
+    vectors, every pointer 16-byte aligned; bf16: 8-byte lanes, every
+    pointer 8-byte aligned)."""
     if x_rows.device.type != "cuda":
         raise ValueError(f"no K5 kernel for device {x_rows.device}")
     bf16 = x_rows.dtype == torch.bfloat16
@@ -374,10 +522,9 @@ def _rows_launch_args(x_rows, pyx, tensors):
                         f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x_rows, pyx and dsampled must be contiguous")
-    cg = x_rows.shape[2]
-    vec = 8 if bf16 else 4
-    return bf16, int(cg % vec == 0 and all(t.data_ptr() % 16 == 0
-                                           for t in tensors))
+    align = 8 if bf16 else 16
+    return bf16, int(x_rows.shape[2] % 4 == 0 and all(
+        t.data_ptr() % align == 0 for t in tensors))
 
 
 def deform_rows(x_rows, pyx, h: int, w: int):
@@ -430,9 +577,9 @@ def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
     :func:`deform_rows_backward_plain`; CUDA tensors zero dx and launch the
     kernel: dpyx gives the same bits on every call, dx's sums change order
     (atomics). bf16 x_rows and dsampled (f32 pyx): dx is summed into an f32
-    scratch and rounded once to bf16 by the kernel's last launch; dpyx is
-    f32. f32 calls count in ``launches``, bf16 calls in
-    ``bf16_launches``."""
+    scratch, which the C entry zeroes, and rounded once to bf16 by its last
+    kernel (three device operations a call); dpyx is f32. f32 calls count
+    in ``launches``, bf16 calls in ``bf16_launches``."""
     if x_rows.device.type == "cpu":
         return deform_rows_backward_plain(x_rows, pyx, dsampled, h, w)
     n, cg, k, p = _check_rows(x_rows, pyx, h, w)
@@ -442,8 +589,11 @@ def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
                          f"{dsampled.device} does not fit {(n, p, k, cg)} "
                          f"on {x_rows.device}")
     bf16, vec = _rows_launch_args(x_rows, pyx, (x_rows, pyx, dsampled))
-    dx32 = torch.zeros_like(x_rows, dtype=torch.float32)
-    dx = torch.empty_like(x_rows) if bf16 else dx32
+    if bf16:   # the C entry zeroes the scratch
+        dx32 = torch.empty_like(x_rows, dtype=torch.float32)
+        dx = torch.empty_like(x_rows)
+    else:
+        dx = dx32 = torch.zeros_like(x_rows)
     dpyx = torch.empty_like(pyx)
     if dsampled.numel() == 0:
         return dx.zero_(), dpyx.zero_()

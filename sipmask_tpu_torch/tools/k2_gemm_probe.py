@@ -4,7 +4,9 @@
     python -m sipmask_tpu_torch.tools.k2_gemm_probe --bf16 [NAME ...]
 
 from the root of the checkout. Builds edited copies of
-``csrc/deform_col2im.cu`` into ``build/k2_probe/``.
+``csrc/deform_col2im.cu`` (and of the shared header
+``csrc/deform_corners.cuh``, where a variant edits it) into
+``build/k2_probe/<variant>/``.
 
 f32 (no flag): the two GEMMs of one K2 call at the FeatureAlign P3 level of
 an 800x1344 image, batch 4 (``torch.profiler`` device time, mean of 5
@@ -81,10 +83,12 @@ def variants(src: str):
     }
 
 
-def bf16_variants(src: str):
+def bf16_variants(src: str, header: str):
+    """name -> the edited source, or (source, {header name: edited
+    header}) where the edit lies in a shared header."""
     def edit(text, old, new):
         if text.count(old) != 1:
-            raise RuntimeError(f"deform_col2im.cu has {old!r} "
+            raise RuntimeError(f"the source has {old!r} "
                                f"{text.count(old)} times, not once")
         return text.replace(old, new)
 
@@ -127,14 +131,21 @@ def bf16_variants(src: str):
             "dcols_mainloop(acc, ring, bres, full, empty, p.ks, c, lane, s, "
             "ph);", "(void)lane;"),
         "float2": edit(src, "if (kBf16 && Cg % 4 == 0)", "if (false)"),
-        "noskip": edit(src, "return valid && w != 0.f;", "return valid;"),
+        "noskip": (src, {"deform_corners.cuh": edit(
+            header, "return valid && w != 0.f;", "return valid;")}),
     }
 
 
 def build(name, text, built):
-    OUT.mkdir(parents=True, exist_ok=True)
-    cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
+    """Build ``text`` (a source, or (source, {header name: text})) in a
+    directory of its own: an edited header there shadows csrc's."""
+    text, headers = text if isinstance(text, tuple) else (text, {})
+    out = OUT / name
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{name}.cu", out / f"{name}.so"
     cu.write_text(text)
+    for header, body in headers.items():
+        (out / header).write_text(body)
     res = subprocess.run([native.find_nvcc(), *native.NVCC_FLAGS, "-I",
                           str(native.CSRC_DIR), "-o", str(so), str(cu)],
                          capture_output=True, text=True)
@@ -364,11 +375,12 @@ def main():
     src = (native.CSRC_DIR / "deform_col2im.cu").read_text()
     dev = torch.device("cuda", 0)
     if args.bf16 is not None:
-        texts = bf16_variants(src)
+        texts = bf16_variants(
+            src, (native.CSRC_DIR / "deform_corners.cuh").read_text())
         names = args.bf16 or list(texts)
         libs = build_all({f"bf16_{n}": texts[n] for n in names})
         if args.sass and "base" in names:
-            hgmma(OUT / "bf16_base.so")
+            hgmma(OUT / "bf16_base" / "bf16_base.so")
         for zero in (False, True):
             case = bf16_case(libs[f"bf16_{names[0]}"], dev, zero)
             for n in names:

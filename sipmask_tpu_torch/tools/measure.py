@@ -8,7 +8,7 @@
     python -m sipmask_tpu_torch.tools.measure --config sipmask_vis_r50 \
         video train --dtype float32 bfloat16
 
-from the root of the checkout, with any of the seven modes, in the order
+from the root of the checkout, with any of the eight modes, in the order
 given:
 
 - ``serve``: wall ms of single requests (800x1333; 544x544 for the
@@ -30,10 +30,13 @@ given:
   that its device time and its host time can be read apart;
 - ``k5c``: the row-sampling backward (K5c, ``deform_rows_backward``) over
   the SipMask++ train step's three DCN convs (one of each R101 stage at
-  576x576, batch 8: offsets ~2 px, a third of the pixels +-300 px out):
-  CUDA-event ms of the sweep, the host's enqueue time of a sweep, and the
-  device time of its kernels in a ``torch.profiler`` trace, by kernel and
-  by conv, with the device kernels a call (the fill of dx included);
+  576x576, batch 8: offsets ~2 px, a third of the pixels +-300 px out), in
+  each ``--dtype`` (bf16 rows and cotangents, f32 positions): CUDA-event
+  ms of the sweep, the host's enqueue time of a sweep, and the device time
+  of its kernels in a ``torch.profiler`` trace, by kernel and by conv,
+  with the device kernels a call (the zeroing of dx included);
+- ``k5``: the row sampling (K5, ``deform_rows``) over the same convs, the
+  same way;
 - ``forward``: one image at batch 1: wall ms of a request, of
   ``Detector.infer`` and of the model's forward, the host's enqueue time
   of a forward, its device time and kernel count, and its ops by host
@@ -58,8 +61,8 @@ width, random weights from seed 0, bumped as ``chip_smoke.py`` bumps them
 (and, for a norm-free head, frozen BN calibrated on the batch); TF32 off,
 bf16 products summed in f32 (no reduced-precision reductions) and cuDNN's
 benchmark mode on. ``--dtype`` gives the model's ``compute_dtype`` for
-``serve``, ``forward``, ``video`` and ``train``, float32 by default; with
-several,
+``serve``, ``forward``, ``video`` and ``train``, and the element type of
+``k5`` and ``k5c``, float32 by default; with several,
 each mode runs once for each, in the order given (give it after the
 modes). Each profile also gives the share of
 the layout transposes around cuDNN's channels-last kernels (kernel names
@@ -82,7 +85,7 @@ CONFIG = "sipmask_r50_fpn_gn_1x"
 SEED = 0
 BATCH = 4   # k4a: the hi-acc serving batch
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # 800x1344
-# k5c: SipMask++'s DCN conv2 of each R101 stage at 576x576, (Cg, h, w)
+# k5, k5c: SipMask++'s DCN conv2 of each R101 stage at 576x576, (Cg, h, w)
 PP_DCN_TRAIN = [(128, 72, 72), (256, 36, 36), (512, 18, 18)]
 PP_BATCH = 8
 # video: chip_smoke.py phase 16's video, 8 frames of 720x1280
@@ -296,10 +299,12 @@ def k4b(dev, iters=20):
         f"call)")
 
 
-def k5c(dev, iters=20):
+def k5_k5c(dev, dtype, backward, iters=20):
+    """``k5`` (``backward`` False) and ``k5c`` in ``dtype``."""
     from ..ops import deform_sample as ds
 
     gen = torch.Generator().manual_seed(SEED)
+    elem = getattr(torch, dtype)
     args = []
     for c, h, w in PP_DCN_TRAIN:
         x = torch.randn((PP_BATCH, h * w, c), generator=gen).to(dev)
@@ -307,14 +312,22 @@ def k5c(dev, iters=20):
         off.view(PP_BATCH, 18, h * w)[:, :, : (h * w) // 3] *= 150.0
         pyx = ds.positions(off.to(dev), 3, 3, 1, 1, 1, 1).contiguous()
         g = torch.randn((PP_BATCH, h * w, 9, c), generator=gen).to(dev)
-        args.append((x, pyx, g, h, w))
+        args.append((x.to(elem), pyx, g.to(elem), h, w))
 
-    def sweep():
-        return [ds.deform_rows_backward(*a) for a in args]
+    if backward:
+        name = "K5c deform_rows_backward"
+
+        def sweep():
+            return [ds.deform_rows_backward(*a) for a in args]
+    else:
+        name = "K5 deform_rows"
+
+        def sweep():
+            return [ds.deform_rows(x, pyx, h, w) for x, pyx, _, h, w in args]
     (e1, h1), (e2, h2) = (event_and_host_ms(sweep, iters) for _ in range(2))
     kern = profile_kernels(sweep, iters)
-    log(f"K5c deform_rows_backward, 3 DCN convs at 576x576 bs{PP_BATCH}, "
-        f"ms per sweep: CUDA events {e1:.4f} / {e2:.4f}, host enqueue "
+    log(f"{name} {dtype}, 3 DCN convs at 576x576 bs{PP_BATCH}, ms per "
+        f"sweep: CUDA events {e1:.4f} / {e2:.4f}, host enqueue "
         f"{h1:.4f} / {h2:.4f}, kernels "
         f"{sum(e.device_time for e in kern) / 1e3 / iters:.4f} "
         f"({len(kern) / (iters * len(args)):g} device kernels a call)")
@@ -540,8 +553,8 @@ def train(dev, reps, config, dtype="float32"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("modes", nargs="+",
-                    choices=("serve", "forward", "k4a", "k4b", "k5c",
-                             "video", "train"))
+                    choices=("serve", "forward", "k4a", "k4b", "k5",
+                             "k5c", "video", "train"))
     ap.add_argument("--config", default=CONFIG,
                     help="the preset to measure")
     ap.add_argument("--reps", type=int, default=7,
@@ -549,7 +562,8 @@ def main(argv=None):
     ap.add_argument("--dtype", nargs="+", default=["float32"],
                     choices=("float32", "bfloat16"),
                     help="compute_dtype of serve, forward, video and "
-                         "train, each in turn")
+                         "train, and the element type of k5 and k5c, each "
+                         "in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
@@ -562,10 +576,13 @@ def main(argv=None):
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     for mode in args.modes:
-        if mode in ("k4a", "k4b", "k5c"):
-            {"k4a": k4a, "k4b": k4b, "k5c": k5c}[mode](dev)
+        if mode in ("k4a", "k4b"):
+            {"k4a": k4a, "k4b": k4b}[mode](dev)
             continue
         for dtype in args.dtype:
+            if mode in ("k5", "k5c"):
+                k5_k5c(dev, dtype, mode == "k5c")
+                continue
             {"serve": serve, "forward": forward, "video": video,
              "train": train}[mode](
                 dev, args.reps, args.config, dtype)

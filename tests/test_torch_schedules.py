@@ -18,6 +18,12 @@ the rules they must keep (no card needed):
   element is written once, the chunks cover P, each (image·group, pixel,
   tap) is scattered once, and no wgmma dcols block straddles a group
   (``deform_conv.col2im_schedule``).
+- K5 and K5c (``csrc/deform_rows.cu``) in bf16 and f32: each element of
+  sampled written once and of dsampled read once, each position read and
+  each d position written once; in bf16 with Cg % 4 == 0 (8-byte lanes of
+  4 channels) each item's share of a reduction or store instruction is
+  one contiguous run, a warp's positions one coalesced load, and at
+  Cg = 128 no lane of an item idles (``deform_sample.rows_schedule``).
 """
 
 import numpy as np
@@ -191,3 +197,107 @@ def test_deform_col2im_schedule_writes_each_element_once(b, g, cg, h, w, o):
     # each scatter item (image·group, pixel, tap) once
     assert plan["items"].shape == (b * g, p, k)
     assert bool((plan["items"] == 1).all())
+
+
+# SipMask++'s DCN conv2 of each R101 stage (Cg, h, w), serving at 544x544
+# and training at 576x576, then ragged small maps
+ROWS_SHAPES = ([(128, 68, 68), (256, 34, 34), (512, 17, 17), (128, 72, 72),
+                (256, 36, 36), (512, 18, 18)]
+               + [(cg, 7, 5) for cg in (6, 12, 36, 64, 128, 256, 512)])
+
+
+def _one_run_each(group, off, step):
+    """Whether, in each instruction (a row of ``group`` / ``off``), the
+    lanes of each group (an item or a row; -1 idle) touch distinct offsets
+    that form one contiguous run of ``step``-byte pieces."""
+    for g, o in zip(group.split(4096), off.split(4096)):
+        same = (g[:, :, None] == g[:, None, :]) & (g >= 0)[:, :, None]
+        big = torch.iinfo(o.dtype).max
+        lo = torch.where(same, o[:, None, :], big).amin(-1)
+        hi = torch.where(same, o[:, None, :], -1).amax(-1)
+        count = same.sum(-1)
+        clash = same & (o[:, :, None] == o[:, None, :])
+        live = g >= 0
+        if not (bool((clash.sum(-1)[live] == 1).all()) and bool(
+                ((hi - lo)[live] == ((count - 1) * step)[live]).all())):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("blocks", [None, 7], ids=["grid", "7blocks"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("cg,h,w", ROWS_SHAPES)
+def test_deform_rows_schedule_touches_each_element_once(cg, h, w, dtype,
+                                                        blocks):
+    """Each sampled element written once, each dsampled element read once,
+    each position read and each d position written once, on the full grid
+    and on a grid of 7 blocks whose warps loop (bf16 vector path)."""
+    n, k, p = 2, 9, h * w
+    plan = deform_sample.rows_schedule(n, p, k, cg, dtype, blocks)
+    fwd, bwd = plan["forward"], plan["backward"]
+    vec = cg % 4 == 0
+    bf16 = dtype == torch.bfloat16
+    assert fwd["channels"] == bwd["channels"] == (4 if vec else 1)
+    assert fwd["load_bytes"] == fwd["channels"] * (2 if bf16 else 4)
+    assert fwd["written"].shape == bwd["read"].shape == (n, p, k, cg)
+    assert bool((fwd["written"] == 1).all())
+    assert bool((bwd["read"] == 1).all())
+    assert bwd["dpyx"].shape == (n, k, p)
+    assert bool((bwd["dpyx"] == 1).all())
+    # every item's position is read: on the bf16 vector path once, a
+    # block's tap by tap into shared memory, each load instruction's lanes
+    # one run of consecutive pixels a tap; else by every lane of its warp
+    pos = fwd["positions"]
+    assert torch.equal(torch.unique(pos[pos >= 0]), torch.arange(n * p * k))
+    assert fwd["order"] == bwd["order"] == "n, p, tap"
+    if bf16 and vec:
+        assert fwd["items"] == deform_sample.ROWS_FWD_ITEMS
+        assert bool((torch.bincount(pos[pos >= 0]) == 1).all())
+        assert _one_run_each(torch.where(pos >= 0, pos // p, -1), pos, 1)
+    else:
+        assert fwd["lanes"] == bwd["lanes"] == 32 and fwd["items"] == 1
+        assert bool((pos == pos[:, :1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("cg,h,w", [s for s in ROWS_SHAPES
+                                    if s[0] % 4 == 0])
+def test_deform_rows_vector_instructions_are_contiguous_runs(cg, h, w,
+                                                             dtype):
+    """On the vector path each item's lanes in a reduction instruction
+    (one a corner) reduce into one contiguous run of its corner's dX row
+    (float4s), and each item's lanes in a store instruction write one
+    contiguous run of sampled (bf16: 8 bytes a lane, f32: 16)."""
+    n, k, p = 2, 9, h * w
+    plan = deform_sample.rows_schedule(n, p, k, cg, dtype)
+    red_item, red_off = plan["backward"]["reductions"]
+    assert _one_run_each(red_item.reshape(-1, 32), red_off.reshape(-1, 32),
+                         16)
+    stores = plan["forward"]["stores"]
+    esize = 2 if dtype == torch.bfloat16 else 4
+    row = torch.where(stores >= 0, stores // (cg * esize), -1)
+    assert _one_run_each(row, stores, 4 * esize)
+
+
+@pytest.mark.parametrize("h,w", [(68, 68), (72, 72), (7, 5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_deform_rows_schedule_idles_no_lane_at_cg_128(h, w, dtype):
+    """At Cg = 128 (SipMask++'s layer2) no lane of a K5 or K5c item goes
+    without channels in any instruction: in bf16 lanes of four channels,
+    K5 8 of them in four passes, K5c a half-warp in two; in f32 a warp of
+    16-byte lanes in one; at Cg = 36 the lanes of bf16 do not divide the
+    row."""
+    plan = deform_sample.rows_schedule(2, h * w, 9, 128, dtype)
+    fwd, bwd = plan["forward"], plan["backward"]
+    bf16 = dtype == torch.bfloat16
+    assert (fwd["lanes"], bwd["lanes"]) == ((8, 16) if bf16 else (32, 32))
+    assert fwd["idle_lanes"] == bwd["idle_lanes"] == 0
+    for busy in (fwd["stores"] >= 0, bwd["reductions"][0] >= 0):
+        assert int(busy.sum()) == 2 * h * w * 9 * 128 // 4
+    if bf16:
+        plan = deform_sample.rows_schedule(2, h * w, 9, 36, dtype)
+        assert plan["forward"]["idle_lanes"] > 0
+        assert plan["backward"]["idle_lanes"] > 0
