@@ -120,7 +120,12 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     by device kernel with its GEMMs' TFLOP/s beside ``torch.matmul`` in
     bf16 on the same two products (a yardstick), and runs the kernels the
     source states in one call at P3 (six) and at P5 (seven: the copy of dy
-    and cols into padded rows);
+    and cols into padded rows); K4a and K4b bf16 are held at every
+    flagship level, a VIS and an HRFPN level and a slab past what a
+    cluster holds, with and without the ReLU, each giving the same bits
+    twice; a call at P3 must be one device kernel each (the cluster
+    kernels) and past capacity two each (the two-pass kernels), and their
+    sweeps' device ms are split by level and kernel;
 20. serves the flagship in bf16: 3 requests of one 800x1333 image and a
     batch of 4 at 800x1344 twice, launches counted (bf16 kernels only), the
     head outputs bf16 but the f32 box regressions, then the batch with the
@@ -211,6 +216,11 @@ IMAGE_HW = (800, 1333)   # at the test scale: padded to 800x1344, no resize
 BATCH = 4
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # 800x1344
 CHANNELS, DEFORM_GROUPS, GN_GROUPS = 256, 4, 32
+# phase 19's K4 shapes beside LEVELS: a VIS level (384x640's P3), an HRFPN
+# level (floor-pooled) and a slab past what a cluster holds (the two-pass
+# kernels)
+VIS_GN_LEVEL, HRFPN_GN_LEVEL, GN_PAST_CAPACITY = (48, 80), (12, 21), (
+    256, 272)
 K1_TOL = 1e-5     # abs: the same four f32 products, FMA-fused in the kernel
 K4_TOL = 1e-4     # abs: f32 sums over up to 134400 elements, reordered
 HEAD_TOL = 1e-3   # relative to max |x|: the above through up to 9 layers
@@ -565,6 +575,53 @@ def launch_split(label, fn, attempts=3, want=None, reps=1):
     if not kern:
         raise AssertionError(f"the profiler saw no device kernel of {label}")
     return split, len(kern)
+
+
+def sweep_split(label, calls, names, per_call, reps=4, attempts=5):
+    """Profile a sweep (one call of each of ``calls``, of ``per_call``
+    device kernels each) ``reps`` times a session, as :func:`launch_split`
+    does, and log each call's device ms by kernel from the last whole run;
+    return the sweep's device ms (0 when no session held two whole runs
+    alike, which is logged)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    want = sum(per_call)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                for fn in calls:
+                    fn()
+            torch.cuda.synchronize()
+        kern = last_runs(sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and "spin_kernel" not in e.name),
+            key=lambda e: e.time_range.start), want, reps)
+        if kern:
+            break
+    else:
+        log(f"split of {label}: no session held two whole runs of {want} "
+            f"kernels")
+        return 0.0
+    i = 0
+    for name, n in zip(names, per_call):
+        log(f"  {label} {name}: " + "; ".join(
+            f"{kernel_name(e.name)} {e.device_time / 1e3:.4f} ms"
+            for e in kern[i:i + n]))
+        i += n
+    return sum(e.device_time for e in kern) / 1e3
+
+
+def kernel_name(name):
+    """A device kernel's name without its namespace and arguments."""
+    import re
+    m = re.search(r"([A-Za-z_]\w*)(<[^(]*>)?\(", name)
+    return (m.group(1) + (m.group(2) or ""))[:50] if m else name[:50]
 
 
 def nbytes(*tensors):
@@ -1111,11 +1168,19 @@ def phase_bf16_kernels(dev):
                       [got.float()], [want.float()], BF16_KERNEL_TOL)
     flags.allow_bf16_reduced_precision_reduction = False
     del x, off, cols, w2, got, want
-    for (h, w) in (LEVELS[0], LEVELS[2]):
+    # K4a and K4b at every flagship level, a VIS level, an HRFPN level and a
+    # slab past what a cluster holds (the two-pass kernels), each giving
+    # the same bits twice
+    for b, (h, w) in [(2, hw) for hw in LEVELS + [VIS_GN_LEVEL,
+                                                  HRFPN_GN_LEVEL]] + [
+            (1, GN_PAST_CAPACITY)]:
+        plan = gn_relu.gn_schedule(b, CHANNELS, h * w, GN_GROUPS,
+                                   offsets=False)
+        path = [plan[d]["path"] for d in ("forward", "backward")]
         for act in (True, False):
-            x = ((torch.randn((2, CHANNELS, h, w), generator=gen) * 3 + 1)
+            x = ((torch.randn((b, CHANNELS, h, w), generator=gen) * 3 + 1)
                  .to(dev).to(bf))
-            dy = torch.randn((2, CHANNELS, h, w), generator=gen).to(dev
+            dy = torch.randn((b, CHANNELS, h, w), generator=gen).to(dev
                                                                     ).to(bf)
             wt = (torch.rand(CHANNELS, generator=gen) + 0.5).to(dev)
             bs = (torch.randn(CHANNELS, generator=gen) * 0.2).to(dev)
@@ -1127,18 +1192,50 @@ def phase_bf16_kernels(dev):
                                              act)
             want_b = gn_relu.gn_relu_backward_plain(x, wt, bs, stats, dy,
                                                     GN_GROUPS, act)
+            y2, stats2 = gn_relu.gn_relu_forward(x, wt, bs, GN_GROUPS, 1e-5,
+                                                 act)
+            again_b = gn_relu.gn_relu_backward(x, wt, bs, stats, dy,
+                                               GN_GROUPS, act)
             torch.cuda.synchronize()
             if y.dtype != bf or got_b[0].dtype != bf:
                 raise AssertionError("K4 bf16 gave another dtype")
+            if not (torch.equal(y, y2) and torch.equal(stats, stats2)
+                    and all(map(torch.equal, got_b, again_b))):
+                raise AssertionError(f"two K4 bf16 calls at {h}x{w} gave "
+                                     f"different bits")
             errs["gn_relu_bf16"] = max(errs["gn_relu_bf16"], check_outputs(
-                f"K4a bf16 gn_relu {h}x{w} act={act} bs2 (y, stats)",
-                [y.float(), stats], [want.float(), want_stats],
+                f"K4a bf16 gn_relu {h}x{w} act={act} bs{b} ({path[0]}; y, "
+                f"stats)", [y.float(), stats], [want.float(), want_stats],
                 BF16_KERNEL_TOL))
             errs["gn_relu_backward_bf16"] = max(
                 errs["gn_relu_backward_bf16"], check_outputs(
-                    f"K4b bf16 gn_relu_backward {h}x{w} act={act} bs2 (dx, "
-                    f"dweight, dbias)", [t.float() for t in got_b],
+                    f"K4b bf16 gn_relu_backward {h}x{w} act={act} bs{b} "
+                    f"({path[1]}; dx, dweight, dbias)",
+                    [t.float() for t in got_b],
                     [t.float() for t in want_b], BF16_KERNEL_TOL))
+        # a call is the kernels its path states: one-pass one cluster
+        # kernel, two-pass its two kernels
+        for label, fn, kernels in (
+                ("K4a bf16 gn_relu", lambda: gn_relu.gn_relu_forward(
+                    x, wt, bs, GN_GROUPS), {
+                    "one-pass": ["gn_fwd_cluster_kernel"],
+                    "two-pass": ["gn_stats_kernel", "gn_apply_kernel"]}[
+                        path[0]]),
+                ("K4b bf16 gn_relu_backward", lambda: gn_relu.gn_relu_backward(
+                    x, wt, bs, stats, dy, GN_GROUPS, True), {
+                    "one-pass": ["gn_bwd_cluster_kernel"],
+                    "two-pass": ["gn_bwd_reduce_kernel",
+                                 "gn_bwd_apply_kernel"]}[path[1]])):
+            if (h, w) not in (LEVELS[0], GN_PAST_CAPACITY):
+                continue
+            split, n_kern = launch_split(
+                f"{label}, one call at {h}x{w} bs{b}", fn, attempts=5,
+                want=len(kernels), reps=4)
+            names = [n for n, (c, _) in split.items() for _ in range(c)]
+            if n_kern != len(kernels) or any(
+                    sum(k in n for n in names) != 1 for k in kernels):
+                raise AssertionError(f"a {label} call at {h}x{w} ran "
+                                     f"{names}, not {kernels}")
 
     # times at batch 4 over the five levels: plain, kernel, kernel, plain
     times, extra = {}, {}
@@ -1270,13 +1367,18 @@ def phase_bf16_kernels(dev):
                  for x, wt, bs, _s, _d in k4_in],
         lambda: [gn_relu.gn_relu(x, wt, bs, GN_GROUPS)
                  for x, wt, bs, _s, _d in k4_in])
-    split, _ = launch_split(
+    # a call's device kernels: one on the one-pass path, else two
+    plans = [gn_relu.gn_schedule(BATCH, CHANNELS, h * w, GN_GROUPS,
+                                 offsets=False) for h, w in LEVELS]
+    k4_kernels = [[1 if plan[d]["path"] == "one-pass" else 2
+                   for plan in plans] for d in ("forward", "backward")]
+    device = sweep_split(
         f"K4a bf16 gn_relu all 5 levels bs{BATCH}",
-        lambda: [gn_relu.gn_relu(x, wt, bs, GN_GROUPS)
-                 for x, wt, bs, _s, _d in k4_in])
+        [lambda x=x, wt=wt, bs=bs: gn_relu.gn_relu(x, wt, bs, GN_GROUPS)
+         for x, wt, bs, _s, _d in k4_in], [f"{h}x{w}" for h, w in LEVELS],
+        k4_kernels[0])
     log(f"K4a bf16 all 5 levels bs{BATCH}: CUDA events "
-        f"{times['gn_relu_bf16'][0]:.4f} ms, device "
-        f"{sum(ms for _, ms in split.values()):.4f} ms")
+        f"{times['gn_relu_bf16'][0]:.4f} ms, device {device:.4f} ms")
 
     def k4b_sweep():
         return [gn_relu.gn_relu_backward(*a, GN_GROUPS, True) for a in k4_in]
@@ -1284,11 +1386,13 @@ def phase_bf16_kernels(dev):
         f"K4b bf16 gn_relu_backward all 5 levels bs{BATCH}",
         lambda: [gn_relu.gn_relu_backward_plain(*a, GN_GROUPS, True)
                  for a in k4_in], k4b_sweep)
-    split, _ = launch_split(f"K4b bf16 gn_relu_backward all 5 levels "
-                            f"bs{BATCH}", k4b_sweep)
+    device = sweep_split(
+        f"K4b bf16 gn_relu_backward all 5 levels bs{BATCH}",
+        [lambda a=a: gn_relu.gn_relu_backward(*a, GN_GROUPS, True)
+         for a in k4_in], [f"{h}x{w}" for h, w in LEVELS], k4_kernels[1])
     log(f"K4b bf16 all 5 levels bs{BATCH}: CUDA events "
         f"{times['gn_relu_backward_bf16'][0]:.4f} ms, device "
-        f"{sum(ms for _, ms in split.values()):.4f} ms")
+        f"{device:.4f} ms")
     gn_graphs = []
     for x, wt, bs, _, dy in k4_in:
         leaves = [t.detach().requires_grad_(True) for t in (x, wt, bs)]

@@ -13,12 +13,16 @@ Layout: x and the result (B, C, H, W), f32 or bf16 (the JAX package's
 dtype, ``group_norm.py:81,154``); weight and bias (C,) f32; the saved
 statistics ``stats`` (B, groups, 2) f32, each group's (mean, rstd). The
 kernels count their f32 calls in ``launches`` and their bf16 calls in
-``bf16_launches``.
+``bf16_launches``. In bf16 a call is one pass over HBM, one launch of a
+kernel whose thread-block clusters each hold an (image, group) on chip,
+wherever the slab fits (every preset's shapes); :func:`gn_schedule` mirrors
+that plan on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -161,12 +165,110 @@ def _lib():
                                          ctypes.c_longlong, ctypes.c_int,
                                          ctypes.c_float, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_void_p])
-        for fn in (lib.gn_relu_bwd_f32, lib.gn_relu_bwd_bf16):
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 9 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        tail = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p]
+        lib.gn_relu_bwd_f32.restype = ctypes.c_int
+        lib.gn_relu_bwd_f32.argtypes = [ctypes.c_void_p] * 9 + tail
+        lib.gn_relu_bwd_bf16.restype = ctypes.c_int
+        lib.gn_relu_bwd_bf16.argtypes = [ctypes.c_void_p] * 10 + tail
+        lib.gn_relu_bf16_plan.restype = None
+        lib.gn_relu_bf16_plan.argtypes = [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     return lib
+
+
+# The bf16 kernels' one-pass plan (csrc/gn_relu.cu:one_plan, one_vec): a
+# thread holds up to ONE_HELD vectors of each tensor; K (1, 2, 4 or 8) is
+# the smallest cluster whose CTAs of at most ONE_TARGET threads hold the
+# slab and whose call has ONE_MIN_CTAS CTAs; a CTA then has the threads
+# for half of ONE_HELD vectors each if ONE_TARGET suffice, else for
+# ONE_HELD, in whole warps (at least ONE_MIN_THREADS); past
+# ONE_MAX_THREADS a CTA (forward, backward), or Cg > ONE_MAX_CG, a call
+# takes the two-pass kernels.
+ONE_HELD, ONE_TARGET, ONE_MIN_THREADS, ONE_MAX_CLUSTER = 8, 256, 128, 8
+ONE_MIN_CTAS = 256
+ONE_MAX_THREADS = {False: 1024, True: 512}
+ONE_MAX_CG = 64
+
+
+def _one_vec(slab: int, ptrs: int) -> int:
+    """Elements a one-pass vector: 8 (16 bytes), 4 (8 bytes) or 1, by the
+    slab's length and the pointers' alignment (``ptrs``: their bitwise or)."""
+    if slab % 8 == 0 and ptrs % 16 == 0:
+        return 8
+    if slab % 4 == 0 and ptrs % 8 == 0:
+        return 4
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _one_plan(nvec: int, slabs: int, cg: int, backward: bool):
+    """(one, K, T, per): whether a call on ``slabs`` slabs of ``nvec``
+    vectors takes the cluster kernel, its cluster size, threads a CTA and
+    vectors a CTA."""
+    k = 1
+    while k < ONE_MAX_CLUSTER and (-(-nvec // k) > ONE_HELD * ONE_TARGET
+                                   or slabs * k < ONE_MIN_CTAS):
+        k *= 2
+    per = -(-nvec // k)
+
+    def warps(held):   # threads for `held` vectors a thread, whole warps
+        return -(-(-(-per // held)) // 32) * 32
+    t = warps(ONE_HELD // 2)   # half of ONE_HELD while ONE_TARGET suffice
+    if t > ONE_TARGET:
+        t = warps(ONE_HELD)
+    t = max(ONE_MIN_THREADS, t)
+    one = nvec > 0 and cg <= ONE_MAX_CG and t <= ONE_MAX_THREADS[backward]
+    return one, k, t, per
+
+
+def gn_schedule(b: int, c: int, hw: int, groups: int,
+                dtype=torch.bfloat16, offsets: bool = True):
+    """How ``csrc/gn_relu.cu`` cuts a K4a and a K4b call on x (b, c, h, w)
+    with h*w = ``hw`` in ``dtype`` (pointers aligned for 16-byte vectors),
+    in plain PyTorch, for the tests. Returns a dict with "forward" and
+    "backward", each with ``path`` ("one-pass": one launch of the cluster
+    kernel; "two-pass": the two launches of 4096-element chunks, always in
+    f32), and on the one-pass path ``cluster`` (K), ``ctas`` (K*b*groups),
+    ``threads`` a CTA, ``vector_bytes``, ``elements_a_thread`` (the most a
+    thread holds of a tensor), ``held_bytes`` (the most a CTA holds, of x,
+    and of x and dy backward), and ``loads`` / ``stores``: (ctas, threads,
+    ONE_HELD) byte offsets into x (backward: the same into dy) and y (dx)
+    of each thread's vectors, -1 none (left out without ``offsets``). The
+    forward holds its share in registers, the backward in shared memory
+    (TMA bulk copies of the share). The tests check that every element is
+    loaded once and stored once."""
+    cg = c // groups
+    slab = cg * hw
+    out = {}
+    for backward in (False, True):
+        vec = _one_vec(slab, 0)
+        one, k, t, per = _one_plan(slab // vec, b * groups, cg, backward)
+        if dtype != torch.bfloat16 or not one:
+            out["backward" if backward else "forward"] = {"path": "two-pass"}
+            continue
+        esize = 2
+        nvec = slab // vec
+        plan = {"path": "one-pass", "cluster": k, "ctas": b * groups * k,
+                "threads": t, "vector_bytes": vec * esize}
+        out["backward" if backward else "forward"] = plan
+        if not offsets:
+            continue
+        cta = torch.arange(b * groups * k)
+        bg, rank = cta // k, cta % k
+        lo = rank * per
+        n = torch.clamp(nvec - lo, 0, per)
+        e = (torch.arange(t)[:, None] + t * torch.arange(ONE_HELD)
+             )[None]                                     # (1, t, held)
+        live = e < n[:, None, None]
+        off = ((bg * slab)[:, None, None] + (lo[:, None, None] + e) * vec
+               ) * esize
+        off = torch.where(live, off, -1)
+        plan.update(elements_a_thread=int(live.sum(-1).max()) * vec,
+                    held_bytes=int(n.max()) * vec * esize * (1 + backward),
+                    loads=off, stores=off)
+    return out
 
 
 def _cuda_check(x, weight, bias, groups):
@@ -190,29 +292,40 @@ def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
                     act: bool = True, keep_stats: bool = True):
     """K4a: (y, stats), stats None unless ``keep_stats``. CPU tensors take
     the plain arithmetic; CUDA tensors launch the kernels (contiguous; x f32
-    or bf16, weight and bias f32): two launches, nothing between them; the wrapper only checks and
-    allocates y and one scratch (stats is a view of it). Raises on anything
-    the kernels do not take. Records no gradient: :func:`gn_relu` does."""
+    or bf16, weight and bias f32): bf16 one launch of the cluster kernel
+    where :func:`gn_schedule` says "one-pass", else two launches, nothing
+    between them; the wrapper only checks and allocates y and a scratch
+    (stats is a view of it; the two passes' partials follow it). Raises on
+    anything the kernels do not take. Records no gradient: :func:`gn_relu`
+    does."""
     if x.device.type == "cpu":
         y, stats = _forward_plain(x, weight, bias, groups, eps, act)
         return y, (stats if keep_stats else None)
     _cuda_check(x, weight, bias, groups)
     b, c, h, w = x.shape
-    n_stats = b * groups * 2 if keep_stats else 0
-    n_scratch = n_stats + b * groups * 2 * -(-(c // groups * h * w) // _CHUNK)
+    bf16 = x.dtype == torch.bfloat16
+    slab = c // groups * h * w
     y = torch.empty_like(x)
-    scratch = torch.empty((n_scratch,), device=x.device, dtype=torch.float32)
+    n_stats = b * groups * 2 if keep_stats else 0
+    n_scratch = n_stats
+    # the two-pass kernels' partials; the bf16 cluster kernel takes none
+    if not (bf16 and _one_plan(
+            slab // _one_vec(slab, x.data_ptr() | y.data_ptr()), b * groups,
+            c // groups, False)[0]):
+        n_scratch += b * groups * 2 * -(-slab // _CHUNK)
+    scratch = (torch.empty((n_scratch,), device=x.device,
+                           dtype=torch.float32) if n_scratch else None)
     stats = scratch[:n_stats].view(b, groups, 2) if keep_stats else None
     if y.numel() == 0:
         return y, stats
     lib = _lib()
-    bf16 = x.dtype == torch.bfloat16
     launch = lib.gn_relu_bf16 if bf16 else lib.gn_relu_f32
     with native.device_guard(x.device):
         code = launch(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            scratch.data_ptr(), n_scratch, y.data_ptr(), b, c, h * w, groups,
-            eps, int(act), int(keep_stats), native.stream_ptr(x.device))
+            None if scratch is None else scratch.data_ptr(), n_scratch,
+            y.data_ptr(), b, c, h * w, groups, eps, int(act),
+            int(keep_stats), native.stream_ptr(x.device))
     native.check_launch(lib, "gn_relu", code)
     if bf16:
         gn_relu.bf16_launches += 1
@@ -221,11 +334,28 @@ def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
     return y, stats
 
 
+# (device index, stream) -> the bf16 K4b cluster kernel's per-group arrival
+# counters: zeros, which every call leaves zero
+_ARRIVALS = {}
+
+
+def _arrivals(device, stream: int, groups: int):
+    key = (device.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < groups:
+        buf = torch.zeros((max(groups, 64),), device=device,
+                          dtype=torch.int32)
+        _ARRIVALS[key] = buf
+    return buf
+
+
 def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
     """K4b: (dx, d weight, d bias) from the forward's ``stats``. CPU
     tensors take :func:`gn_relu_backward_plain`; CUDA tensors launch the
-    kernels: two launches, nothing between them. The wrapper only checks
-    and allocates."""
+    kernels: bf16 one launch of the cluster kernel where :func:`gn_schedule`
+    says "one-pass", else two launches, nothing between them. The wrapper
+    only checks and allocates (and keeps the cluster kernel's arrival
+    counters for each device and stream, zeros between calls)."""
     if x.device.type == "cpu":
         return gn_relu_backward_plain(x, weight, bias, stats, dy, groups, act)
     _cuda_check(x, weight, bias, groups)
@@ -243,16 +373,20 @@ def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
     if b == 0:
         return dx, dweight.zero_(), dbias.zero_()
     lib = _lib()
-    bf16 = x.dtype == torch.bfloat16
-    launch = lib.gn_relu_bwd_bf16 if bf16 else lib.gn_relu_bwd_f32
-    with native.device_guard(x.device):
-        code = launch(
-            x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
+    stream = native.stream_ptr(x.device)
+    ptrs = (x.data_ptr(), dy.data_ptr(), stats.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), r.data_ptr(), dx.data_ptr(), dweight.data_ptr(),
-            dbias.data_ptr(), b, c, h * w, groups, int(act),
-            native.stream_ptr(x.device))
+            dbias.data_ptr())
+    with native.device_guard(x.device):
+        if x.dtype == torch.bfloat16:
+            code = lib.gn_relu_bwd_bf16(
+                *ptrs, _arrivals(x.device, stream, groups).data_ptr(), b, c,
+                h * w, groups, int(act), stream)
+        else:
+            code = lib.gn_relu_bwd_f32(*ptrs, b, c, h * w, groups, int(act),
+                                       stream)
     native.check_launch(lib, "gn_relu", code)
-    if bf16:
+    if x.dtype == torch.bfloat16:
         gn_relu_backward.bf16_launches += 1
     else:
         gn_relu_backward.launches += 1

@@ -18,16 +18,18 @@ given:
   by owner (and the copy kernels' share of it) and the device's idle
   share;
 - ``k4a``: the GroupNorm+ReLU forward (K4a) over one GN site of each of the
-  five levels at batch 4, as in serving (no gradient): CUDA-event ms of the
-  sweep, the host's enqueue time of a sweep, and the device time of its
+  five levels at batch 4, as in serving (no gradient), in each ``--dtype``:
+  CUDA-event ms of the sweep, the host's enqueue time of a sweep (and of a
+  call), and the device time of its
   kernels in a ``torch.profiler`` trace, also by level; first through
   ``gn_relu`` (the model's entry point), then through the bare launcher
   ``gn_relu_forward`` with and without the saved statistics;
 - ``k4b``: the GroupNorm+ReLU backward (K4b, ``gn_relu_backward``) over one
-  GN site of each of the five levels at batch 4: CUDA-event ms of the
-  sweep, the host's enqueue time of a sweep (and of one call), and the
-  device time and count of its kernels in a ``torch.profiler`` trace, so
-  that its device time and its host time can be read apart;
+  GN site of each of the five levels at batch 4, in each ``--dtype``:
+  CUDA-event ms of the sweep, the host's enqueue time of a sweep (and of
+  one call), and the device time and count of its kernels in a
+  ``torch.profiler`` trace, also by level and kernel, so that its device
+  time and its host time can be read apart;
 - ``k5c``: the row-sampling backward (K5c, ``deform_rows_backward``) over
   the SipMask++ train step's three DCN convs (one of each R101 stage at
   576x576, batch 8: offsets ~2 px, a third of the pixels +-300 px out), in
@@ -62,7 +64,7 @@ width, random weights from seed 0, bumped as ``chip_smoke.py`` bumps them
 bf16 products summed in f32 (no reduced-precision reductions) and cuDNN's
 benchmark mode on. ``--dtype`` gives the model's ``compute_dtype`` for
 ``serve``, ``forward``, ``video`` and ``train``, and the element type of
-``k5`` and ``k5c``, float32 by default; with several,
+``k4a``, ``k4b``, ``k5`` and ``k5c``, float32 by default; with several,
 each mode runs once for each, in the order given (give it after the
 modes). Each profile also gives the share of
 the layout transposes around cuDNN's channels-last kernels (kernel names
@@ -237,12 +239,12 @@ def forward(dev, reps, config, dtype="float32"):
         for k in ops))
 
 
-def k4a(dev, iters=20):
+def k4a(dev, dtype="float32", iters=20):
     from ..ops import gn_relu
 
     gen = torch.Generator().manual_seed(SEED)
-    xs = [torch.randn((BATCH, 256, h, w), generator=gen).to(dev)
-          for h, w in LEVELS]
+    xs = [torch.randn((BATCH, 256, h, w), generator=gen).to(dev).to(
+        getattr(torch, dtype)) for h, w in LEVELS]
     wt = torch.ones(256, device=dev)
     bs = torch.zeros(256, device=dev)
     ways = {
@@ -266,23 +268,25 @@ def k4a(dev, iters=20):
             device = sum(e.device_time for e in profile_kernels(sweep, iters)
                          ) / 1e3 / iters
             (e1, h1), (e2, h2) = timed[name]
-            log(f"K4a {name}, 5 levels bs{BATCH}, ms per sweep: CUDA events "
-                f"{e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / {h2:.4f}, "
-                f"kernels {device:.4f}")
+            log(f"K4a {dtype} {name}, 5 levels bs{BATCH}, ms per sweep: "
+                f"CUDA events {e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / "
+                f"{h2:.4f} ({(h1 + h2) / 2 / len(LEVELS) * 1e3:.1f} us a "
+                f"call), kernels {device:.4f}")
         by_call(profile_kernels(sweeps[name], iters), iters,
                 [f"{h}x{w}" for h, w in LEVELS])
 
 
-def k4b(dev, iters=20):
+def k4b(dev, dtype="float32", iters=20):
     from ..ops import gn_relu
 
     gen = torch.Generator().manual_seed(SEED)
     wt = torch.ones(256, device=dev)
     bs = torch.zeros(256, device=dev)
+    elem = getattr(torch, dtype)
     args = []
     for h, w in LEVELS:
-        x = torch.randn((BATCH, 256, h, w), generator=gen).to(dev)
-        dy = torch.randn((BATCH, 256, h, w), generator=gen).to(dev)
+        x = torch.randn((BATCH, 256, h, w), generator=gen).to(dev).to(elem)
+        dy = torch.randn((BATCH, 256, h, w), generator=gen).to(dev).to(elem)
         _, stats = gn_relu.gn_relu_forward(x, wt, bs, 32)
         args.append((x, wt, bs, stats, dy))
 
@@ -292,11 +296,12 @@ def k4b(dev, iters=20):
     kern = profile_kernels(sweep, iters)
     device = sum(e.device_time for e in kern) / 1e3 / iters
     calls = iters * len(LEVELS)
-    log(f"K4b gn_relu_backward (act), 5 levels bs{BATCH}, ms per sweep: "
-        f"CUDA events {e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / "
+    log(f"K4b {dtype} gn_relu_backward (act), 5 levels bs{BATCH}, ms per "
+        f"sweep: CUDA events {e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / "
         f"{h2:.4f} ({(h1 + h2) / 2 / len(LEVELS) * 1e3:.1f} us a call), "
         f"kernels {device:.4f} ({len(kern) / calls:g} device kernels a "
         f"call)")
+    by_call(kern, iters, [f"{h}x{w}" for h, w in LEVELS])
 
 
 def k5_k5c(dev, dtype, backward, iters=20):
@@ -384,7 +389,8 @@ OWNERS = {"deform_im2col": "K1", "deform_bwd": "K2", "fold_partials": "K2",
           "mask_bce_fwd_tiles": "K3a",
           "mask_bce_fold_tiles": "K3a", "mask_bce_dbasis_tiles": "K3b",
           "mask_bce_dcofs_tiles": "K3b", "mask_bce_fold_dcofs": "K3b",
-          "gn_stats": "K4a", "gn_apply": "K4a", "gn_bwd": "K4b",
+          "gn_stats": "K4a", "gn_apply": "K4a", "gn_fwd_cluster": "K4a",
+          "gn_bwd": "K4b",
           "deform_rows_fwd": "K5", "deform_rows_bwd": "K5c",
           "assemble_masks": "K6"}
 CUDNN = ("cudnn", "xmma", "convolve", "winograd", "implicit", "dgrad",
@@ -562,8 +568,8 @@ def main(argv=None):
     ap.add_argument("--dtype", nargs="+", default=["float32"],
                     choices=("float32", "bfloat16"),
                     help="compute_dtype of serve, forward, video and "
-                         "train, and the element type of k5 and k5c, each "
-                         "in turn")
+                         "train, and the element type of k4a, k4b, k5 and "
+                         "k5c, each in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
@@ -576,10 +582,10 @@ def main(argv=None):
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     for mode in args.modes:
-        if mode in ("k4a", "k4b"):
-            {"k4a": k4a, "k4b": k4b}[mode](dev)
-            continue
         for dtype in args.dtype:
+            if mode in ("k4a", "k4b"):
+                {"k4a": k4a, "k4b": k4b}[mode](dev, dtype)
+                continue
             if mode in ("k5", "k5c"):
                 k5_k5c(dev, dtype, mode == "k5c")
                 continue

@@ -945,6 +945,85 @@ def test_bf16_gn_relu_kernels_match_plain(dev, shape, act):
                                                        32, act))
 
 
+# K4a and K4b in bf16 at the shapes of every preset's GroupNorm kind: the
+# flagship's five 800x1344 levels, a VIS level (384x640), an HRFPN level,
+# and a slab past what a cluster holds (the two-pass kernels); then Cg = 4,
+# whose 468-element slabs take 8-byte vectors that straddle channels
+GN_BF16_SHAPES = [(2, 256, 100, 168), (2, 256, 50, 84), (2, 256, 25, 42),
+                  (2, 256, 13, 21), (2, 256, 7, 11), (2, 256, 48, 80),
+                  (2, 256, 12, 21), (1, 256, 256, 272), (2, 128, 9, 13)]
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("shape", GN_BF16_SHAPES)
+def test_bf16_gn_relu_one_pass_matches_plain_and_repeats_its_bits(
+        dev, shape, act):
+    """The bf16 K4a and K4b (one-pass cluster kernels, or past capacity the
+    two-pass ones) match their plain versions within one bf16 unit of each
+    output's max, and give the same bits twice."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy((rng.randn(*shape) * 3 + 1).astype(np.float32)
+                         ).to(dev).to(BF16)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev).to(
+        BF16)
+    c = shape[1]
+    wt = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(dev)
+    bs = torch.from_numpy((rng.randn(c) * 0.2).astype(np.float32)).to(dev)
+    y, stats = gn_relu.gn_relu_forward(x, wt, bs, 32, 1e-5, act)
+    back = gn_relu.gn_relu_backward(x, wt, bs, stats, dy, 32, act)
+    y2, stats2 = gn_relu.gn_relu_forward(x, wt, bs, 32, 1e-5, act)
+    back2 = gn_relu.gn_relu_backward(x, wt, bs, stats, dy, 32, act)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(stats, stats2)
+    assert all(torch.equal(a, b) for a, b in zip(back, back2))
+    want_y, want_stats = gn_relu._forward_plain(x, wt, bs, 32, 1e-5, act)
+    _close_to_max([y, stats], [want_y, want_stats])
+    _close_to_max(back, gn_relu.gn_relu_backward_plain(x, wt, bs, stats, dy,
+                                                       32, act))
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 100, 168), (4, 256, 7, 11),
+                                   (1, 256, 256, 272)])
+def test_bf16_gn_relu_device_kernels(dev, shape):
+    """A bf16 K4a call is one device kernel and a K4b call one where
+    gn_schedule says one-pass (the cluster kernels, K4b's d weight and d
+    bias folded by the last cluster of each group); past capacity each is
+    its two two-pass kernels. The C entry's plan is the mirror's."""
+    import ctypes
+    rng = np.random.RandomState(9)
+    b, c, h, w = shape
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev).to(
+        BF16)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev).to(
+        BF16)
+    wt = torch.ones(c, device=dev)
+    bs = torch.zeros(c, device=dev)
+    _, stats = gn_relu.gn_relu_forward(x, wt, bs, 32)
+    plan = gn_relu.gn_schedule(b, c, h * w, 32)
+    want = {"one-pass": (["gn_fwd_cluster_kernel"],
+                         ["gn_bwd_cluster_kernel"]),
+            "two-pass": (["gn_stats_kernel", "gn_apply_kernel"],
+                         ["gn_bwd_reduce_kernel", "gn_bwd_apply_kernel"])}
+    for i, (direction, fn) in enumerate((
+            ("forward", lambda: gn_relu.gn_relu_forward(x, wt, bs, 32)),
+            ("backward", lambda: gn_relu.gn_relu_backward(
+                x, wt, bs, stats, dy, 32, True)))):
+        kernels = want[plan[direction]["path"]][i]
+        names = _last_run_kernels(fn, len(kernels))
+        for kernel in kernels:
+            assert sum(kernel in n for n in names) == 1, (kernel, names)
+        out = (ctypes.c_longlong * 5)()
+        gn_relu._lib().gn_relu_bf16_plan(c // 32 * h * w, b * 32, c // 32,
+                                         x.data_ptr(), i, out)
+        one, k, t, _ = gn_relu._one_plan(c // 32 * h * w // 8, b * 32,
+                                         c // 32, bool(i))
+        assert tuple(out)[:3] == (int(one), k, t)
+        if one:
+            p = plan[direction]
+            assert (p["cluster"], p["threads"], p["vector_bytes"]) == (
+                k, t, 2 * out[4])
+
+
 def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from sipmask_tpu_torch.ops import deform_conv
     x, off, w2, dy = _deform_case(dev, 1, 16, 4, 6, 7, "random", o=8)

@@ -1,4 +1,4 @@
-"""CPU mirrors of how the K1 and K6 kernels cut their work, checked against
+"""CPU mirrors of how the port's kernels cut their work, checked against
 the rules they must keep (no card needed):
 
 - K6 (``csrc/mask_assembly.cu``) fills every 32-pixel segment of a
@@ -24,13 +24,19 @@ the rules they must keep (no card needed):
   4 channels) each item's share of a reduction or store instruction is
   one contiguous run, a warp's positions one coalesced load, and at
   Cg = 128 no lane of an item idles (``deform_sample.rows_schedule``).
+- K4a and K4b (``csrc/gn_relu.cu``) in bf16: at every GroupNorm shape the
+  presets make, one pass, a cluster of CTAs per (image, group) that loads
+  each element once and stores each once within the register budget the
+  source states; a slab past that budget takes the two-pass kernels
+  (``gn_relu.gn_schedule``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sipmask_tpu_torch.ops import deform_conv, deform_sample, mask_assembly
+from sipmask_tpu_torch.ops import (deform_conv, deform_sample, gn_relu,
+                                   mask_assembly)
 
 
 def _boxes(regime, rng, b, n, h, w):
@@ -301,3 +307,99 @@ def test_deform_rows_schedule_idles_no_lane_at_cg_128(h, w, dtype):
         plan = deform_sample.rows_schedule(2, h * w, 9, 36, dtype)
         assert plan["forward"]["idle_lanes"] > 0
         assert plan["backward"]["idle_lanes"] > 0
+
+
+# The GroupNorm shapes the presets make (batch, h, w), 256 channels in 32
+# groups: the 800x1344 levels (the flagship, X101 at its multi-scale sizes
+# up to 800x1333, the fork, the test driver; batch 4, a request 1),
+# HRFPN's floor-pooled levels, the GN real-time preset at 544 (serving)
+# and 576 (training), batch 8, VIS at 384x640 (training 4, a frame 1) and
+# its multi-scale bucket 480x960
+GN_SHAPES = (
+    [(4, h, w) for h, w in ((100, 168), (50, 84), (25, 42), (13, 21),
+                            (7, 11), (168, 100), (84, 50), (42, 25),
+                            (21, 13), (11, 7), (12, 21), (6, 10))]
+    + [(1, 100, 168), (1, 7, 11)]
+    + [(8, h, w) for h, w in ((68, 68), (34, 34), (17, 17), (9, 9), (5, 5),
+                              (72, 72), (36, 36), (18, 18))]
+    + [(4, h, w) for h, w in ((48, 80), (24, 40), (12, 20), (6, 10),
+                              (3, 5), (60, 120), (30, 60), (15, 30),
+                              (8, 15), (4, 8))]
+    + [(1, 48, 80)])
+
+
+def _once(offsets, nbytes, vector_bytes):
+    """Whether the byte offsets (-1 none) of whole vectors hit every vector
+    of an nbytes tensor once."""
+    live = offsets[offsets >= 0]
+    if not bool((live % vector_bytes == 0).all()):
+        return False
+    counts = torch.bincount(live // vector_bytes,
+                            minlength=nbytes // vector_bytes)
+    return counts.numel() == nbytes // vector_bytes and bool(
+        (counts == 1).all())
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("b,h,w", GN_SHAPES)
+def test_gn_schedule_one_pass_loads_and_stores_each_element_once(
+        b, h, w, direction):
+    """The bf16 K4a and K4b at every preset GroupNorm shape take the
+    one-pass cluster kernel, load each element of every slab once (x; and
+    dy backward, at the same offsets) and store each once, within the
+    budget the source states: a cluster of at most 8 CTAs, at most 1024
+    (forward) or 512 (backward) threads a CTA in whole warps, at most 8
+    vectors of 16 bytes a thread of each tensor held, 128 KB a CTA (the
+    forward's registers, the backward's staged shared memory), and at
+    least 256 CTAs a call where a cluster of 8 does not cap them."""
+    plan = gn_relu.gn_schedule(b, 256, h * w, 32)[direction]
+    assert plan["path"] == "one-pass"
+    k, t = plan["cluster"], plan["threads"]
+    assert k in (1, 2, 4, 8) and plan["ctas"] == b * 32 * k
+    assert t % 32 == 0 and t <= (512 if direction == "backward" else 1024)
+    assert plan["vector_bytes"] == 16
+    assert plan["elements_a_thread"] <= gn_relu.ONE_HELD * 8
+    assert plan["held_bytes"] <= 128 * 1024
+    assert plan["ctas"] >= 256 or k == 8
+    assert plan["loads"].shape == (plan["ctas"], t, gn_relu.ONE_HELD)
+    nbytes = b * 256 * h * w * 2
+    assert _once(plan["loads"], nbytes, 16)
+    assert _once(plan["stores"], nbytes, 16)
+    # each CTA's share is one contiguous run inside its own slab
+    slab_bytes = 8 * h * w * 2
+    for cta in range(0, plan["ctas"], max(1, plan["ctas"] // 7)):
+        live = plan["loads"][cta][plan["loads"][cta] >= 0]
+        assert int(live.max()) - int(live.min()) == 16 * (live.numel() - 1)
+        assert int(live.min()) // slab_bytes == int(live.max()) // slab_bytes
+        assert int(live.min()) // slab_bytes == cta // k
+
+
+@pytest.mark.parametrize("b,c,hw,groups,forward,backward", [
+    (1, 32, 256 * 272, 4, "two-pass", "two-pass"),   # 557056 elements
+    (1, 32, 40000, 4, "one-pass", "two-pass"),       # 320000: past 262144
+    (2, 256, 16800, 32, "one-pass", "one-pass"),
+    (1, 1024, 64, 8, "two-pass", "two-pass"),        # Cg = 128
+])
+def test_gn_schedule_past_capacity_takes_two_passes(b, c, hw, groups,
+                                                    forward, backward):
+    """A slab past what a cluster holds (8 CTAs of 1024 threads forward,
+    512 backward, 8 vectors a thread) or with more than 64 channels a
+    group takes the two-pass kernels; f32 always does."""
+    plan = gn_relu.gn_schedule(b, c, hw, groups)
+    assert (plan["forward"]["path"], plan["backward"]["path"]) == (
+        forward, backward)
+    f32 = gn_relu.gn_schedule(b, c, hw, groups, torch.float32)
+    assert f32["forward"]["path"] == f32["backward"]["path"] == "two-pass"
+
+
+@pytest.mark.parametrize("slab,ptrs,vec", [
+    (134400, 0, 8), (134400, 8, 4), (8 * 1050, 2, 1), (4 * 77, 0, 4),
+    (2 * 35, 0, 1)])
+def test_gn_one_pass_vectors_follow_slab_and_alignment(slab, ptrs, vec):
+    """16-byte vectors where the slab is a multiple of 8 elements and the
+    pointers 16-byte aligned, 8-byte ones at 4 and 8, else elements; the
+    plan then covers the slab's vectors with its CTAs' shares."""
+    assert gn_relu._one_vec(slab, ptrs) == vec
+    one, k, t, per = gn_relu._one_plan(slab // vec, 128, 8, False)
+    assert one and k * per >= slab // vec > (k - 1) * per
+    assert t * gn_relu.ONE_HELD >= per and 128 * k >= 256
