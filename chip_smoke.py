@@ -110,11 +110,15 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     (``compute_dtype="bfloat16"``: bf16 activations, f32 offsets,
     statistics, sums and weight gradients) against their plain bf16
     versions at the flagship's shapes, each within one bf16 unit of its
-    output's max, checks that a K1 bf16 call is its two kernels and that the
+    output's max (K1 bf16 also at the 544, 576, VIS and HRFPN levels, at
+    far and zero offsets, giving the same bits twice), checks that a K1
+    bf16 call is its two kernels, by name, and that the
     bf16 tap contraction (``torch.matmul``) sums in f32, and times them at
     batch 4 (bounds with bf16 tensors at 2 bytes an element and K2's
     products at the dense bf16 tensor-core rate; F.grid_sample and
-    F.group_norm with ReLU and its autograd in bf16 as the library calls);
+    F.group_norm with ReLU and its autograd in bf16 as the library calls;
+    K1 bf16's sweep split by device kernel and level, and the 544 levels'
+    sweep at batch 8 timed the same way);
     K2 bf16 (wgmma GEMMs fed by TMA, a float4 scatter) also gives
     the same d offsets and dw2 bits in two calls, logs its sweep's split
     by device kernel with its GEMMs' TFLOP/s beside ``torch.matmul`` in
@@ -221,6 +225,14 @@ CHANNELS, DEFORM_GROUPS, GN_GROUPS = 256, 4, 32
 # kernels)
 VIS_GN_LEVEL, HRFPN_GN_LEVEL, GN_PAST_CAPACITY = (48, 80), (12, 21), (
     256, 272)
+# phase 19's K1 bf16 level sets beside LEVELS (batch 2): SipMask++ and the
+# real-time preset serving at 544x544 and training at 576x576, VIS at
+# 384x640, HRFPN's floor-pooled levels; the 544 set is also timed at batch
+# 8 (the SipMask++ and real-time serving batch)
+K1_BF16_SETS = {"544x544": [(68, 68), (34, 34), (17, 17), (9, 9), (5, 5)],
+                "576x576": [(72, 72), (36, 36), (18, 18), (9, 9), (5, 5)],
+                "384x640": [(48, 80), (24, 40), (12, 20), (6, 10), (3, 5)],
+                "HRFPN": [(12, 21), (6, 10)]}
 K1_TOL = 1e-5     # abs: the same four f32 products, FMA-fused in the kernel
 K4_TOL = 1e-4     # abs: f32 sums over up to 134400 elements, reordered
 HEAD_TOL = 1e-3   # relative to max |x|: the above through up to 9 layers
@@ -1148,6 +1160,29 @@ def phase_bf16_kernels(dev):
                     and torch.equal(again[2], got[2])):
                 raise AssertionError("two K2 bf16 calls gave different "
                                      "d offsets or dw2 bits")
+    # K1 bf16 at every level set, far and zero offsets, the same bits twice
+    # (its own generator: the inputs above and below stay as they were)
+    k1_gen = torch.Generator().manual_seed(SEED + 19)
+    for label, levels in [("800x1344", LEVELS)] + list(K1_BF16_SETS.items()):
+        for h, w in levels:
+            x, off = bf16_k1_inputs(2, h, w, k1_gen, dev)
+            for zero in (False, True):
+                o = torch.zeros_like(off) if zero else off
+                got = deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1, g)
+                again = deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1, g)
+                want = deform_sample.deform_im2col_plain(x, o, (3, 3), 1, 1,
+                                                         1, g)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"two K1 bf16 calls at {h}x{w} "
+                                         f"gave different bits")
+                errs["deform_im2col_bf16"] = max(
+                    errs["deform_im2col_bf16"], check_outputs(
+                        f"K1 bf16 deform_im2col {label} {h}x{w} bs2 "
+                        f"{'zero' if zero else 'far'} offsets (route "
+                        f"{deform_sample.im2col_bf16_route(64, h * w)})",
+                        [got.float()], [want.float()], BF16_KERNEL_TOL))
+    del x, off, got, again, want
     # the tap contraction after K1 is a bf16 torch.matmul: it must sum in
     # f32 (JAX's preferred_element_type) and round once
     x, off = bf16_k1_inputs(BATCH, *LEVELS[0], gen, dev)
@@ -1246,13 +1281,45 @@ def phase_bf16_kernels(dev):
                  for x, o in k1_in],
         lambda: [deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1, g)
                  for x, o in k1_in])
-    split, n_kern = launch_split(
-        f"K1 bf16 deform_im2col, one call at {LEVELS[0]} bs{BATCH}",
-        lambda: deform_sample.deform_im2col(*k1_in[0], (3, 3), 1, 1, 1, g),
-        attempts=5)
-    if n_kern != 2:
-        raise AssertionError(f"a K1 bf16 call ran {n_kern} device kernels, "
-                             f"not its transpose and gather: {list(split)}")
+    # a call is its transpose and its gather, on the TMA route (P3) and on
+    # register stores (P7)
+    for i in (0, len(LEVELS) - 1):
+        split, n_kern = launch_split(
+            f"K1 bf16 deform_im2col, one call at {LEVELS[i]} bs{BATCH}",
+            lambda: deform_sample.deform_im2col(*k1_in[i], (3, 3), 1, 1, 1,
+                                                g), attempts=5, want=2,
+            reps=4)
+        names = [n for n, (c, _) in split.items() for _ in range(c)]
+        if n_kern != 2 or any(
+                sum(k in n for n in names) != 1 for k in (
+                    "deform_im2col_rows_bf16_kernel",
+                    "deform_im2col_bf16_kernel")):
+            raise AssertionError(f"a K1 bf16 call at {LEVELS[i]} ran "
+                                 f"{names}, not its transpose and gather")
+    device = sweep_split(
+        f"K1 bf16 deform_im2col all 5 levels bs{BATCH}",
+        [lambda x=x, o=o: deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1,
+                                                      g) for x, o in k1_in],
+        [f"{h}x{w}" for h, w in LEVELS], [2] * len(LEVELS))
+    log(f"K1 bf16 all 5 levels bs{BATCH}: CUDA events "
+        f"{times['deform_im2col_bf16'][0]:.4f} ms, device {device:.4f} ms")
+    pp_in = [bf16_k1_inputs(PP_BATCH, h, w, k1_gen, dev)
+             for h, w in K1_BF16_SETS["544x544"]]
+    label = f"K1 bf16 deform_im2col 544x544's 5 levels bs{PP_BATCH}"
+    times["deform_im2col_bf16 544x544"] = turns(
+        label,
+        lambda: [deform_sample.deform_im2col_plain(x, o, (3, 3), 1, 1, 1, g)
+                 for x, o in pp_in],
+        lambda: [deform_sample.deform_im2col(x, o, (3, 3), 1, 1, 1, g)
+                 for x, o in pp_in])
+    device = sweep_split(
+        label, [lambda x=x, o=o: deform_sample.deform_im2col(
+            x, o, (3, 3), 1, 1, 1, g) for x, o in pp_in],
+        [f"{h}x{w}" for h, w in K1_BF16_SETS["544x544"]], [2] * len(pp_in))
+    log(f"{label}: CUDA events "
+        f"{times['deform_im2col_bf16 544x544'][0]:.4f} ms, device "
+        f"{device:.4f} ms")
+    del pp_in
     ncols = sum(BATCH * 9 * CHANNELS * h * w for h, w in LEVELS)
     k1_lib = []
     for x, o in k1_in:

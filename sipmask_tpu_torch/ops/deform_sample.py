@@ -33,6 +33,7 @@ gives a bf16 dx and f32 d positions):
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -134,17 +135,59 @@ def deform_im2col_plain(x, offsets, kernel_size=(3, 3), stride: int = 1,
 
 IM2COL_TILE = 32     # output pixels a K1 gather block (kTile)
 TRANSPOSE_TILE = 32  # K1's transpose tile, channels x pixels (kT)
+# the bf16 design (csrc/deform_im2col.cu, Cg % 8 == 0, Cg <= 256)
+BF16_PIX = 64        # output pixels a gather block, pixels a transpose block
+BF16_MAX_CG = 256    # a TMA box's rows at most (kMaxCg)
+FILL_BLOCKS = 16 * 132   # gather blocks that keep an H100 busy (kFillBlocks)
+K1_THREADS = 256
 
 
-def im2col_schedule(b: int, g: int, cg: int, k: int, p: int, hw: int):
-    """K1's tile schedule in plain PyTorch (for the tests): how many times
-    the kernels write each element, as ``csrc/deform_im2col.cu`` cuts the
-    work. Returns (x_rows (B*G, hw, Cg), tile (B*G, tiles, K, kTile, Cg),
-    cols (B, G*K*Cg, P)) int64 counts: the transpose's 32x32 tiles, the
-    gather's (pixel, channel) tile of each tap (16-byte vectors where
-    Cg % 4 == 0, in rounds of two items a thread), and the write-out of
-    each tap's rows (4 pixels a thread where P % 4 == 0). Pixels past P in
-    the last tile are gathered as zeros and written nowhere."""
+def im2col_bf16_route(cg: int, p: int, aligned: bool = True) -> int:
+    """How a bf16 K1 call stores cols, as the C entry picks it by shape and
+    alignment: 0 (the TMA engine, P % 8 == 0), the width of the register
+    stores (4, 2, 1 elements: the widest P's alignment allows), or -1 (the
+    scalar kernels: Cg % 8 != 0, Cg > 256 or a pointer not 16-byte
+    aligned)."""
+    if cg % 8 or cg > BF16_MAX_CG or not aligned:
+        return -1
+    return 0 if p % 8 == 0 else 4 if p % 4 == 0 else 2 if p % 2 == 0 else 1
+
+
+def im2col_bf16_taps(k: int, p: int, bgs: int) -> int:
+    """Taps a bf16 gather block takes: all K where the (pixel tile,
+    image·group) blocks are FILL_BLOCKS or more, else as few as spread the
+    taps over up to FILL_BLOCKS blocks (``gather_bf16_taps``)."""
+    blocks = -(-p // BF16_PIX) * bgs
+    groups = min(k, max(1, -(-FILL_BLOCKS // blocks)))
+    return -(-k // groups)
+
+
+def _swz(off):
+    """The byte offset of a tile swizzled as the TMA engine's 128-byte
+    swizzle lays out a box (``swz``): the 16-byte chunk XOR the row % 8."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _bank_ways(addr, nbytes):
+    """Most shared-memory wavefronts one warp access takes: ``addr`` (...,
+    32) byte offsets of the lanes (-1: idle) of accesses of ``nbytes``;
+    16-byte accesses go 8 lanes a phase, 8-byte ones 16, the rest 32. Per
+    phase: the most distinct 4-byte words that fall in one of 32 banks."""
+    lanes = {16: 8, 8: 16}.get(nbytes, 32)
+    addr = addr.reshape(-1, lanes)
+    words = max(1, nbytes // 4)
+    w = (addr // 4)[..., None] + torch.arange(words)      # (phases, l, w)
+    w = torch.where((addr >= 0)[..., None], w, -1).reshape(addr.shape[0], -1)
+    worst = 0
+    for row in w:
+        row = torch.unique(row[row >= 0])
+        if row.numel():
+            worst = max(worst, int(torch.bincount(row % 32).max()))
+    return worst
+
+
+def _im2col_tiles_schedule(b, g, cg, k, p, hw, vec):
+    """The schedule of the f32 design (and bf16's scalar route, vec 1)."""
     def span(n, size):
         return -(-n // size)
     bgs = b * g
@@ -162,7 +205,6 @@ def im2col_schedule(b: int, g: int, cg: int, k: int, p: int, hw: int):
     x_rows = x_rows.reshape(1, hw, cg).expand(bgs, hw, cg)
     # the gather of one tap, in rounds of kIt = 2 items a thread: item
     # i = (r * 2 + u) * 256 + thread -> pixel i // cv, vector i % cv
-    vec = 4 if cg % 4 == 0 else 1
     cv = cg // vec
     items = IM2COL_TILE * cv
     rounds = span(items, 2 * 256)
@@ -193,16 +235,160 @@ def im2col_schedule(b: int, g: int, cg: int, k: int, p: int, hw: int):
     return x_rows, tile, cols
 
 
+def _im2col_bf16_schedule(b, g, cg, k, p, hw):
+    """The bf16 plan of :func:`im2col_schedule`."""
+    store = im2col_bf16_route(cg, p)
+    if store < 0:
+        x_rows, tile, cols = _im2col_tiles_schedule(b, g, cg, k, p, hw, 1)
+        return {"route": "scalar", "x_rows": x_rows, "tile": tile,
+                "cols": cols}
+    bgs, cv, npx, nt = b * g, cg // 8, BF16_PIX, K1_THREADS
+    plan = {"route": "tma" if store == 0 else "registers", "store": store}
+    # the transpose: block (pixel tile, image·group); loads of vin elements
+    # of channel row c; stores of 16 bytes,
+    # thread i -> pixel i // cv, vector i % cv, its word e the tile rows
+    # 2e*cv + v and (2e + 1)*cv + v
+    vin = 8 if hw % 8 == 0 else 1
+    per = npx // vin
+    i = torch.arange(cg * per)
+    c, q = i // per, (i % per) * vin
+    p0 = torch.arange(-(-hw // npx))[:, None] * npx
+    pix = p0 + q                                          # (tiles, loads)
+    live = pix < hw
+    elems = (c * hw)[None, :, None] + pix[..., None] + torch.arange(vin)
+    plan["transpose"] = {
+        "load_elems": vin,
+        "loads": torch.bincount(elems[live].reshape(-1),
+                                minlength=cg * hw).reshape(cg, hw),
+        "store_ways": _bank_ways(
+            _swz(c * 2 * npx + 2 * q)[: (len(i) // 32) * 32].reshape(-1, 32),
+            2 * vin)}
+    i = torch.arange(npx * cv)
+    px, v = i // cv, i % cv
+    pos = (8 * v)[:, None] + torch.arange(8)                 # (items, 8)
+    rows = (torch.arange(8) * cv)[None, :] + v[:, None]      # tile rows read
+    pix = p0[:, :, None] + px[None, :, None]                 # (tiles, i, 1)
+    live = (pix < hw).expand(-1, -1, 8)
+    written = (pix * cg + pos[None]).expand_as(live)
+    plan["transpose"]["x_rows"] = torch.bincount(
+        written[live], minlength=hw * cg).reshape(hw, cg)
+    channel = torch.empty(cg, dtype=torch.long)
+    channel[pos.reshape(-1)] = rows.reshape(-1)
+    plan["transpose"]["channel"] = channel
+    reads = _swz(rows * 2 * npx + 2 * px[:, None])           # (items, 8)
+    n32 = (npx * cv // 32) * 32
+    plan["transpose"]["read_ways"] = max(
+        _bank_ways(reads[:n32, e].reshape(-1, 32), 2) for e in range(8))
+    # the gather of one tap: item i = r * 256 + thread -> pixels 2 (i // cv)
+    # and the next, vector v = i % cv (x_rows positions 8v..8v+7), whose
+    # element e goes to tile row e*cv + v
+    items = (npx // 2) * cv
+    rounds = -(-items // nt)
+    i = torch.arange(rounds * nt).reshape(rounds, nt)
+    plan["items"] = torch.where(i < items, 2, 0)   # 16-byte items a round
+    i = torch.arange(items)
+    j, v = 2 * (i // cv), i % cv
+    trow = (torch.arange(8) * cv)[None, :] + v[:, None]      # (items, 8)
+    cells = (trow * npx + j[:, None])[..., None] + torch.arange(2)
+    plan["tile"] = torch.bincount(cells.reshape(-1),
+                                  minlength=cg * npx).reshape(cg, npx)
+    tile_channel = torch.empty(cg, dtype=torch.long)
+    tile_channel[trow.reshape(-1)] = channel[
+        ((8 * v)[:, None] + torch.arange(8)).reshape(-1)]
+    plan["tile_channel"] = tile_channel
+    offs = _swz(trow * 2 * npx + 2 * j[:, None])             # (items, 8)
+    n32 = (items // 32) * 32
+    plan["store_ways"] = max(_bank_ways(offs[:n32, e].reshape(-1, 32), 4)
+                             for e in range(8))
+    # the grid: (pixel tile, image·group, tap group); each block's taps
+    tiles = -(-p // npx)
+    tpb = im2col_bf16_taps(k, p, bgs)
+    plan["taps"] = tpb
+    plan["grid"] = (tiles, bgs, -(-k // tpb))
+    x, y, z = torch.meshgrid(torch.arange(tiles), torch.arange(bgs),
+                             torch.arange(-(-k // tpb)), indexing="ij")
+    t = z[..., None] * tpb + torch.arange(tpb)
+    x, y = x[..., None].expand_as(t), y[..., None].expand_as(t)
+    ok = t < k
+    plan["cells"] = torch.bincount(((y * k + t) * tiles + x)[ok],
+                                   minlength=bgs * k * tiles).reshape(
+                                       bgs * k, tiles)
+    # a cell's stores: the TMA box of (cg rows, 64 pixels) clipped at P, or
+    # the register stores (thread i -> row i // lanes, pixels from
+    # (i % lanes) * store) where the first lies in the map
+    widths = sorted({min(npx, p - x0) for x0 in (0, (tiles - 1) * npx)})
+    plan["in_tile"] = {}
+    for width in widths:
+        if store == 0:
+            written = torch.zeros(cg, npx, dtype=torch.long)
+            written[:, :width] = 1
+        else:
+            lanes = npx // store
+            i = torch.arange(cg * lanes)
+            c, j = i // lanes, (i % lanes) * store
+            keep = j < width
+            cells = (c * npx + j)[keep][:, None] + torch.arange(store)
+            written = torch.bincount(cells.reshape(-1),
+                                     minlength=cg * npx).reshape(cg, npx)
+        plan["in_tile"][width] = written
+    if store == 0:
+        x = x[ok]
+        plan["boxes"] = torch.stack([(y[ok] * k + t[ok]) * cg,
+                                     torch.full_like(x, cg), x * npx,
+                                     (p - x * npx).clamp(max=npx)], -1)
+    return plan
+
+
+def im2col_schedule(b: int, g: int, cg: int, k: int, p: int, hw: int,
+                    dtype=torch.float32):
+    """K1's tile schedule in plain PyTorch (for the tests): how
+    ``csrc/deform_im2col.cu`` cuts the work.
+
+    f32: how many times the kernels write each element, (x_rows (B*G, hw,
+    Cg), tile (B*G, tiles, K, kTile, Cg), cols (B, G*K*Cg, P)) int64
+    counts: the transpose's 32x32 tiles, the gather's (pixel, channel) tile
+    of each tap (16-byte vectors where Cg % 4 == 0, in rounds of two items
+    a thread), and the write-out of each tap's rows (4 pixels a thread
+    where P % 4 == 0). Pixels past P in the last tile are gathered as zeros
+    and written nowhere.
+
+    bfloat16: a dict. ``route``: "tma", "registers" (``store``: elements a
+    store) or "scalar" (then ``x_rows``, ``tile`` and ``cols`` as above,
+    with scalar gathers). On the bf16 design, ``transpose``: its loads'
+    counts over one image·group's x (Cg, hw) (``load_elems`` a load) and
+    its 16-byte stores' over x_rows (hw, Cg), the channel each row position
+    holds, and the most wavefronts of a warp's shared-memory access in
+    each phase (``store_ways``, ``read_ways``); ``items``: (rounds, 256)
+    16-byte items each thread gathers in each round of a tap; ``tile``:
+    the (Cg, 64) tile's writes in one tap, ``tile_channel`` the channel
+    that reaches each tile row, ``store_ways``; ``taps`` a block and the
+    ``grid``; ``cells``: (B*G*K, tiles) writes of each (image·group, tap)
+    row block and pixel tile; ``in_tile``: {width: (Cg, 64) writes within
+    a cell of that many pixels}; ``boxes`` (TMA): (n, 4) [first row, rows,
+    first pixel, pixels written] of each store."""
+    if dtype == torch.bfloat16:
+        return _im2col_bf16_schedule(b, g, cg, k, p, hw)
+    return _im2col_tiles_schedule(b, g, cg, k, p, hw,
+                                  4 if cg % 4 == 0 else 1)
+
+
 def _lib():
     lib = native.load("deform_im2col")
     if lib.deform_im2col_f32.argtypes is None:
         lib.deform_im2col_smem_bytes.restype = ctypes.c_int
-        lib.deform_im2col_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.deform_im2col_smem_bytes.argtypes = [ctypes.c_int] * 3
         for fn in (lib.deform_im2col_f32, lib.deform_im2col_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [
                 ctypes.c_void_p]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(k: int, cg: int, bf16: bool) -> int:
+    """Shared memory of a K1 gather block, from the C entry (once a
+    shape)."""
+    return _lib().deform_im2col_smem_bytes(k, cg, int(bf16))
 
 
 def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
@@ -244,7 +430,7 @@ def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
         raise ValueError(f"grid too large for B*G={b * g}, Cg={cg}, "
                          f"{h}x{w}")
     lib = _lib()
-    if lib.deform_im2col_smem_bytes(k, cg) > 227 * 1024:
+    if _smem_bytes(k, cg, bf16) > 227 * 1024:
         raise ValueError(f"{k} taps of {cg} channels exceed the kernel's "
                          f"shared memory")
     cols = torch.empty((b, g * k * cg, ho * wo), device=x.device,

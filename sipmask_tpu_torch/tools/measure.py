@@ -1,6 +1,7 @@
 """Times of the port on one CUDA card, the numbers behind ``PERF.md``:
 
     python -m sipmask_tpu_torch.tools.measure serve k4a k4b train
+    python -m sipmask_tpu_torch.tools.measure k1 --dtype float32 bfloat16
     python -m sipmask_tpu_torch.tools.measure --config \
         sipmaskpp_r101_fpn_ssd_6x serve k5c train
     python -m sipmask_tpu_torch.tools.measure serve train \
@@ -8,7 +9,7 @@
     python -m sipmask_tpu_torch.tools.measure --config sipmask_vis_r50 \
         video train --dtype float32 bfloat16
 
-from the root of the checkout, with any of the eight modes, in the order
+from the root of the checkout, with any of the nine modes, in the order
 given:
 
 - ``serve``: wall ms of single requests (800x1333; 544x544 for the
@@ -17,6 +18,13 @@ given:
   synchronise, then a ``torch.profiler`` trace of two batches: kernel time
   by owner (and the copy kernels' share of it) and the device's idle
   share;
+- ``k1``: the deformable im2col (K1, ``deform_im2col``) over FeatureAlign's
+  five levels at batch 4 (256 channels, 4 deformable groups; offsets ~2
+  px, a third of the pixels +-300 px out), in each ``--dtype`` (bf16 x and
+  cols, f32 offsets): CUDA-event ms of the sweep, the host's enqueue time
+  of a sweep (and of a call), and the device time of its kernels in a
+  ``torch.profiler`` trace, by level and kernel, with the device kernels a
+  call;
 - ``k4a``: the GroupNorm+ReLU forward (K4a) over one GN site of each of the
   five levels at batch 4, as in serving (no gradient), in each ``--dtype``:
   CUDA-event ms of the sweep, the host's enqueue time of a sweep (and of a
@@ -64,7 +72,7 @@ width, random weights from seed 0, bumped as ``chip_smoke.py`` bumps them
 bf16 products summed in f32 (no reduced-precision reductions) and cuDNN's
 benchmark mode on. ``--dtype`` gives the model's ``compute_dtype`` for
 ``serve``, ``forward``, ``video`` and ``train``, and the element type of
-``k4a``, ``k4b``, ``k5`` and ``k5c``, float32 by default; with several,
+``k1``, ``k4a``, ``k4b``, ``k5`` and ``k5c``, float32 by default; with several,
 each mode runs once for each, in the order given (give it after the
 modes). Each profile also gives the share of
 the layout transposes around cuDNN's channels-last kernels (kernel names
@@ -274,6 +282,33 @@ def k4a(dev, dtype="float32", iters=20):
                 f"call), kernels {device:.4f}")
         by_call(profile_kernels(sweeps[name], iters), iters,
                 [f"{h}x{w}" for h, w in LEVELS])
+
+
+def k1(dev, dtype="float32", iters=20):
+    from ..ops import deform_sample
+
+    gen = torch.Generator().manual_seed(SEED)
+    args = []
+    for h, w in LEVELS:
+        x = torch.randn((BATCH, 256, h, w), generator=gen).to(dev)
+        off = torch.randn((BATCH, 72, h, w), generator=gen) * 2.0
+        off.view(BATCH, 72, h * w)[:, :, : (h * w) // 3] *= 150.0
+        args.append((x.to(getattr(torch, dtype)), off.to(dev)))
+
+    def sweep():
+        return [deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, 4)
+                for x, off in args]
+    with torch.no_grad():
+        (e1, h1), (e2, h2) = (event_and_host_ms(sweep, iters)
+                              for _ in range(2))
+        kern = profile_kernels(sweep, iters)
+    calls = iters * len(LEVELS)
+    log(f"K1 {dtype} deform_im2col, 5 levels bs{BATCH}, ms per sweep: CUDA "
+        f"events {e1:.4f} / {e2:.4f}, host enqueue {h1:.4f} / {h2:.4f} "
+        f"({(h1 + h2) / 2 / len(LEVELS) * 1e3:.1f} us a call), kernels "
+        f"{sum(e.device_time for e in kern) / 1e3 / iters:.4f} "
+        f"({len(kern) / calls:g} device kernels a call)")
+    by_call(kern, iters, [f"{h}x{w}" for h, w in LEVELS])
 
 
 def k4b(dev, dtype="float32", iters=20):
@@ -559,7 +594,7 @@ def train(dev, reps, config, dtype="float32"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("modes", nargs="+",
-                    choices=("serve", "forward", "k4a", "k4b", "k5",
+                    choices=("serve", "forward", "k1", "k4a", "k4b", "k5",
                              "k5c", "video", "train"))
     ap.add_argument("--config", default=CONFIG,
                     help="the preset to measure")
@@ -568,8 +603,8 @@ def main(argv=None):
     ap.add_argument("--dtype", nargs="+", default=["float32"],
                     choices=("float32", "bfloat16"),
                     help="compute_dtype of serve, forward, video and "
-                         "train, and the element type of k4a, k4b, k5 and "
-                         "k5c, each in turn")
+                         "train, and the element type of k1, k4a, k4b, k5 "
+                         "and k5c, each in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
@@ -583,8 +618,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     for mode in args.modes:
         for dtype in args.dtype:
-            if mode in ("k4a", "k4b"):
-                {"k4a": k4a, "k4b": k4b}[mode](dev, dtype)
+            if mode in ("k1", "k4a", "k4b"):
+                {"k1": k1, "k4a": k4a, "k4b": k4b}[mode](dev, dtype)
                 continue
             if mode in ("k5", "k5c"):
                 k5_k5c(dev, dtype, mode == "k5c")

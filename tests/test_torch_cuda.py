@@ -856,6 +856,79 @@ def test_bf16_deform_im2col_kernel_matches_plain(dev, b, c, g, h, w, stride,
     _close_to_max([got], [want])
 
 
+# FeatureAlign's levels as the presets run them: 800x1344 (the flagship,
+# X101, HRNet's P3-P7 and the fork), SipMask++ and the real-time preset at
+# 544 (serving) and 576 (training), VIS at 384x640, HRFPN's floor-pooled
+# 12x21 and 6x10
+K1_LEVELS = sorted({(100, 168), (50, 84), (25, 42), (13, 21), (7, 11),
+                    (68, 68), (34, 34), (17, 17), (9, 9), (5, 5),
+                    (72, 72), (36, 36), (18, 18), (48, 80), (24, 40),
+                    (12, 20), (6, 10), (3, 5), (12, 21)})
+
+
+@pytest.mark.parametrize("regime", ["random", "far", "zero"])
+@pytest.mark.parametrize("h,w", K1_LEVELS)
+def test_bf16_deform_im2col_at_the_preset_levels(dev, h, w, regime):
+    """The bf16 K1 (Cg = 64: the TMA store where P % 8 == 0, else register
+    stores) against its plain version at every FeatureAlign level the
+    presets run, offsets ~2 px, a third +-300 px out, or 0: within one bf16
+    unit of the output's max, the same bits in two calls."""
+    rng = np.random.RandomState(h * 1000 + w)
+    b, c, g = 2, 256, 4
+    x = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        dev).to(BF16)
+    off = _offsets(rng, b, g * 18, h, w, regime == "far")
+    off = torch.from_numpy(off * (regime != "zero")).to(dev)
+    got = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    again = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = deform_sample.deform_im2col_plain(x, off, (3, 3), 1, 1, 1, g)
+    _close_to_max([got], [want])
+
+
+@pytest.mark.parametrize("c,g,h,w,misalign", [
+    (256, 4, 100, 168, False),   # P % 8 == 0: the TMA store
+    (256, 4, 34, 34, False),     # P % 4 == 0: 8-byte register stores
+    (256, 4, 25, 42, False),     # P even: 4-byte stores
+    (256, 4, 7, 11, False),      # P odd: 2-byte stores
+    (48, 2, 17, 15, False),      # Cg = 24: Cg a runtime value
+    (20, 4, 13, 9, False),       # Cg = 5: the scalar kernels
+    (256, 4, 25, 42, True),      # x not 16-byte aligned: the scalar kernels
+])
+def test_bf16_deform_im2col_device_kernels(dev, c, g, h, w, misalign):
+    """A bf16 K1 call is two device kernels, by name: the bf16 design's
+    transpose and gather where Cg % 8 == 0 and the pointers are 16-byte
+    aligned, its gather storing as the CPU mirror's route says (template
+    arguments <CG, STORE>: Cg when 64, else 0; 0 for the TMA store, else
+    the elements a register store), else the scalar kernels; each route
+    against the plain version and giving the same bits twice."""
+    rng = np.random.RandomState(7)
+    b = 2
+    n = b * c * h * w
+    buf = torch.from_numpy(rng.randn(n + 1).astype(np.float32)).to(dev).to(
+        BF16)
+    x = (buf[1:] if misalign else buf[:n]).view(b, c, h, w)
+    assert (x.data_ptr() % 16 != 0) == misalign
+    off = torch.from_numpy(_offsets(rng, b, g * 18, h, w, True)).to(dev)
+    names = _last_run_kernels(
+        lambda: deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g), 2)
+    cg = c // g
+    store = deform_sample.im2col_bf16_route(cg, h * w, not misalign)
+    kernels = (("deform_im2col_rows_kernel", "deform_im2col_kernel")
+               if store < 0 else
+               ("deform_im2col_rows_bf16_kernel",
+                f"deform_im2col_bf16_kernel<{64 if cg == 64 else 0}, "
+                f"{store}>"))
+    assert [sum(k in n for n in names) for k in kernels] == [1, 1], names
+    got = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    again = deform_sample.deform_im2col(x, off, (3, 3), 1, 1, 1, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close_to_max([got], [deform_sample.deform_im2col_plain(
+        x, off, (3, 3), 1, 1, 1, g)])
+
+
 @pytest.mark.parametrize("b,c,g,h,w,regime", [
     (2, 256, 4, 100, 168, "random"),   # P3: the wgmma GEMMs (TMA)
     (2, 256, 4, 50, 84, "zero"),       # zero-weight corners skipped

@@ -9,7 +9,14 @@ the rules they must keep (no card needed):
 - K1 (``csrc/deform_im2col.cu``) transposes x in 32x32 tiles, gathers a
   (pixel, channel) tile per tap and writes it out in rows: with ragged
   channels and pixel counts, each element must be written exactly once
-  (``deform_sample.im2col_schedule``).
+  (``deform_sample.im2col_schedule``). In bf16 (Cg % 8 == 0) at every
+  FeatureAlign level the presets run and at ragged shapes: each x element
+  loaded once and each x_rows element stored once by the transpose, whose
+  permuted channels reach the right tile rows; each tile element written
+  once a tap, each (image·group, tap, pixel tile) cell once by the grid's
+  tap groups, and within a cell each pixel in the map once (a TMA box that
+  stays in its tap's rows and is clipped at P, or register stores); two
+  16-byte items a thread at Cg = 64 with no bank conflicts.
 - K2 (``csrc/deform_col2im.cu``) in bf16 routes its two GEMMs by shape to
   the TMA-fed wgmma kernels (on row-padded copies where P % 8 != 0) or the
   mma.sync ones, splits dW2 into
@@ -158,6 +165,91 @@ K2_LEVELS = (
                               (72, 72), (36, 36), (18, 18))]
     + [(h, w, 4) for h, w in ((48, 80), (24, 40), (12, 20), (6, 10),
                               (3, 5))])
+
+
+@pytest.mark.parametrize("b,g,cg,h,w", [
+    (b, 4, 64, h, w) for h, w, b in K2_LEVELS] + [
+    (1, 2, 24, 17, 15),    # Cg = 24: 3 vectors a row (no CG), odd P
+    (2, 1, 8, 13, 16),     # Cg = 8: one vector a row, TMA
+    (1, 1, 256, 9, 7),     # Cg = 256: the largest box, 4 rounds a tap
+    (1, 4, 64, 1, 1),      # one pixel
+    (1, 4, 5, 13, 9),      # Cg = 5: the scalar kernels
+    (1, 1, 264, 5, 6),     # Cg > 256: the scalar kernels
+])
+def test_deform_im2col_bf16_schedule_writes_each_element_once(b, g, cg, h,
+                                                              w):
+    k, p = 9, h * w
+    plan = deform_sample.im2col_schedule(b, g, cg, k, p, p, torch.bfloat16)
+    if cg % 8 or cg > deform_sample.BF16_MAX_CG:
+        assert plan["route"] == "scalar"
+        for name in ("x_rows", "tile", "cols"):
+            assert bool((plan[name] == 1).all()), name
+        return
+    assert (plan["route"], plan["store"]) == (
+        ("tma", 0) if p % 8 == 0 else
+        ("registers", 4 if p % 4 == 0 else 2 if p % 2 == 0 else 1))
+    tr = plan["transpose"]
+    assert tr["load_elems"] == (8 if p % 8 == 0 else 1)
+    assert tr["loads"].shape == (cg, p) and bool((tr["loads"] == 1).all())
+    assert tr["x_rows"].shape == (p, cg) and bool((tr["x_rows"] == 1).all())
+    assert torch.equal(torch.sort(tr["channel"]).values, torch.arange(cg))
+    # one tap's tile: each element once, each row the channel it stands for
+    assert bool((plan["tile"] == 1).all())
+    assert torch.equal(plan["tile_channel"], torch.arange(cg))
+    # every (image·group, tap) row block and pixel tile once; the taps of a
+    # level whose blocks fill the card in one block, else spread over at
+    # most FILL_BLOCKS
+    tiles = -(-p // deform_sample.BF16_PIX)
+    assert plan["cells"].shape == (b * g * k, tiles)
+    assert bool((plan["cells"] == 1).all())
+    blocks = tiles * b * g
+    n_blocks = blocks * plan["grid"][2]
+    if blocks >= deform_sample.FILL_BLOCKS:
+        assert plan["taps"] == k
+    else:
+        assert n_blocks < deform_sample.FILL_BLOCKS + blocks
+    # within a cell, each pixel in the map once, none past P
+    for width, written in plan["in_tile"].items():
+        assert bool((written[:, :width] == 1).all()), width
+        assert int(written[:, width:].sum()) == 0, width
+
+
+@pytest.mark.parametrize("b,g,cg,h,w", [
+    (b, 4, 64, h, w) for h, w, b in K2_LEVELS if h * w % 8 == 0] + [
+    (2, 1, 8, 13, 16), (1, 2, 24, 16, 9)])
+def test_deform_im2col_bf16_boxes_stay_in_their_tap_and_p(b, g, cg, h, w):
+    """The TMA route's boxes: each one tap's Cg rows of cols, 64 pixels
+    from a tile's first, clipped at P; together each (row block, pixel
+    tile) once."""
+    k, p = 9, h * w
+    plan = deform_sample.im2col_schedule(b, g, cg, k, p, p, torch.bfloat16)
+    assert plan["route"] == "tma"
+    row0, rows, x0, width = plan["boxes"].unbind(-1)
+    assert bool((rows == cg).all()) and bool((row0 % cg == 0).all())
+    npx = deform_sample.BF16_PIX
+    assert bool((x0 % npx == 0).all()) and bool((x0 < p).all())
+    assert bool((width == (p - x0).clamp(max=npx)).all())
+    assert bool((x0 + width <= p).all())
+    tiles = -(-p // npx)
+    cover = torch.bincount(row0 // cg * tiles + x0 // npx,
+                           minlength=b * g * k * tiles)
+    assert cover.numel() == b * g * k * tiles and bool((cover == 1).all())
+
+
+@pytest.mark.parametrize("b,h,w", [(4, 100, 168), (4, 25, 42), (4, 7, 11),
+                                   (8, 68, 68), (4, 12, 21)])
+def test_deform_im2col_bf16_two_items_a_thread_at_cg_64(b, h, w):
+    """At FeatureAlign's Cg = 64 a tap is one round in which every thread
+    gathers two 16-byte items (a pixel pair's vector), and the tile's
+    shared-memory accesses (the gather's 4-byte stores, the transpose's
+    stores and 2-byte reads) take one wavefront each."""
+    plan = deform_sample.im2col_schedule(b, 4, 64, 9, h * w, h * w,
+                                         torch.bfloat16)
+    assert plan["items"].shape == (1, 256)
+    assert bool((plan["items"] == 2).all())
+    assert plan["store_ways"] == 1
+    assert plan["transpose"]["store_ways"] == 1
+    assert plan["transpose"]["read_ways"] == 1
 
 
 def _cells_cover_once(cover, rows, cols):
