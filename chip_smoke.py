@@ -18,7 +18,8 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
    products summed in f32, no reduced-precision reductions; cuDNN
    benchmark mode on, as for fixed shapes);
 2. builds the kernels from ``sipmask_tpu_torch/csrc`` with nvcc, one nvcc
-   per source, all at once;
+   per source, and the mask codec (``sipmask_tpu_torch/native/maskops.cpp``)
+   with g++, all at once;
 3. holds the serving kernels (K1, K4a) against their plain PyTorch versions
    at the slice's shapes, and times both at the batch-4 shapes (K1's and
    K4a's device time by kernel beside their event time; a K1 call must be
@@ -187,11 +188,33 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     positives, the x0.5 cap) as phase 7-8, logging the dedup's selected and
     kept positives and its ms, the kept counts of the kernel and plain runs
     compared (within 1%, and fewer kept than selected), then serves it as
-    phases 4-5 (hard NMS at IoU 0.6).
+    phases 4-5 (hard NMS at IoU 0.6);
+30. (run after phase 18, on phase 12's set) the test path: the C++ mask
+    codec (built with g++ in phase 2 beside the kernels; ``g++ --version``;
+    the library loaded must be this checkout's build under build/native)
+    against its plain numpy versions on seeded random masks (1x1, 7x13,
+    480x640; empty, full, noise, rectangles) and on phase 13's results and
+    gts: counts byte for byte, areas, IoUs (crowd too), intersections and
+    greedy matches equal; ``run_inference`` from phase 12's last checkpoint
+    (device paste, one copy of the thresholded masks a batch, one
+    ``encode_masks`` call an image: images/s, paste and encode ms, MB
+    copied), then each batch's detections through that post-processing and
+    through the plain host path (the f32 masks copied, resized in numpy,
+    the numpy codec): every RLE decodes to the other path's mask with
+    PASTE_SAME_MIN of its pixels equal (differing pixels counted), images/s
+    and MB a batch of each; ``evaluate_coco`` (bbox, segm, proposal_fast)
+    through the codec and through the plain versions, equal stats; the
+    flagship served with soft-NMS, linear and gaussian (phase 4's batch of
+    4 at 800x1344 twice through ``Detector.infer``: K1 5, K4a 40 and K6 1
+    launches a forward and decode exactly; the decode's ms and its
+    synchronising CUDA calls), its NMS candidates read back and the
+    detections held against a float64 host oracle of sequential per-class
+    soft-NMS (the same (row, label) set, scores within SOFT_SCORE_RTOL);
+    and phase 16's paste ms a frame.
 
-Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20-22 and
-24-29) is driven with every launch count set to 0 just before it and read
-just after;
+Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20-22,
+24-29 and 30's soft-NMS serving) is driven with every launch count set to
+0 just before it and read just after;
 a kernel of the path that did not launch fails the run, and so does an f32
 kernel variant on a bf16 path. Any failure raises (non-zero exit, no
 result). Each phase's seconds are logged. The second-to-last line is a JSON
@@ -210,6 +233,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -371,6 +395,15 @@ BF16_VIS_LOSS_TOL = 5e-4
 # a check for gross errors (the JAX package's own bf16 graph moves its
 # outputs by 1-5% of their max on the CPU tests' shapes)
 BF16_F32_TOL = 0.25
+# phase 30: the share of a mask's pixels on which the device paste and the
+# host's numpy resize must agree (they differ only where a probability
+# rounds to either side of the 0.4 threshold), and the soft-NMS decode's
+# scores against a float64 oracle (relative: f32 IoUs and decays, each
+# ~1e-7, compounded over a candidate's few decays)
+PASTE_SAME_MIN = 0.999
+SOFT_SCORE_RTOL = 1e-5
+# phase 16's paste ms a frame, for phase 30's log
+VIS_TIMINGS = {}
 KERNELS = {   # wrapper: (source, the TPU kernel it replaces)
     "deform_im2col": ("deform_im2col.cu",
                       "sipmask_tpu/ops/pallas/deform_gather.py:465"),
@@ -458,6 +491,8 @@ for _p in ("x101", "hrnet", "fork"):
         if _p != "fork":
             PATH_KERNELS[f"{_p} bf16 {_kind}"] = \
                 PATH_KERNELS[f"hi-acc bf16 {_kind}"]
+# phase 30: soft-NMS serving drives the hi-acc serving path's kernels
+PATH_KERNELS["hi-acc soft-nms serving"] = PATH_KERNELS["hi-acc serving"]
 # the f32 variants, none of which a bf16 path may launch
 F32_VARIANTS = ("deform_im2col", "deform_conv_backward", "gn_relu",
                 "gn_relu_backward", "deform_rows", "deform_rows_backward")
@@ -3175,8 +3210,9 @@ def phase_test_driver(dev, name, smi, ann, images, ckpt):
     stats = evaluate_coco(results, ann)
     eval_s = time.perf_counter() - t0
     log(f"run_inference: {len(ds)} images, {len(results)} results in "
-        f"{infer_s:.2f} s, {len(ds) / infer_s:.2f} images/s (host paste and "
-        f"RLE included); evaluate_coco (bbox, segm) {eval_s:.2f} s, on "
+        f"{infer_s:.2f} s, {len(ds) / infer_s:.2f} images/s (device paste, "
+        f"the copy and the codec's RLE included); evaluate_coco (bbox, "
+        f"segm) {eval_s:.2f} s, on "
         f"{name} ({smi})")
     for it, s in stats.items():
         if not all(np.isfinite(v) and -1 <= v <= 1 for v in s.values()):
@@ -3214,7 +3250,7 @@ def phase_test_driver(dev, name, smi, ann, images, ckpt):
                 or same < 0.99:
             raise AssertionError(f"image {i}: run_inference and "
                                  "inference_detector disagree")
-    return launches
+    return launches, results
 
 
 # ------------------------------------------------ the real-time preset
@@ -3542,6 +3578,8 @@ def phase_vis_serving(dev, name, smi, bf16=False):
         f"frame {[int(f['dets']['valid'].sum()) for f in frames]}, "
         f"{wall:.2f} s for the video ({VIS_FRAMES / wall:.2f} frames/s, the "
         f"first frame's cuDNN search included), on {name} ({smi})")
+    if not bf16:
+        VIS_TIMINGS["paste"] = timings["paste"][1:]
     log(f"{label} ms per frame (host clock to a synchronise; frames 2-"
         f"{VIS_FRAMES}): " + "; ".join(
             f"{k} " + ", ".join(f"{v:.1f}" for v in vals[1:])
@@ -3851,6 +3889,471 @@ def phase_vis_test_driver(dev, name, smi, ann, images, ckpt):
     return launches
 
 
+# ------------------------------------------------ the test path (phase 30)
+
+def random_masks(seed):
+    """{0, 1} masks of 1x1, 7x13 and 480x640: empty, full, noise and
+    overlapping rectangles, uint8."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for h, w in ((1, 1), (7, 13), (480, 640)):
+        ms = [np.zeros((h, w), np.uint8), np.ones((h, w), np.uint8),
+              (rng.rand(h, w) > 0.5).astype(np.uint8)]
+        for _ in range(5):
+            m = np.zeros((h, w), np.uint8)
+            for _ in range(3):
+                y, x = rng.randint(0, h), rng.randint(0, w)
+                m[y:y + rng.randint(1, h + 1), x:x + rng.randint(1, w + 1)] = 1
+            ms.append(m)
+        out.append(np.stack(ms))
+    return out
+
+
+def codec_checks(ann, results13):
+    """Phase 30a: the codec's build (phase 2: its g++ seconds; ``g++
+    --version``), the library loaded asserted to be this checkout's build
+    under build/native; then the codec held against the plain numpy
+    versions on seeded random masks and phase 13's results and gts: counts
+    byte for byte (from the masks and from their transposes); areas, IoUs
+    (crowd too), intersections and greedy matches equal."""
+    from sipmask_tpu_torch import native
+    from sipmask_tpu_torch.data.coco import rasterize_polygons
+    from sipmask_tpu_torch.eval import maskops, rle
+    from sipmask_tpu_torch.eval.coco_eval import IOU_THRS
+
+    root = Path(__file__).resolve().parent
+    src = root / "sipmask_tpu_torch" / "native" / "maskops.cpp"
+    path = native.library_path()
+    if path.parent != native.BUILD_DIR or \
+            native.BUILD_DIR != root / "build" / "native" or \
+            path.name != native.library_name() or native.SRC != src:
+        raise AssertionError(f"the codec loaded {path}, not this checkout's "
+                             "build of sipmask_tpu_torch/native/maskops.cpp")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    secs = native.BUILD_LOG["seconds"]
+    log(f"codec: {gxx}; " + (f"built {path} in {secs:.2f} s (phase 2)"
+                             if secs is not None else
+                             f"{path} was built before this run"))
+
+    with open(ann) as f:
+        data = json.load(f)
+    info = {im["id"]: im for im in data["images"]}
+    groups = []   # (dt RLEs, gt masks, crowd flags) by image
+    for img_id, im in info.items():
+        dts = [r["segmentation"] for r in results13
+               if r["image_id"] == img_id]
+        gts = [a for a in data["annotations"] if a["image_id"] == img_id]
+        masks = [rle.decode_mask(a["segmentation"]) if isinstance(
+            a["segmentation"], dict) else rasterize_polygons(
+                a["segmentation"], im["height"], im["width"]) for a in gts]
+        groups.append((dts, np.stack(masks),
+                       np.asarray([a.get("iscrowd", 0) for a in gts]) |
+                       (np.arange(len(gts)) % 5 == 4)))
+    masks = random_masks(SEED) + [g[1] for g in groups] + [
+        np.stack([rle.decode_mask(r) for r in g[0]]) for g in groups]
+    n_masks, n_pairs, n_match = 0, 0, 0
+    t_codec = t_plain = 0.0
+    t_cm = 0.0
+    for ms in masks:
+        t0 = time.perf_counter()
+        got = native.encode_masks(ms)
+        t_codec += time.perf_counter() - t0
+        ms_t = np.ascontiguousarray(ms.transpose(0, 2, 1))
+        t0 = time.perf_counter()
+        got_t = native.encode_masks_t(ms_t)
+        t_cm += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [rle.encode_mask(m) for m in ms]
+        t_plain += time.perf_counter() - t0
+        if got != want or got_t != want:
+            raise AssertionError(f"codec counts differ at {ms.shape}")
+        for r, m in zip(got, ms):
+            if native.rle_area(r) != rle.rle_area(r) or \
+                    not np.array_equal(native.decode_mask(r), m):
+                raise AssertionError("codec area or decode differs")
+        n_masks += len(ms)
+    rng = np.random.RandomState(SEED)
+    pairs = [(native.encode_masks(ms), native.encode_masks(ms[::-1]),
+              rng.rand(len(ms)) > 0.7) for ms in masks[:3]]
+    pairs += [(dts, native.encode_masks(gm), crowd)
+              for dts, gm, crowd in groups]
+    for dts, gts, crowd in pairs:
+        ious = native.iou_matrix(dts, gts, crowd)
+        checks = [
+            (ious, maskops.iou_matrix_plain(dts, gts, crowd)),
+            (native.iou_matrix(dts, gts), maskops.iou_matrix_plain(dts, gts)),
+            (native.inter_matrix(dts, gts),
+             maskops.inter_matrix_plain(dts, gts))]
+        order = np.argsort(rng.rand(len(gts)) > 0.6, kind="stable")
+        gt_ig = np.sort(rng.rand(len(gts)) > 0.6).astype(np.uint8)
+        args = (ious[:, order], IOU_THRS, gt_ig, crowd[order])
+        checks += list(zip(native.greedy_match(*args),
+                           maskops.greedy_match_plain(*args)))
+        for got, want in checks:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"codec matrices differ at "
+                                     f"{len(dts)}x{len(gts)}")
+        n_pairs += ious.size
+        n_match += int((checks[3][0] > 0).sum())
+    log(f"codec against the plain numpy versions: {n_masks} masks (1x1, "
+        f"7x13, 480x640 random; phase 13's gts and results) byte-identical "
+        f"counts, equal areas and decodes; {n_pairs} IoU pairs (crowd "
+        f"too), intersections and {n_match} greedy matches equal; encode "
+        f"{t_codec * 1e3:.1f} ms codec (row-major), {t_cm * 1e3:.1f} ms "
+        f"codec (column-major, encode_masks_t) vs {t_plain * 1e3:.1f} ms "
+        f"numpy")
+
+
+@contextlib.contextmanager
+def timed_plain_encode(acc):
+    """``eval/results.rle.encode_mask`` (the plain path's numpy codec)
+    timed into ``acc['encode']``."""
+    from sipmask_tpu_torch.eval import results
+    real = results.rle.encode_mask
+
+    def enc(m):
+        t0 = time.perf_counter()
+        out = real(m)
+        acc["encode"] = acc.get("encode", 0.0) + time.perf_counter() - t0
+        return out
+    results.rle.encode_mask = enc
+    try:
+        yield
+    finally:
+        results.rle.encode_mask = real
+
+
+def paste_paths(dev, name, smi, ann, images, ckpt):
+    """Phase 30b: ``run_inference`` on phase 12's set from its last
+    checkpoint (device paste, one copy, the codec), then each batch's
+    detections through both post-processings: the device paste and the
+    codec against the plain host path (the f32 masks copied, resized in
+    numpy, the numpy codec); every RLE decodes to the other path's mask
+    with PASTE_SAME_MIN of its pixels equal. Then ``evaluate_coco`` (bbox,
+    segm, proposal_fast) through the codec and through the plain
+    versions: equal stats."""
+    from sipmask_tpu_torch.apis.inference import init_detector
+    from sipmask_tpu_torch.apis.test import evaluate_coco, run_inference
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.data.loader import build_test_loader
+    from sipmask_tpu_torch.data.transforms import TestTransform
+    from sipmask_tpu_torch.eval import maskops, rle
+    from sipmask_tpu_torch.eval.results import (postprocess_batch,
+                                                postprocess_batch_plain)
+    from sipmask_tpu_torch.utils.checkpoint import load_weights
+
+    det = init_detector(CONFIG, dev, seed=SEED)
+    load_weights(ckpt, det.model)
+    ds = CocoDataset(ann, images, test_mode=True)
+    thr = det.cfg.model.test.mask_thr
+    reset_launches()
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_inference(det, ds, batch_size=BATCH, progress=False,
+                            timings=timings)
+    entry_s = time.perf_counter() - t0
+    check_path_launches("hi-acc test driver", read_launches())
+    log(f"run_inference (device paste, one copy, the codec): {len(ds)} "
+        f"images in {entry_s:.3f} s, {len(ds) / entry_s:.2f} images/s; a "
+        f"batch: paste + copy ms {fmt(timings['paste'])}, encode ms "
+        f"{fmt(timings['encode'])}, copied MB {fmt(timings['copied_mb'])}, "
+        f"on {name} ({smi})")
+
+    loader = build_test_loader(ds, TestTransform(det.cfg.data),
+                               batch_size=BATCH)
+    ms = {k: [] for k in ("infer", "new", "copy", "old", "old_encode")}
+    old_mb, n_masks, n_diff, worst = [], 0, 0, 1.0
+    for batch, n_valid in loader:
+        images_t = torch.from_numpy(batch["images"]).to(dev)
+        args = (batch["image_ids"], batch["ori_shapes"], ds.label2cat, thr,
+                n_valid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = det.infer(images_t.permute(0, 3, 1, 2).contiguous(),
+                         torch.from_numpy(batch["img_shapes"]),
+                         torch.from_numpy(batch["scale_factors"]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dets["scale_factors"] = batch["scale_factors"]
+        new = postprocess_batch(dets, *args)
+        t2 = time.perf_counter()
+        host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                for k, v in dets.items()}
+        t3 = time.perf_counter()
+        acc = {}
+        with timed_plain_encode(acc):
+            old = postprocess_batch_plain(host, *args)
+        t4 = time.perf_counter()
+        for k, v in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                             acc.get("encode", 0.0))):
+            ms[k].append(v * 1e3)
+        old_mb.append(host["masks"].nbytes / 2 ** 20)
+        if len(new) != len(old):
+            raise AssertionError("the two post-processings disagree")
+        for a, b in zip(new, old):
+            sa, sb = a.pop("segmentation"), b.pop("segmentation")
+            if a != b:
+                raise AssertionError(f"results differ: {a} vs {b}")
+            ma, mb = rle.decode_mask(sa), rle.decode_mask(sb)
+            if ma.shape != mb.shape:
+                raise AssertionError(f"mask shapes {ma.shape} {mb.shape}")
+            diff = int((ma != mb).sum())
+            n_diff += diff
+            n_masks += 1
+            worst = min(worst, 1 - diff / ma.size)
+    n_img = len(ds)
+    new_s = (sum(ms["infer"]) + sum(ms["new"])) / 1e3
+    old_s = (sum(ms["infer"]) + sum(ms["copy"]) + sum(ms["old"])) / 1e3
+    log(f"the same detections, two post-processings ({n_img} images, "
+        f"{n_masks} masks): device paste + codec {n_img / new_s:.2f} "
+        f"images/s vs host resize + numpy codec {n_img / old_s:.2f} "
+        f"images/s (forward + decode ms a batch {fmt(ms['infer'])}); "
+        f"post-processing ms a batch {fmt(ms['new'])} vs copy "
+        f"{fmt(ms['copy'])} + host {fmt(ms['old'])} (of which numpy RLE "
+        f"{fmt(ms['old_encode'])}); MB copied a batch "
+        f"{fmt(timings['copied_mb'])} (bool) vs {fmt(old_mb)} (f32); "
+        f"{n_diff} pixels differ in all, the worst mask {worst:.6f} equal "
+        f"(min {PASTE_SAME_MIN}), on {name} ({smi})")
+    if worst < PASTE_SAME_MIN:
+        raise AssertionError("device paste and host resize disagree")
+
+    metrics = ("bbox", "segm", "proposal_fast")
+    t0 = time.perf_counter()
+    stats = evaluate_coco(results, ann, metrics, dataset=ds)
+    codec_s = time.perf_counter() - t0
+    swaps = {"encode_mask": rle.encode_mask, "rle_area": rle.rle_area,
+             "iou_matrix": maskops.iou_matrix_plain,
+             "greedy_match": maskops.greedy_match_plain}
+    saved = {k: getattr(maskops, k) for k in swaps}
+    for k, fn in swaps.items():
+        setattr(maskops, k, fn)
+    try:
+        t0 = time.perf_counter()
+        plain = evaluate_coco(results, ann, metrics, dataset=ds)
+        plain_s = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(maskops, k, fn)
+    log(f"evaluate_coco {metrics}: {codec_s:.2f} s through the codec, "
+        f"{plain_s:.2f} s through the plain versions; proposal_fast "
+        f"{stats['proposal_fast']}")
+    if stats != plain:
+        raise AssertionError(f"evaluate_coco: codec {stats} vs plain {plain}")
+    for s in stats.values():
+        if not all(np.isfinite(v) and -1 <= v <= 1 for v in s.values()):
+            raise AssertionError(f"stats {stats}")
+    del det
+    torch.cuda.empty_cache()
+
+
+def fmt(vals):
+    return "[" + ", ".join(f"{v:.2f}" for v in vals) + "]"
+
+
+def soft_nms_oracle(boxes, scores, factors, t):
+    """Float64 host oracle of the soft-NMS decode's NMS on one image's
+    candidates, read back: per class, the candidates above ``score_thr``,
+    their scores times the factors, those below ``soft_nms_min_score``
+    dropped, then sequential soft-NMS (+1 IoU; the pick is the first index
+    of the maximum; linear 1 - IoU above ``nms_iou_thr``, gaussian
+    exp(-IoU² / sigma); a box decayed below min_score drops); the picks of
+    all classes sorted by score, the top ``max_per_img``. Returns
+    {(input row, label): score}."""
+    b = boxes.astype(np.float64)
+    area = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+    picks = []
+    for c in range(scores.shape[1]):
+        live = scores[:, c].astype(np.float64) * factors
+        live[(scores[:, c] <= t.score_thr) | (live < t.soft_nms_min_score)] \
+            = -np.inf
+        for _ in range(t.max_per_img):
+            j = int(np.argmax(live))
+            if live[j] == -np.inf:
+                break
+            picks.append((live[j], j, c))
+            wh = np.clip(np.minimum(b[j, 2:], b[:, 2:])
+                         - np.maximum(b[j, :2], b[:, :2]) + 1, 0, None)
+            inter = wh[:, 0] * wh[:, 1]
+            iou = inter / (area[j] + area - inter)
+            if t.soft_nms_method == "gaussian":
+                live = live * np.exp(-(iou * iou) / t.soft_nms_sigma)
+            else:
+                live = np.where(iou > t.nms_iou_thr, live * (1 - iou), live)
+            live[j] = -np.inf
+            live[live < t.soft_nms_min_score] = -np.inf
+    picks.sort(key=lambda p: (-p[0], p[2], p[1]))
+    return {(j, c): s for s, j, c in picks[:t.max_per_img]}
+
+
+@contextlib.contextmanager
+def recorded_decode(calls, record_nms):
+    """Within the context each ``Detector.infer``'s decode appends to
+    ``calls`` its ms (a synchronise before and after) and, without
+    ``record_nms``, its count of synchronising CUDA calls
+    (``torch.cuda.set_sync_debug_mode``); with ``record_nms`` the
+    candidates and detections of each ``multiclass_nms_idx`` call, read
+    back (reads that would count)."""
+    import warnings
+    from sipmask_tpu_torch.apis import inference
+    from sipmask_tpu_torch.models import decode
+    real_decode, real_nms = inference.decode_batch, decode.multiclass_nms_idx
+
+    def nms(boxes, scores, *a, score_factors=None, **kw):
+        out = real_nms(boxes, scores, *a, score_factors=score_factors, **kw)
+        calls[-1]["nms"].append(dict(
+            boxes=boxes.cpu().numpy(), scores=scores.cpu().numpy(),
+            factors=score_factors.cpu().numpy(),
+            out={k: v.cpu().numpy() for k, v in out.items()}))
+        return out
+
+    def timed_decode(*a, **kw):
+        call = dict(nms=[], syncs=None)
+        calls.append(call)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if not record_nms:
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                out = real_decode(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        call["ms"] = (time.perf_counter() - t0) * 1e3
+        if not record_nms:
+            call["syncs"] = sum("synchroniz" in str(w.message)
+                                for w in caught)
+        return out
+    inference.decode_batch = timed_decode
+    if record_nms:
+        decode.multiclass_nms_idx = nms
+    try:
+        yield
+    finally:
+        inference.decode_batch = real_decode
+        decode.multiclass_nms_idx = real_nms
+
+
+def soft_nms_serving(dev, name, smi):
+    """Phase 30c: the flagship served with ``test.nms_type="soft_nms"``,
+    linear and gaussian: a batch of 4 at 800x1344 twice through
+    ``Detector.infer`` (launches exactly K1 5, K4a 40 and K6 1 a forward
+    and decode), the decode's ms and its synchronising CUDA calls; then the
+    same batch once more with its NMS candidates read back, against a float64
+    host oracle of sequential per-class soft-NMS: the same (row, label)
+    set, scores within SOFT_SCORE_RTOL. Then the decode's ms and
+    synchronising calls with the preset's hard NMS on the same batch."""
+    from sipmask_tpu_torch.apis.inference import init_detector, preprocess
+    from sipmask_tpu_torch.config import _r, get_config
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights
+
+    rng = np.random.RandomState(SEED)
+    imgs = [(rng.rand(*IMAGE_HW, 3) * 255).astype(np.uint8)
+            for _ in range(3 + BATCH)][3:]   # phase 4's batch
+    total = None
+    for method in ("linear", "gaussian"):
+        cfg = _r(get_config(CONFIG), "model.test", nms_type="soft_nms",
+                 soft_nms_method=method)
+        det = init_detector(cfg, dev, seed=SEED)
+        bump_weights(det.model, torch.Generator().manual_seed(SEED))
+        prepped = [preprocess(im, cfg) for im in imgs]
+        batch = (torch.stack([torch.from_numpy(p[0]).permute(2, 0, 1)
+                              for p in prepped]).to(dev),
+                 torch.from_numpy(np.stack([p[1] for p in prepped])),
+                 torch.from_numpy(np.stack([p[2] for p in prepped])))
+        reset_launches()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = det.infer(*batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        check_path_launches("hi-acc soft-nms serving", launches)
+        want = {k: 0 for k in launches}
+        want.update({"deform_im2col": 10, "gn_relu": 80,
+                     "assemble_masks": 2})
+        if launches != want:
+            raise AssertionError(f"soft-NMS serving launches {launches}, "
+                                 f"not {want}")
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+        for key in ("boxes", "scores", "masks"):
+            check_finite(key, out[key])
+        valid = out["valid"].sum(1).tolist()
+        if min(valid) <= 0:
+            raise AssertionError("an image of the batch has no detection")
+        calls, recorded = [], []
+        with recorded_decode(calls, False):
+            det.infer(*batch)
+            det.infer(*batch)
+        with recorded_decode(recorded, True):
+            det.infer(*batch)
+        t = cfg.model.test
+        worst, n_kept, n_decayed = 0.0, 0, 0
+        for rec in recorded[0]["nms"]:
+            got = rec["out"]
+            v = got["valid"]
+            mine = {(int(j), int(c)): float(s) for j, c, s in zip(
+                got["idxs"][v], got["labels"][v], got["scores"][v])}
+            oracle = soft_nms_oracle(rec["boxes"], rec["scores"],
+                                     rec["factors"].astype(np.float64), t)
+            if mine.keys() != oracle.keys():
+                raise AssertionError(
+                    f"soft-NMS ({method}) keeps {len(mine)} detections, "
+                    f"the oracle {len(oracle)}; "
+                    f"{len(mine.keys() - oracle.keys())} not the oracle's")
+            for k, s in mine.items():
+                worst = max(worst, abs(s - oracle[k]) / oracle[k])
+                raw = float(rec["scores"][k[0], k[1]] * rec["factors"][k[0]])
+                n_decayed += s < raw * (1 - 1e-6)
+            n_kept += len(mine)
+        log(f"soft-NMS ({method}) serving: batch {tuple(batch[0].shape)} "
+            f"through Detector.infer {fmt(walls)} ms wall, valid "
+            f"detections {valid}; the decode {fmt([c['ms'] for c in calls])}"
+            f" ms with {[c['syncs'] for c in calls]} synchronising CUDA "
+            f"calls; against the float64 oracle: {n_kept} detections, the "
+            f"same (row, label) set, {n_decayed} of them decayed, scores "
+            f"within {worst:.2e} relative (tol {SOFT_SCORE_RTOL}), on "
+            f"{name} ({smi})")
+        if worst > SOFT_SCORE_RTOL:
+            raise AssertionError(f"soft-NMS ({method}) scores disagree")
+        del det
+        torch.cuda.empty_cache()
+    # the preset's hard NMS on the same batch, for comparison
+    det = init_detector(CONFIG, dev, seed=SEED)
+    bump_weights(det.model, torch.Generator().manual_seed(SEED))
+    calls = []
+    with recorded_decode(calls, False):
+        det.infer(*batch)
+        det.infer(*batch)
+    log(f"hard NMS on the same batch: the decode "
+        f"{fmt([c['ms'] for c in calls])} ms with "
+        f"{[c['syncs'] for c in calls]} synchronising CUDA calls")
+    del det
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_test_path(dev, name, smi, ann, images, ckpt, results13):
+    """Phase 30: the codec (30a), the test driver's device paste against
+    the plain host path and evaluate_coco with proposal_fast (30b), soft-NMS
+    serving (30c), and phase 16's paste ms a frame. Returns the soft-NMS
+    path's launches."""
+    codec_checks(ann, results13)
+    paste_paths(dev, name, smi, ann, images, ckpt)
+    launches = soft_nms_serving(dev, name, smi)
+    paste = VIS_TIMINGS.get("paste")
+    log("VIS paste ms a frame (phase 16: device paste, one copy, one "
+        "encode_masks call): " + ("not measured" if paste is None else
+                                  f"{fmt(paste)} (mean {np.mean(paste):.2f})"))
+    return launches
+
+
 # ------------------------------------ SipMask++ and SipMask-VIS in bfloat16
 
 def phase_bf16_pp_kernels(dev):
@@ -4097,26 +4600,34 @@ def last_presets(dev, name, smi, timed):
 
 
 def build_kernels():
-    """Phase 2: one nvcc per source of KERNELS, all started together; logs
-    each build's seconds and ptxas's register and spill lines."""
+    """Phase 2: one nvcc per source of KERNELS and g++ for the mask codec
+    (``native/maskops.cpp``), all started together; logs each build's
+    seconds and ptxas's register and spill lines."""
+    from sipmask_tpu_torch import native as codec
     from sipmask_tpu_torch.ops import native
     t0 = time.perf_counter()
     failed = []
 
     def build(src):
         try:
-            native.load(src)
+            if src == "maskops":
+                codec.load()
+            else:
+                native.load(src)
         except Exception as exc:   # reported and raised below
             failed.append((src, exc))
     threads = [threading.Thread(target=build, args=(src,)) for src in
-               sorted({src[:-3] for src, _ in KERNELS.values()})]
+               sorted({src[:-3] for src, _ in KERNELS.values()}
+                      | {"maskops"})]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if failed:
         raise RuntimeError(f"kernel builds failed: {failed}")
-    log(f"built kernels in {time.perf_counter() - t0:.1f} s")
+    log(f"built kernels and the codec in {time.perf_counter() - t0:.1f} s; "
+        f"the codec: g++ {codec.BUILD_LOG['seconds']} s, "
+        f"{codec.library_path()}")
     for kname, (secs, ptxas) in native.BUILD_LOG.items():
         lines = [ln for ln in ptxas.splitlines() if "registers" in ln
                  or "spill" in ln]
@@ -4205,7 +4716,7 @@ def main():
     try:
         paths["hi-acc train driver"], drv = timed(
             "12", phase_train_driver, dev, name, smi, work)
-        paths["hi-acc test driver"] = timed(
+        paths["hi-acc test driver"], results13 = timed(
             "13", phase_test_driver, dev, name, smi, drv["ann"],
             drv["images"], drv["last"])
 
@@ -4227,6 +4738,12 @@ def main():
         paths["vis test driver"] = timed(
             "18b", phase_vis_test_driver, dev, name, smi, vis["ann"],
             vis["images"], vis["last"])
+
+        # ---- 30. the test path: the codec, the device paste against the
+        # host path, evaluate_coco with proposal_fast, soft-NMS serving
+        paths["hi-acc soft-nms serving"] = timed(
+            "30", phase_test_path, dev, name, smi, drv["ann"],
+            drv["images"], drv["last"], results13)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -3,9 +3,10 @@
 by frame (batch 1, the reference's protocol) through the model and
 ``decode_batch``, the embeddings read at the detections' centres, the
 fixed-capacity tracker stepped on the device, the tracked detections'
-masks pasted on the device (cv2's map at fx = 2 / scale factor) and
-RLE-encoded on the host; each object becomes one YTVIS result with its mean
-score, its majority category and its per-frame RLEs (None where absent).
+masks pasted and transposed on the device (cv2's map at fx = 2 / scale
+factor), copied to the host at once and RLE-encoded in one call of the C++
+codec; each object becomes one YTVIS result with its mean score, its
+majority category and its per-frame RLEs (None where absent).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from ..data.transforms import TestTransform
-from ..eval.rle import encode_mask
+from ..eval.maskops import encode_masks_t
 from ..models.decode import decode_batch
 from ..models.track import extract_center_feats, tracker_init, tracker_step
 from .inference import paste_masks
@@ -75,9 +76,11 @@ def run_video_inference(det, dataset, progress: bool = True,
             keep = [i for i in range(host.shape[1])
                     if host[0, i] >= 0 and host[1, i]]
             if keep:
-                full = paste_masks(
+                # transposed on the device: COCO's runs are column-major
+                segs = encode_masks_t(paste_masks(
                     dets["masks"][0][torch.tensor(keep, device=dev)],
-                    s.scale_factor, s.ori_shape, thr).cpu().numpy()
+                    s.scale_factor, s.ori_shape, thr).transpose(1, 2)
+                    .contiguous().cpu().numpy())
             for j, i in enumerate(keep):
                 o = vid_objs.setdefault(int(host[0, i]), dict(
                     scores=[], cats=[], segms={}))
@@ -85,7 +88,7 @@ def run_video_inference(det, dataset, progress: bool = True,
                 o["cats"].append(int(host[3, i]))
                 # detection order: a later detection of an object
                 # overwrites an earlier one's mask
-                o["segms"][fi] = encode_mask(full[j].astype(np.uint8))
+                o["segms"][fi] = segs[j]
             if timings is not None:
                 timings.setdefault("paste", []).append(_sync_ms(dev, t0))
         for o in vid_objs.values():

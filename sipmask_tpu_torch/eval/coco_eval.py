@@ -3,8 +3,9 @@ port of ``sipmask_tpu/eval/coco_eval.py``: greedy score-ordered matching
 per (image, category) at IoU thresholds 0.5:0.05:0.95, crowd/ignore
 handling, area ranges, maxDets 1/10/100, 101-point interpolated AP. IoUs
 are computed once per (image, category) and reused across the four area
-ranges, which only change the ignore flags; segm IoUs on decoded masks
-(``maskops``).
+ranges, which only change the ignore flags. Segm IoUs are computed in
+run space, gt polygons are rasterised and encoded, and the greedy matching
+runs in C++, all through the codec (``maskops``).
 """
 
 from __future__ import annotations

@@ -1,8 +1,14 @@
-"""Mask operations of the COCO evaluation, the port of the numpy paths of
-``sipmask_tpu/native/__init__.py`` (the JAX package's C++ library is not
-ported): RLE encode and area, the mask IoU matrix and the raw intersection
-matrix of the YouTube-VIS evaluation (dense, on decoded masks) and
-COCOeval's greedy matching."""
+"""Mask operations of the COCO and YouTube-VIS evaluations, the port of
+``sipmask_tpu/native/__init__.py``: RLE encode and area, the mask IoU
+matrix (crowd included), the raw intersection matrix and COCOeval's greedy
+matching, all through the port's C++ codec (``sipmask_tpu_torch.native``)
+in run space, with no dense decode.
+
+The ``*_plain`` functions (and ``eval/rle.py``'s codec) are the plain numpy
+versions: the same numbers on decoded masks, which the tests and
+``chip_smoke.py`` hold the codec against. Nothing on the main path calls
+them.
+"""
 
 from __future__ import annotations
 
@@ -10,10 +16,20 @@ from typing import List, Sequence
 
 import numpy as np
 
-from .rle import decode_mask, encode_mask, rle_area
+from .. import native
+from .rle import decode_mask
 
-__all__ = ["encode_mask", "rle_area", "mask_iou", "iou_matrix",
-           "inter_matrix", "greedy_match"]
+__all__ = ["encode_mask", "encode_masks", "encode_masks_t", "rle_area",
+           "iou_matrix", "inter_matrix", "greedy_match", "mask_iou",
+           "iou_matrix_plain", "inter_matrix_plain", "greedy_match_plain"]
+
+encode_mask = native.encode_mask
+encode_masks = native.encode_masks
+encode_masks_t = native.encode_masks_t
+rle_area = native.rle_area
+iou_matrix = native.iou_matrix
+inter_matrix = native.inter_matrix
+greedy_match = native.greedy_match
 
 
 def mask_iou(dt_masks: List[np.ndarray], gt_masks: List[np.ndarray],
@@ -35,10 +51,9 @@ def mask_iou(dt_masks: List[np.ndarray], gt_masks: List[np.ndarray],
     return inter / np.maximum(union, 1e-12)
 
 
-def iou_matrix(dt_rles: Sequence[dict], gt_rles: Sequence[dict],
-               iscrowd=None) -> np.ndarray:
-    """(n_dt, n_gt) IoU of RLE masks (pycocotools rleIou; crowd gt ->
-    inter / area_dt)."""
+def iou_matrix_plain(dt_rles: Sequence[dict], gt_rles: Sequence[dict],
+                     iscrowd=None) -> np.ndarray:
+    """``iou_matrix`` on decoded masks."""
     n_dt, n_gt = len(dt_rles), len(gt_rles)
     if n_dt == 0 or n_gt == 0:
         return np.zeros((n_dt, n_gt))
@@ -48,11 +63,11 @@ def iou_matrix(dt_rles: Sequence[dict], gt_rles: Sequence[dict],
                     [decode_mask(r) for r in gt_rles], crowd)
 
 
-def inter_matrix(dt_rles: Sequence[dict], gt_rles: Sequence[dict]
-                 ) -> np.ndarray:
-    """Raw intersection areas (n_dt, n_gt) of RLE masks, float64. An empty
-    or absent mask is the single zero-run RLE ({'size': [h, w], 'counts':
-    encode_counts([h * w])})."""
+def inter_matrix_plain(dt_rles: Sequence[dict], gt_rles: Sequence[dict]
+                       ) -> np.ndarray:
+    """``inter_matrix`` on decoded masks. An empty or absent mask is the
+    single zero-run RLE ({'size': [h, w], 'counts': encode_counts([h *
+    w])})."""
     n_dt, n_gt = len(dt_rles), len(gt_rles)
     out = np.zeros((n_dt, n_gt))
     if n_dt == 0 or n_gt == 0:
@@ -65,12 +80,9 @@ def inter_matrix(dt_rles: Sequence[dict], gt_rles: Sequence[dict]
     return out
 
 
-def greedy_match(ious: np.ndarray, thrs: np.ndarray, gt_ig: np.ndarray,
-                 iscrowd: np.ndarray):
-    """COCOeval's greedy matching over IoU thresholds (pycocotools
-    evaluateImg's inner loop). ious (n_dt, n_gt) with the gt columns sorted
-    ignore-last. Returns (dtm int32 (T, D), 1-based gt index or 0;
-    dt_ig uint8 (T, D))."""
+def greedy_match_plain(ious: np.ndarray, thrs: np.ndarray,
+                       gt_ig: np.ndarray, iscrowd: np.ndarray):
+    """``greedy_match`` in Python loops."""
     n_dt, n_gt = ious.shape
     dtm = np.zeros((len(thrs), n_dt), np.int32)
     dt_ig = np.zeros((len(thrs), n_dt), np.uint8)

@@ -1,7 +1,10 @@
 """COCO run-length-encoding codec (pycocotools maskApi.c equivalent), the
 port of ``sipmask_tpu/eval/rle.py``: numpy, byte-identical compressed
 strings (rleToString/rleFrString, column-major runs starting with a
-zero-run)."""
+zero-run). The plain version of the C++ codec (``sipmask_tpu_torch.native``,
+which the evaluation path calls through ``eval/maskops.py``): the tests and
+``chip_smoke.py`` hold the codec against it. The data loader decodes gt
+RLEs with its ``decode_mask``."""
 
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ absent counts through the other's area; a crowd gt divides by the
 prediction's area alone). Matching and AP follow COCOeval: greedy per
 (video, category), IoU 0.5:0.05:0.95, 101-point AP, the four area ranges
 on each gt track's mean area. Track IoUs are computed once per (video,
-category) and reused across the area ranges.
+category) and reused across the area ranges, from intersections and areas
+in run space and greedy matching in C++ (the codec, ``maskops``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 from ..data.coco import rasterize_polygons
 from . import maskops
 from .coco_eval import IOU_THRS, MAX_DETS, REC_THRS
-from .rle import encode_counts, encode_mask
+from .rle import encode_counts
 
 
 def _seg_to_rle(seg, h, w):
@@ -30,7 +31,7 @@ def _seg_to_rle(seg, h, w):
         return {"size": [h, w], "counts": encode_counts([h * w])}
     if isinstance(seg, dict):
         return seg
-    return encode_mask(rasterize_polygons(seg, h, w))
+    return maskops.encode_mask(rasterize_polygons(seg, h, w))
 
 
 def track_iou_matrix(dt_tracks, gt_tracks, h, w, iscrowd) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Inference decode: scores -> per-level top-k -> NMS -> SP mask assembly
 (-> SipMask++ rescoring). The port of ``sipmask_tpu/models/decode.py:
-decode_batch`` for the exact hard multiclass NMS and the ``fast_nms`` branch
-(``ssd_flag`` / ``use_fast_nms``); soft-NMS is not ported yet.
+decode_batch``: the exact multiclass NMS, hard or soft (``test.nms_type``),
+and the ``fast_nms`` branch (``ssd_flag`` / ``use_fast_nms``).
 
 The per-image loop picks each image's detections; the masks of the whole
 batch are then assembled in one call (kernel K6 on the card).
@@ -38,8 +38,6 @@ def decode_batch(outputs, img_shapes, scale_factors, cfg,
     """
     t, h = cfg.test, cfg.head
     use_fast = t.use_fast_nms or h.ssd_flag
-    if not use_fast and t.nms_type != "nms":
-        raise NotImplementedError("soft-NMS is not ported")
     if h.rescoring and rescore_fn is None:
         raise ValueError("a rescoring head needs rescore_fn")
     featmap_sizes = [tuple(x.shape[2:]) for x in outputs["cls_scores"]]
@@ -87,7 +85,11 @@ def decode_batch(outputs, img_shapes, scale_factors, cfg,
         else:
             res = multiclass_nms_idx(boxes, scores[sel], t.score_thr,
                                      t.nms_iou_thr, t.max_per_img,
-                                     score_factors=ctr[sel])
+                                     score_factors=ctr[sel],
+                                     nms_type=t.nms_type,
+                                     soft_method=t.soft_nms_method,
+                                     soft_sigma=t.soft_nms_sigma,
+                                     soft_min_score=t.soft_nms_min_score)
             det_cofs.append(cofs[res["idxs"]] * res["valid"][:, None])
         crop_boxes.append(res["boxes"] * sf[None, :] / 2.0)
         results.append({k: res[k] for k in ("boxes", "scores", "labels",

@@ -167,20 +167,60 @@ def test_grad_clip_scales_by_the_global_norm():
                                    rtol=1e-6)
 
 
-def test_drivers_refuse_what_is_not_ported(synth, tmp_path):
-    """Soft-NMS (``test.nms_type``) and the ``proposal_fast`` metric are not
-    ported: the test driver refuses them."""
-    from sipmask_tpu_torch.apis.inference import init_detector
+def test_soft_nms_inference_and_proposal_fast_through_the_drivers(synth,
+                                                                 bumped):
+    """``run_inference`` with ``test.nms_type="soft_nms"`` (gaussian) against
+    ``inference_detector`` on the same weights (boxes, labels, scores,
+    masks), other detections than hard NMS's; then tools/test.py with
+    ``--eval bbox segm proposal_fast`` and the soft-NMS override (linear):
+    finite COCO stats and AR@100/300/1000 in [0, 1]."""
+    from sipmask_tpu_torch.apis.inference import (inference_detector,
+                                                  init_detector)
     from sipmask_tpu_torch.apis.test import run_inference
     from sipmask_tpu_torch.data.coco import CocoDataset
-    soft = _r(_cfg(), "model.test", nms_type="soft_nms")
-    with pytest.raises(NotImplementedError, match="soft-NMS"):
-        run_inference(init_detector(soft, "cpu"),
-                      CocoDataset(*synth, test_mode=True), batch_size=2,
-                      progress=False)
-    from sipmask_tpu_torch.apis.test import evaluate_coco
-    with pytest.raises(NotImplementedError, match="proposal_fast"):
-        evaluate_coco([], synth[0], metrics=("proposal_fast",))
+    from sipmask_tpu_torch.eval.rle import decode_mask
+    from sipmask_tpu_torch.tools import test as test_cli
+    soft = _r(_cfg(), "model.test", nms_type="soft_nms",
+              soft_nms_method="gaussian")
+    det = init_detector(soft, "cpu")
+    det.model.load_state_dict(bumped[1])
+    ds = CocoDataset(*synth, test_mode=True)
+    results = run_inference(det, ds, batch_size=2, progress=False)
+    hard = init_detector(_cfg(), "cpu")
+    hard.model.load_state_dict(bumped[1])
+    hard = inference_detector(hard, ds.load_image(0))
+    cat2label = {c: lab for lab, c in ds.label2cat.items()}
+    for i in (0, len(ds) - 1):
+        mine = [r for r in results if r["image_id"] == ds.image_id(i)]
+        ref = inference_detector(det, ds.load_image(i))
+        assert len(mine) == len(ref["labels"]) > 0
+        np.testing.assert_allclose(
+            [[x, y, x + w, y + h] for x, y, w, h in (r["bbox"]
+                                                     for r in mine)],
+            ref["boxes"], rtol=0, atol=1e-3)
+        assert [cat2label[r["category_id"]] - 1 for r in mine] == \
+            ref["labels"].tolist()
+        np.testing.assert_allclose([r["score"] for r in mine],
+                                   ref["scores"], rtol=0, atol=1e-6)
+        masks = np.stack([decode_mask(r["segmentation"]) for r in mine])
+        assert (masks == ref["masks"]).mean() >= 0.99
+        if i == 0:   # the same first pick; then what hard NMS suppresses
+            assert ref["scores"][0] == hard["scores"][0]
+            assert set(zip(ref["labels"].tolist(), ref["scores"].tolist())
+                       ) != set(zip(hard["labels"].tolist(),
+                                    hard["scores"].tolist()))
+    stats = test_cli.main(["sipmask_r50_fpn_gn_1x", bumped[0], "--ann",
+                           synth[0], "--img-prefix", synth[1],
+                           "--batch-size", "2", "--device", "cpu",
+                           "--eval", "bbox", "segm", "proposal_fast",
+                           "--cfg-options", *SHRINK,
+                           "model.test.nms_type=soft_nms"])
+    assert set(stats) == {"bbox", "segm", "proposal_fast"}
+    assert set(stats["proposal_fast"]) == {"AR@100", "AR@300", "AR@1000"}
+    for it in ("bbox", "segm"):
+        assert all(np.isfinite(v) and -1 <= v <= 1
+                   for v in stats[it].values())
+    assert all(0 <= v <= 1 for v in stats["proposal_fast"].values())
 
 
 def test_run_inference_matches_inference_detector(synth, bumped):

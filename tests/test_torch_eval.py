@@ -117,25 +117,42 @@ def _dets(b=2, d=6, hm=64, wm=80, seed=0):
 
 
 def test_postprocess_batch_matches_jax_at_scale_factors_other_than_1():
-    """Same numpy dets into both: identical results, RLEs included, or at
-    most 0.1% of a mask's pixels apart (the two resizes' float rounding at
-    the 0.4 threshold)."""
+    """Same dets into both, as numpy and (the port) as tensors, as
+    ``decode_batch`` gives them: identical results, RLEs included, or at
+    most 0.1% of a mask's pixels apart (the device paste's and cv2's float
+    rounding at the 0.4 threshold); the host path (numpy resize, numpy
+    codec) likewise; the masks copied to the host once, as bool."""
     from sipmask_tpu.eval.results import postprocess_batch as j_post
     from sipmask_tpu.eval.rle import decode_mask
-    from sipmask_tpu_torch.eval.results import postprocess_batch
+    from sipmask_tpu_torch.eval.results import (postprocess_batch,
+                                                postprocess_batch_plain)
     dets = _dets()
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in dets.items() if k != "scale_factors"}
+    tensors["scale_factors"] = dets["scale_factors"]
     label2cat = {i + 1: 100 + i for i in range(80)}
     ori = np.array([[120, 150], [140, 175]])
     for n_valid in (2, 1):
         want = j_post(dets, [7, 9], ori, label2cat, 0.4, n_valid)
-        got = postprocess_batch(dets, [7, 9], ori, label2cat, 0.4, n_valid)
-        assert len(got) == len(want) > 0
-        for g, w in zip(got, want):
-            gs, ws = g.pop("segmentation"), w.pop("segmentation")
-            assert g == w
-            if gs != ws:
-                diff = decode_mask(gs) != decode_mask(ws)
-                assert diff.mean() <= 1e-3
+        timings = {}
+        got = postprocess_batch(tensors, [7, 9], ori, label2cat, 0.4,
+                                n_valid, timings=timings)
+        assert got == postprocess_batch(dets, [7, 9], ori, label2cat, 0.4,
+                                        n_valid)
+        n_px = sum(int(dets["valid"][i].sum()) * ori[i].prod()
+                   for i in range(n_valid))
+        assert timings["copied_mb"] == [n_px / 2 ** 20]
+        assert len(timings["paste"]) == len(timings["encode"]) == 1
+        host = postprocess_batch_plain(dets, [7, 9], ori, label2cat, 0.4,
+                                       n_valid)
+        assert len(got) == len(want) == len(host) > 0
+        for g, w, h in zip(got, want, host):
+            gs, ws, hs = (r.pop("segmentation") for r in (g, w, h))
+            assert g == w == h
+            for other in (ws, hs):
+                if gs != other:
+                    diff = decode_mask(gs) != decode_mask(other)
+                    assert diff.mean() <= 1e-3
 
 
 def _coco_case(tmp_path, seed=0):
@@ -193,3 +210,54 @@ def test_coco_evaluator_matches_jax(tmp_path, iou_type):
     assert 0 < got["AP"] < 1
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-12, k
+
+
+def test_recall_matches_jax():
+    """``eval_recalls`` on random scenes (some images without gts or
+    proposals) equals the JAX package's."""
+    from sipmask_tpu.eval.recall import eval_recalls as j_eval_recalls
+    from sipmask_tpu_torch.eval.recall import eval_recalls
+    rng = np.random.RandomState(0)
+    gts, props = [], []
+    for i in range(6):
+        n_g, n_p = rng.randint(0, 8) if i else 0, rng.randint(0, 400)
+        xy = rng.uniform(0, 200, (n_g, 2))
+        gts.append(np.concatenate([xy, xy + rng.uniform(5, 60, (n_g, 2))],
+                                  1).astype(np.float32))
+        pxy = rng.uniform(0, 200, (n_p, 2))
+        p = np.concatenate([pxy, pxy + rng.uniform(5, 60, (n_p, 2))], 1)
+        near = gts[-1][rng.randint(0, n_g, 20 * n_g)] if n_g else p[:0]
+        p = np.concatenate([p, near + rng.normal(0, 4, near.shape)])
+        props.append(np.concatenate([p, rng.rand(len(p), 1)],
+                                    1).astype(np.float32))
+    nums, thrs = (10, 100, 300), np.arange(0.5, 0.96, 0.05)
+    got = eval_recalls(gts, props, nums, thrs, verbose=False)
+    want = j_eval_recalls(gts, props, nums, thrs, verbose=False)
+    np.testing.assert_array_equal(got, want)
+    assert got[-1, 0] > got[0, 0] > 0 and got[-1, -1] < got[-1, 0]
+
+
+def test_evaluate_coco_with_proposal_fast_matches_jax(tmp_path):
+    """``evaluate_coco(..., ("bbox", "segm", "proposal_fast"))`` gives the
+    JAX package's stats: COCOeval's through the codec, and AR@100/300/1000
+    (each the mean over IoU 0.5:0.95) from ``fast_eval_recall`` on the
+    port's ``CocoDataset``, with and without a dataset given."""
+    from sipmask_tpu.apis.test import evaluate_coco as j_evaluate_coco
+    from sipmask_tpu_torch.apis.test import evaluate_coco
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.eval.recall import fast_eval_recall
+    ann_file, results = _coco_case(tmp_path)
+    for r in results:
+        r["det_score"] = r["score"] * 0.9
+    metrics = ("bbox", "segm", "proposal_fast")
+    want = j_evaluate_coco(results, ann_file, metrics)
+    got = evaluate_coco(results, ann_file, metrics)
+    assert got == want
+    assert set(got["proposal_fast"]) == {"AR@100", "AR@300", "AR@1000"}
+    assert 0 < got["proposal_fast"]["AR@100"] < 1
+    ds = CocoDataset(ann_file, "", test_mode=True)
+    assert evaluate_coco(results, ann_file, ("proposal_fast",),
+                         dataset=ds) == {"proposal_fast":
+                                         want["proposal_fast"]}
+    ar = fast_eval_recall(results, ds, verbose=False)
+    assert float(ar[0].mean()) == want["proposal_fast"]["AR@100"]

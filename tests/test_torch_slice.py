@@ -92,6 +92,28 @@ def test_fast_nms_decode_matches_jax_on_the_same_head_outputs(setup):
     _check_decoded(got, want)
 
 
+@pytest.mark.parametrize("method", ["linear", "gaussian"])
+def test_soft_nms_decode_matches_jax_on_the_same_head_outputs(setup, method):
+    """``test.nms_type="soft_nms"``: per-class soft-NMS on the candidates,
+    then the mask assembly on its detections, as JAX's decode: boxes,
+    labels, scores and masks. The candidates' scores lie within 0.06 of
+    each other, so a linear decay (a factor 1 - IoU below 0.5) sends a
+    box below the top 100 and linear keeps the hard path's detections;
+    gaussian decays the slightly overlapping ones too, and keeps others."""
+    from sipmask_tpu.config import _r
+    cfg = _r(setup["cfg"].model, "test", nms_type="soft_nms",
+             soft_nms_method=method)
+    want = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda o: j_decode_batch(o, jnp.asarray(IMG_SHAPES),
+                                 jnp.asarray(SCALES), cfg))(setup["j_out"]))
+    got = decode_batch(_nchw_outputs(setup["j_out"]),
+                       torch.from_numpy(IMG_SHAPES),
+                       torch.from_numpy(SCALES), cfg)
+    _check_decoded(got, want)
+    same = np.array_equal(want["scores"], setup["j_dec"]["scores"])
+    assert same == (method == "linear")
+
+
 def test_detector_and_decode_match_jax(setup):
     got = decode_batch(setup["out"], torch.from_numpy(IMG_SHAPES),
                        torch.from_numpy(SCALES), setup["cfg"].model)
