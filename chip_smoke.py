@@ -19,7 +19,7 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
    benchmark mode on, as for fixed shapes);
 2. builds the kernels from ``sipmask_tpu_torch/csrc`` with nvcc, one nvcc
    per source, and the mask codec (``sipmask_tpu_torch/native/maskops.cpp``)
-   with g++, all at once;
+   and the JPEG codec (``native/jpeg.cpp``) with g++, all at once;
 3. holds the serving kernels (K1, K4a) against their plain PyTorch versions
    at the slice's shapes, and times both at the batch-4 shapes (K1's and
    K4a's device time by kernel beside their event time; a K1 call must be
@@ -60,9 +60,10 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     kernels, with the plain versions, with only K5 or only K5c launching
     (the rest plain), and with the plain versions in float64; compares each
     f32 run with the plain one and reads each against the float64 one;
-12. writes a synthetic COCO set of 8 PNG images (640x480, 640x427,
-    500x375, 612x612, twice each, 8-16 instances, polygons and RLE) with
-    ``tools/synth_coco.py``, times the loader's host work per batch, and
+12. writes a synthetic COCO set of 8 JPEG images (640x480, 640x427,
+    500x375, 612x612, twice each, 8-16 instances, polygons and RLE;
+    quality 95, 4:2:0) with ``tools/synth_coco.py``, times the loader's
+    host work per batch and its JPEG reads, and
     trains the flagship through ``train_detector`` (batch 4, 800x1344
     buckets, 2 steps an epoch): 4 steps from bumped weights given as
     ``load_from``, then a resume that must start at step 4 from epoch_2
@@ -101,7 +102,7 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     gradients, step ms and peak memory; then the first step with the plain
     versions (losses and gradients compared);
 18. writes a synthetic YouTube-VIS set (``tools/synth_ytvis.py``, 4 videos
-    of 6 PNG frames at 360x360), trains SipMask-VIS on it through
+    of 6 JPEG frames at 360x360), trains SipMask-VIS on it through
     ``train_detector`` for 4 steps from bumped weights and resumes it to
     step 6 (train log, last_checkpoint, YTVIS classes in the checkpoint,
     the driver's steps against a bare ``make_train_step``, idle share), then
@@ -210,7 +211,15 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     synchronising CUDA calls), its NMS candidates read back and the
     detections held against a float64 host oracle of sequential per-class
     soft-NMS (the same (row, label) set, scores within SOFT_SCORE_RTOL);
-    and phase 16's paste ms a frame.
+    and phase 16's paste ms a frame;
+31. (run after phase 2) the JPEG codec on the host: every fixture of
+    ``tests/data/jpeg`` decoded (progressive, 4:4:0, 4:1:1, restarts,
+    grey, CMYK, RGB, EXIF orientation 6, stray bytes, a file cut short)
+    and every seeded image encoded, each digest held against the one cv2
+    gave (``digests.json``); the median ms of 20 decodes and of 20 encodes
+    of a 640x480 quality-95 4:2:0 image, logged with ``lscpu``'s model
+    name beside the card's name and power limit; the library loaded must
+    be this checkout's build under build/native.
 
 Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20-22,
 24-29 and 30's soft-NMS serving) is driven with every launch count set to
@@ -1765,6 +1774,20 @@ def phase_bf16_train(dev, name, smi):
                       ("bbox_head.feat_align.conv_offset.weight",))
 
 
+@contextlib.contextmanager
+def cudnn_heuristics():
+    """Within the context cuDNN picks its algorithms by heuristics, the
+    same in every process (benchmark mode off, deterministic algorithms);
+    the other backend flags stay as they are."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+
+
 def bf16_train(dev, name, smi, label, preset, path, make_batch, trains,
                calibrate=False, pin=False, loss_tol=BF16_LOSS_TOL,
                loss_tols=None, grad_tol=BF16_GRAD_TOL,
@@ -1777,7 +1800,13 @@ def bf16_train(dev, name, smi, label, preset, path, make_batch, trains,
     plain versions, compared: each loss relative (``loss_tols`` by name,
     else ``loss_tol``) and each gradient relative to its tensor's max
     (``grad_tol``; and, where given, the median of those errors over the
-    tensors within ``grad_median_tol``). ``calibrate``: fit the frozen BN
+    tensors within ``grad_median_tol``). The two compared steps run with
+    cuDNN's heuristic, deterministic algorithms (benchmark mode off): in
+    benchmark mode a conv whose input layout differs between the runs gets
+    its own algorithm timed and picked, and the comparison then also
+    measures cuDNN's choice, which varies from process to process (bf16
+    X101's loss_mask read 2.8e-05 to 1.1e-04 apart over five processes).
+    ``calibrate``: fit the frozen BN
     to the batch (SipMask++); ``pin``: in that comparison the backbone's
     ReLUs and DCN sampling floors are pinned in both runs to those of one
     plain forward (:func:`plain_pins`; how far the f32 forward's lie is
@@ -1857,6 +1886,7 @@ def bf16_train(dev, name, smi, label, preset, path, make_batch, trains,
         state = create_train_state(cfg, dev, state_dict=init)
         step = make_train_step(state, cfg)
         with contextlib.ExitStack() as stack:
+            stack.enter_context(cudnn_heuristics())
             stack.enter_context(ctx())
             if pin:
                 moved = stack.enter_context(pinned(state.model.backbone,
@@ -2958,19 +2988,23 @@ def checked_calls(names, tol=BF16_KERNEL_TOL, record=None):
 def loader_host_ms(dataset, cfg, batch):
     """Host ms a loader batch: each batch of the set made on one thread
     (image reads, annotations with their polygon fills and RLE decodes,
-    transforms, the stack), and the mean ms between batches that
-    ``build_train_loader`` delivers with the config's worker threads once
-    its queue is drained (6 batches after 2)."""
+    transforms, the stack) and, of that, the image reads (JPEG decodes);
+    and the mean ms between batches that ``build_train_loader`` delivers
+    with the config's worker threads once its queue is drained (6 batches
+    after 2)."""
     from sipmask_tpu_torch.data.loader import _stack_batch, build_train_loader
     from sipmask_tpu_torch.data.transforms import TrainTransform
     transform = TrainTransform(cfg.data, SEED)
-    one = []
+    one, reads = [], []
     for start in range(0, len(dataset) - batch + 1, batch):
         t0 = time.perf_counter()
-        _stack_batch([transform(dataset.load_image(i), *dataset.get_ann(i),
+        imgs = [dataset.load_image(i) for i in range(start, start + batch)]
+        t1 = time.perf_counter()
+        _stack_batch([transform(img, *dataset.get_ann(i),
                                 image_id=dataset.image_id(i))
-                      for i in range(start, start + batch)])
+                      for i, img in zip(range(start, start + batch), imgs)])
         one.append((time.perf_counter() - t0) * 1e3)
+        reads.append((t1 - t0) * 1e3)
     loader, _ = build_train_loader(dataset, transform, batch, seed=SEED,
                                    num_workers=cfg.data.num_workers)
     try:
@@ -2982,7 +3016,7 @@ def loader_host_ms(dataset, cfg, batch):
         threaded = (time.perf_counter() - t0) * 1e3 / 6
     finally:
         loader.close()
-    return one, threaded
+    return one, reads, threaded
 
 
 @contextlib.contextmanager
@@ -3073,13 +3107,16 @@ def phase_train_driver(dev, name, smi, work):
     n_gts = [len(ds.get_ann(i)[1]) for i in range(len(ds))]
     if len(ds) != 2 * BATCH or min(n_gts) < 8:
         raise AssertionError(f"synthetic set: {len(ds)} images, gts {n_gts}")
-    host, threaded = loader_host_ms(ds, cfg, BATCH)
+    check_jpeg_set(images, [im["file_name"] for im in ds.images])
+    host, reads, threaded = loader_host_ms(ds, cfg, BATCH)
     sizes = [(im["width"], im["height"]) for im in ds.images]
-    log(f"synthetic COCO set: {len(ds)} PNG images {sizes}, gts {n_gts}; "
-        f"loader host ms per batch of {BATCH} on one thread (read, fill, "
-        f"transform, stack): " + ", ".join(f"{m:.1f}" for m in host)
-        + f"; delivered by build_train_loader with "
-        f"{cfg.data.num_workers} threads: {threaded:.1f} ms a batch")
+    log(f"synthetic COCO set: {len(ds)} JPEG images (q95, 4:2:0) {sizes}, "
+        f"gts {n_gts}; loader host ms per batch of {BATCH} on one thread "
+        f"(read, fill, transform, stack): "
+        + ", ".join(f"{m:.1f}" for m in host) + "; of which JPEG reads: "
+        + ", ".join(f"{m:.1f}" for m in reads) + f"; delivered by "
+        f"build_train_loader with {cfg.data.num_workers} threads: "
+        f"{threaded:.1f} ms a batch")
 
     state = create_train_state(cfg, dev, seed=SEED)
     bump_weights(state.model, torch.Generator().manual_seed(SEED))
@@ -3378,12 +3415,13 @@ def phase_rt_train_driver(dev, name, smi, work, ann, images):
                                            RT_BATCH):
         raise AssertionError("the real-time preset's training moved")
     ds = CocoDataset(ann, images)
-    host, threaded = loader_host_ms(ds, cfg, RT_BATCH)
-    log(f"RT loader host ms per batch of {RT_BATCH} on one thread (read, "
-        f"fill, photometric distortion, expand, min-IoU crop, 576 stretch, "
-        f"stack): " + ", ".join(f"{m:.1f}" for m in host) + f"; delivered "
-        f"by build_train_loader with {d.num_workers} threads: "
-        f"{threaded:.1f} ms a batch")
+    host, reads, threaded = loader_host_ms(ds, cfg, RT_BATCH)
+    log(f"RT loader host ms per batch of {RT_BATCH} on one thread (JPEG "
+        f"read, fill, photometric distortion, expand, min-IoU crop, 576 "
+        f"stretch, stack): " + ", ".join(f"{m:.1f}" for m in host)
+        + "; of which JPEG reads: " + ", ".join(f"{m:.1f}" for m in reads)
+        + f"; delivered by build_train_loader with {d.num_workers} "
+        f"threads: {threaded:.1f} ms a batch")
 
     state = create_train_state(cfg, dev, seed=SEED)
     loader, steps_per_epoch = build_train_loader(
@@ -3748,7 +3786,7 @@ def vis_batch(cfg, dev):
 
 def phase_vis_train_driver(dev, name, smi, work):
     """Phase 18a: ``train_detector`` with the VIS preset on a synthetic
-    YouTube-VIS set (``tools/synth_ytvis.py``, PNG), 4 steps from bumped
+    YouTube-VIS set (``tools/synth_ytvis.py``, JPEG), 4 steps from bumped
     weights through ``load_from``, then a resume to step 6; the driver's
     steps against a bare ``make_train_step`` on the same batches and the
     device's idle share over steps 5-6."""
@@ -3767,8 +3805,11 @@ def phase_vis_train_driver(dev, name, smi, work):
                                VIS_DRIVER_VIDEOS, VIS_DRIVER_FRAMES,
                                VIS_DRIVER_SIZE, seed=SEED)
     log(f"synthetic YouTube-VIS set: {VIS_DRIVER_VIDEOS} videos x "
-        f"{VIS_DRIVER_FRAMES} PNG frames of {VIS_DRIVER_SIZE}x"
+        f"{VIS_DRIVER_FRAMES} JPEG frames (q95, 4:2:0) of {VIS_DRIVER_SIZE}x"
         f"{VIS_DRIVER_SIZE} in {time.perf_counter() - t0:.1f} s")
+    with open(ann) as f:
+        check_jpeg_set(images, [fn for v in json.load(f)["videos"]
+                                for fn in v["file_names"]])
     state = create_train_state(cfg, dev, seed=SEED)
     bump_weights(state.model, torch.Generator().manual_seed(SEED),
                  training=True)
@@ -4599,11 +4640,111 @@ def last_presets(dev, name, smi, timed):
     return paths
 
 
+def check_jpeg_set(image_dir, file_names):
+    """Every file of a synthetic set is a JPEG file, named .jpg."""
+    for fn in file_names:
+        with open(os.path.join(image_dir, fn), "rb") as f:
+            head = f.read(3)
+        if not fn.endswith(".jpg") or head != b"\xff\xd8\xff":
+            raise AssertionError(f"{fn}: not a JPEG file ({head!r})")
+
+
+def cpu_model():
+    """``lscpu``'s model name of the host, with its vendor, family and
+    model numbers and ``/proc/cpuinfo``'s model name (lscpu may give
+    "unknown" in a virtual machine)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60).stdout
+    fields = {}
+    for ln in out.splitlines():
+        key, _, value = ln.partition(":")
+        fields.setdefault(key.strip(), value.strip())
+    try:
+        with open("/proc/cpuinfo") as f:
+            names = [ln.split(":", 1)[1].strip() for ln in f
+                     if ln.startswith("model name")]
+    except OSError:
+        names = []
+    return (f"lscpu model name {fields.get('Model name', '(none)')!r} "
+            f"(vendor {fields.get('Vendor ID', '?')}, family "
+            f"{fields.get('CPU family', '?')}, model "
+            f"{fields.get('Model', '?')}, {fields.get('CPU(s)', '?')} CPUs); "
+            f"/proc/cpuinfo model name "
+            f"{names[0] if names else '(none)'!r}")
+
+
+def median_ms(fn, runs=20):
+    fn()
+    ts = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def phase_jpeg(smi):
+    """Phase 31: the JPEG codec (``native/jpeg.cpp``, host C++) against
+    the digests cv2 gave for the fixtures of ``tests/data/jpeg`` (the
+    pixels of ``cv2.imread``) and for seeded images (the bytes of
+    ``cv2.imencode``); a mismatch fails the run. Then the median ms of 20
+    decodes and 20 encodes of a 640x480 quality-95 4:2:0 image."""
+    import hashlib
+    from sipmask_tpu_torch import native
+    from sipmask_tpu_torch.data import image_io
+    from sipmask_tpu_torch.native import jpeg
+    root = Path(__file__).resolve().parent
+    path = jpeg.library_path()
+    if path.parent != root / "build" / "native" or \
+            path.name != native.library_name(jpeg.SRC) or \
+            jpeg.SRC != root / "sipmask_tpu_torch" / "native" / "jpeg.cpp":
+        raise AssertionError(f"{path} is not this checkout's build of "
+                             "sipmask_tpu_torch/native/jpeg.cpp")
+    fixtures = root / "tests" / "data" / "jpeg"
+    with open(fixtures / "digests.json") as f:
+        digests = json.load(f)
+    for fname, want in sorted(digests["decoded"].items()):
+        img = image_io.imread(str(fixtures / fname))
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != want["shape"] or got != want["sha256"]:
+            raise AssertionError(f"JPEG decode of {fname}: shape "
+                                 f"{img.shape}, sha256 {got}; cv2.imread "
+                                 f"gave {want}")
+    for e in digests["encoded"]:
+        h, w = e["shape"]
+        img = np.random.RandomState(e["seed"]).randint(0, 256, (h, w, 3),
+                                                       np.uint8)
+        got = hashlib.sha256(image_io.imencode_jpeg(
+            img, e["quality"])).hexdigest()
+        if got != e["sha256"]:
+            raise AssertionError(f"JPEG encode of {e}: sha256 {got}")
+    log(f"JPEG codec: {len(digests['decoded'])} fixtures decode to "
+        f"cv2.imread's pixels and {len(digests['encoded'])} seeded images "
+        f"encode to cv2.imencode's bytes (sha256 equal)")
+    # a 640x480 image with a photograph's mix of smooth areas and noise
+    rng = np.random.RandomState(SEED)
+    yy, xx = np.mgrid[:480, :640]
+    img = (np.stack([(xx * 7 + yy * 3) % 256, (xx * 2 + yy * 11 + 40) % 256,
+                     ((xx - yy) * 5) % 256], -1)
+           + rng.randint(0, 40, (480, 640, 3))).clip(0, 255).astype(np.uint8)
+    data = image_io.imencode_jpeg(img, 95)
+    if not np.array_equal(image_io.imdecode(data).shape, (480, 640, 3)):
+        raise AssertionError("640x480 decode shape")
+    dec = median_ms(lambda: image_io.imdecode(data))
+    enc = median_ms(lambda: image_io.imencode_jpeg(img, 95))
+    log(f"JPEG 640x480 q95 4:2:0 ({len(data)} bytes): decode "
+        f"{dec:.3f} ms, encode {enc:.3f} ms (median of 20, one thread); "
+        f"host CPU: {cpu_model()}; card: {smi}")
+    return dec, enc
+
+
 def build_kernels():
     """Phase 2: one nvcc per source of KERNELS and g++ for the mask codec
-    (``native/maskops.cpp``), all started together; logs each build's
-    seconds and ptxas's register and spill lines."""
+    (``native/maskops.cpp``) and the JPEG codec (``native/jpeg.cpp``), all
+    started together; logs each build's seconds and ptxas's register and
+    spill lines."""
     from sipmask_tpu_torch import native as codec
+    from sipmask_tpu_torch.native import jpeg
     from sipmask_tpu_torch.ops import native
     t0 = time.perf_counter()
     failed = []
@@ -4612,22 +4753,25 @@ def build_kernels():
         try:
             if src == "maskops":
                 codec.load()
+            elif src == "jpeg":
+                jpeg.load()
             else:
                 native.load(src)
         except Exception as exc:   # reported and raised below
             failed.append((src, exc))
     threads = [threading.Thread(target=build, args=(src,)) for src in
                sorted({src[:-3] for src, _ in KERNELS.values()}
-                      | {"maskops"})]
+                      | {"maskops", "jpeg"})]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if failed:
         raise RuntimeError(f"kernel builds failed: {failed}")
-    log(f"built kernels and the codec in {time.perf_counter() - t0:.1f} s; "
-        f"the codec: g++ {codec.BUILD_LOG['seconds']} s, "
-        f"{codec.library_path()}")
+    log(f"built kernels and the codecs in {time.perf_counter() - t0:.1f} s; "
+        f"the mask codec: g++ {codec.BUILD_LOG['seconds']} s, "
+        f"{codec.library_path()}; the JPEG codec: g++ "
+        f"{jpeg.BUILD_LOG['seconds']} s, {jpeg.library_path()}")
     for kname, (secs, ptxas) in native.BUILD_LOG.items():
         lines = [ln for ln in ptxas.splitlines() if "registers" in ln
                  or "spill" in ln]
@@ -4685,6 +4829,9 @@ def main():
 
     # ---- 2. build: one nvcc per source, all at once
     timed("2", build_kernels)
+
+    # ---- 31. the JPEG codec against cv2's digests, and its host ms
+    timed("31", phase_jpeg, smi)
 
     # ---- 3. kernels against their plain versions
     errs, times, extra = {}, {}, {}

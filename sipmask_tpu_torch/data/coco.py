@@ -4,7 +4,8 @@ contiguous label mapping (1..80, background 0), mmdet's annotation filters
 (skip iscrowd, area <= 0, w/h < 1; drop images without gt or smaller than
 32px), and polygon rasterization with ``imgops.fill_polygons``
 (cv2.fillPoly's pixels), also used for the eval's gt masks. Images are read
-with ``image_io.imread`` (PNG and PPM / PGM; no JPEG decoder).
+with ``image_io.imread``: JPEG (the C++ codec), PNG and PPM / PGM, as
+``cv2.imread`` reads them.
 """
 
 from __future__ import annotations

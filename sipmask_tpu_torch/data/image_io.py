@@ -1,9 +1,20 @@
-"""Image files without cv2 or PIL: ``imread`` gives what
-``cv2.imread(path, IMREAD_COLOR)`` gives (BGR uint8) for PNG and binary
-PPM / PGM files, and ``imwrite_png`` writes PNG. PNG rows are unfiltered
-with numpy: None and Up at once, Sub as a running sum mod 256 (cv2 writes
-Sub on every row), Average and Paeth one row and byte at a time. Other
-formats, JPEG among them, raise ``ValueError``.
+"""Image files without cv2 or PIL, as cv2 reads and writes them.
+
+- ``imread(path)`` gives what ``cv2.imread(path, IMREAD_COLOR)`` gives
+  (BGR uint8) for JPEG, PNG and binary PPM / PGM files, chosen by the
+  file's first bytes; ``imdecode(buf)`` gives ``cv2.imdecode(buf,
+  IMREAD_COLOR)``'s image of a JPEG file's bytes. Other formats raise
+  ``ValueError``.
+- ``imencode_jpeg(img, quality)`` gives the bytes of ``cv2.imencode(".jpg",
+  img, [IMWRITE_JPEG_QUALITY, quality])`` (baseline, 4:2:0);
+  ``imwrite_jpeg`` writes them. ``imwrite_png`` writes PNG.
+
+JPEG goes through the C++ codec ``native/jpeg.cpp`` (libjpeg-turbo's
+arithmetic: the islow IDCT and FDCT, fancy upsampling, its colour tables;
+EXIF orientation applied as cv2 applies it; arithmetic-coded, lossless,
+hierarchical and 12-bit files raise). PNG rows are unfiltered with numpy:
+None and Up at once, Sub as a running sum mod 256 (cv2 writes Sub on every
+row), Average and Paeth one row and byte at a time.
 """
 
 from __future__ import annotations
@@ -13,28 +24,66 @@ import zlib
 
 import numpy as np
 
+from ..native import jpeg
+
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIG = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type -> samples
-READS = ("PNG (grey or RGB, with or without alpha, 8 or 16 bits, not "
-         "interlaced) and binary PPM / PGM")
+READS = ("JPEG (baseline and progressive Huffman, 8 bits), PNG (grey or "
+         "RGB, with or without alpha, 8 or 16 bits, not interlaced) and "
+         "binary PPM / PGM")
 
 
 def imread(path: str) -> np.ndarray:
     """(h, w, 3) BGR uint8, as ``cv2.imread(path, cv2.IMREAD_COLOR)``:
     grey is repeated into three channels, alpha dropped, 16-bit samples
-    keep their high byte."""
+    keep their high byte; a JPEG file's EXIF orientation is applied, and
+    one cut short decodes as libjpeg leaves it (the rest of the scan grey,
+    a progressive file's missing coefficients block-smoothed)."""
     with open(path, "rb") as f:
         data = f.read()
+    if data.startswith(_JPEG_SIG):
+        try:
+            return jpeg.decode(data, whole=False)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     if data.startswith(_PNG_SIG):
         img = _read_png(data, path)
     elif data[:2] in (b"P5", b"P6"):
         img = _read_pnm(data, path)
     else:
         raise ValueError(f"{path}: not a file this reader takes; it reads "
-                         f"{READS} (no JPEG decoder)")
+                         f"{READS}")
     if img.shape[2] == 1:
         img = np.repeat(img, 3, 2)
     return np.ascontiguousarray(img[..., ::-1])   # RGB -> BGR
+
+
+def imdecode(buf) -> np.ndarray:
+    """(h, w, 3) BGR uint8 of a JPEG file's bytes (bytes or a uint8
+    array), as ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``; data that ends
+    before its EOI marker raises, where cv2 gives None."""
+    data = (np.frombuffer(buf, np.uint8)
+            if isinstance(buf, (bytes, bytearray, memoryview))
+            else np.asarray(buf, np.uint8).reshape(-1))
+    if data[:3].tobytes() != _JPEG_SIG:
+        raise ValueError("imdecode reads JPEG only")
+    return jpeg.decode(data)
+
+
+def imencode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """The JPEG file of an (h, w, 3) BGR uint8 image: the bytes of
+    ``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])``
+    (baseline, 4:2:0, JFIF, the IJG tables scaled by ``quality``)."""
+    return jpeg.encode(img, quality)
+
+
+def imwrite_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write ``imencode_jpeg(img, quality)`` to ``path``, the file
+    ``cv2.imwrite(path, img)`` writes at its default quality of 95."""
+    data = imencode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def imwrite_png(path: str, img: np.ndarray) -> None:

@@ -9,7 +9,8 @@ boxes, segmentations and areas).
 - ``gt_pids``: for each gt of the current frame, 1 + its index among the
   reference frame's gts, 0 when the object is absent there;
 - ``iter_videos`` / ``load_frame``: the frames of each video in order,
-  read with ``image_io.imread`` (PNG and PPM / PGM; no JPEG decoder).
+  read with ``image_io.imread`` (JPEG through the C++ codec, PNG and
+  PPM / PGM, as ``cv2.imread`` reads them).
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """The C++ mask codec of the evaluation path (``native/maskops.cpp``):
 COCO's compressed RLE and run-space mask geometry, bound with ``ctypes``.
+The JPEG codec (``native/jpeg.cpp``, bound in ``native/jpeg.py``) is built
+by the same helpers.
 
 At first use ``maskops.cpp`` is compiled with ``g++ -O3 -shared -fPIC
 -std=c++17`` into ``build/native/maskops-<hash>.so`` at the root of the
-checkout, where the hash covers the source and the flags; a changed source
-builds anew under another name. Nothing is built when the module is
-imported, and nothing falls back: a missing ``g++`` or a failed build
-raises. The plain numpy versions (``eval/rle.py``, the ``*_plain``
+checkout (``jpeg.cpp`` into ``build/native/jpeg-<hash>.so``), where the
+hash covers the source and the flags; a changed source builds anew under
+another name. Nothing is built when the module is imported, and nothing
+falls back: a missing ``g++`` or a failed build raises. The plain numpy versions (``eval/rle.py``, the ``*_plain``
 functions of ``eval/maskops.py``) give the same bytes and numbers; the
 tests hold the codec against them.
 
@@ -48,32 +50,35 @@ _lock = threading.Lock()
 BUILD_LOG = {"seconds": None}
 
 
-def find_cxx() -> str:
+def find_cxx(src: Path = SRC) -> str:
     """Path of ``g++`` on PATH. Raises RuntimeError when there is none."""
     found = shutil.which("g++")
     if found is None:
         raise RuntimeError(
-            "g++ not found on PATH: the mask codec of sipmask_tpu_torch is "
-            "compiled from sipmask_tpu_torch/native/maskops.cpp at first use")
+            f"g++ not found on PATH: sipmask_tpu_torch compiles "
+            f"sipmask_tpu_torch/native/{Path(src).name} at first use")
     return found
 
 
 def library_name(src: Path = SRC) -> str:
-    """``maskops-<hash>.so``: the hash covers the source and the flags."""
+    """``<stem>-<hash>.so`` (``maskops-<hash>.so`` for the mask codec): the
+    hash covers the source and the flags."""
     digest = hashlib.sha1(Path(src).read_bytes()
                           + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return f"maskops-{digest}.so"
+    return f"{Path(src).stem}-{digest}.so"
 
 
-def build(src: Path = SRC, out_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``src`` into ``out_dir/maskops-<hash>.so`` unless it is there,
-    and return its path. The build goes into a temporary file that is then
-    renamed, so that a concurrent process never loads a half-written
-    library."""
+def build(src: Path = SRC, out_dir: Path = BUILD_DIR,
+          log: Optional[dict] = None) -> Path:
+    """Compile ``src`` into ``out_dir/<stem>-<hash>.so`` unless it is there,
+    and return its path; the seconds of a build made here go into
+    ``log["seconds"]`` (``BUILD_LOG`` by default). The build goes into a
+    temporary file that is then renamed, so that a concurrent process never
+    loads a half-written library."""
     out = Path(out_dir) / library_name(src)
     if out.exists():
         return out
-    cxx = find_cxx()
+    cxx = find_cxx(src)
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
@@ -85,7 +90,8 @@ def build(src: Path = SRC, out_dir: Path = BUILD_DIR) -> Path:
             raise RuntimeError(f"g++ failed to build {src} "
                                f"(exit {res.returncode}):\n{res.stderr}")
         os.replace(tmp, out)
-        BUILD_LOG["seconds"] = time.perf_counter() - t0
+        (BUILD_LOG if log is None else log)["seconds"] = \
+            time.perf_counter() - t0
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -1,5 +1,6 @@
-"""Write a synthetic COCO-format instance-segmentation set with PNG images.
-numpy only; deterministic for a seed. Two kinds:
+"""Write a synthetic COCO-format instance-segmentation set with JPEG images
+(quality 95, 4:2:0: the files ``cv2.imwrite`` writes for the same pixels).
+numpy and the port's C++ JPEG codec; deterministic for a seed. Two kinds:
 
 - the default: filled polygons (annotated as polygons) and ellipses
   (annotated as compressed RLE) on a noise background, with the 80 COCO
@@ -8,7 +9,7 @@ numpy only; deterministic for a seed. Two kinds:
     python -m sipmask_tpu_torch.tools.synth_coco OUT_DIR \\
         --sizes 640x480 640x427 500x375 612x612 --repeat 2
 
-  writes ``OUT_DIR/ann.json`` and ``OUT_DIR/images/*.png`` (sizes are
+  writes ``OUT_DIR/ann.json`` and ``OUT_DIR/images/*.jpg`` (sizes are
   width x height, each used ``--repeat`` times);
 - ``--shapes``: the JAX package's two-class set of its overfit protocol
   (``tools/synth_coco.py``: bright ellipses 'disc', id 1, and grey rotated
@@ -22,7 +23,8 @@ numpy only; deterministic for a seed. Two kinds:
     python -m sipmask_tpu_torch.tools.synth_coco OUT_DIR --shapes \\
         --num-images 8 --size 256
 
-  writes ``OUT_DIR/ann.json`` and ``OUT_DIR/imgs/*.png``.
+  writes ``OUT_DIR/ann.json`` and ``OUT_DIR/imgs/*.jpg``, as the JAX tool
+  does.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import os
 import numpy as np
 
 from ..data.coco import COCO_CLASSES
-from ..data.image_io import imwrite_png
+from ..data.image_io import imwrite_jpeg
 from ..data.imgops import fill_polygons
 from ..eval.rle import encode_mask
 
@@ -92,8 +94,8 @@ def make_dataset(out_dir, sizes=SMOKE_SIZES, repeat=2, min_objs=8,
                 category_id=int(COCO_IDS[rng.randint(len(COCO_IDS))]),
                 bbox=[x1, y1, int(xs.max()) - x1 + 1, int(ys.max()) - y1 + 1],
                 area=int(mask.sum()), iscrowd=0, segmentation=seg))
-        name = f"{i:04d}.png"
-        imwrite_png(os.path.join(img_dir, name), img)
+        name = f"{i:04d}.jpg"
+        imwrite_jpeg(os.path.join(img_dir, name), img)
         images.append(dict(id=i + 1, file_name=name, width=w, height=h))
     ann_file = os.path.join(out_dir, "ann.json")
     with open(ann_file, "w") as f:
@@ -127,8 +129,8 @@ def _ellipse_polygon(cx, cy, a, b):
 
 def make_shapes_dataset(out_dir, num_images=8, size=256, max_objs=3,
                         seed=0):
-    """The JAX package's ``tools/synth_coco.make_dataset`` set, as PNG;
-    returns (ann_file, image_dir)."""
+    """The JAX package's ``tools/synth_coco.make_dataset`` set; returns
+    (ann_file, image_dir)."""
     rng = np.random.RandomState(seed)
     img_dir = os.path.join(out_dir, "imgs")
     os.makedirs(img_dir, exist_ok=True)
@@ -165,8 +167,8 @@ def make_shapes_dataset(out_dir, num_images=8, size=256, max_objs=3,
                 id=len(annotations) + 1, image_id=i + 1, category_id=cat,
                 bbox=[x1, y1, int(xs.max()) - x1 + 1, int(ys.max()) - y1 + 1],
                 area=int(mask.sum()), iscrowd=0, segmentation=seg))
-        name = f"{i:04d}.png"
-        imwrite_png(os.path.join(img_dir, name), img)
+        name = f"{i:04d}.jpg"
+        imwrite_jpeg(os.path.join(img_dir, name), img)
         images.append(dict(id=i + 1, file_name=name, width=size,
                            height=size))
     ann_file = os.path.join(out_dir, "ann.json")

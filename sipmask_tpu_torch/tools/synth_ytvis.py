@@ -1,17 +1,18 @@
-"""Write a small synthetic YouTube-VIS-format set with PNG frames: per
+"""Write a small synthetic YouTube-VIS-format set with JPEG frames: per
 video, 1 to ``--max-objects`` shapes (bright ellipses 'disc', id 1; grey
 rotated boxes 'slab', id 2) moving linearly over dark noise, with
-per-frame polygon segmentations and track ids. numpy only; the JAX
-package's ``tools/synth_ytvis.py`` with the same options and the same
-``RandomState`` draws in the same order (so videos, objects, motions and
-colours are its own), written as PNG. Each shape is annotated as the
-polygon it is filled from (a disc as the 73-point polygon of
+per-frame polygon segmentations and track ids. numpy and the port's C++
+JPEG codec; the JAX package's ``tools/synth_ytvis.py`` with the same
+options and the same ``RandomState`` draws in the same order (so videos,
+objects, motions and colours are its own), written as JPEG at quality 95
+(``cv2.imwrite``'s bytes for the same pixels). Each shape is annotated as
+the polygon it is filled from (a disc as the 73-point polygon of
 ``cv2.ellipse``, a slab as its clipped corners), not as traced contours:
 
     python -m sipmask_tpu_torch.tools.synth_ytvis OUT_DIR \\
         --num-videos 4 --frames 4 --size 256
 
-writes ``OUT_DIR/ann.json`` and ``OUT_DIR/imgs/vNNN/NNN.png``.
+writes ``OUT_DIR/ann.json`` and ``OUT_DIR/imgs/vNNN/NNN.jpg``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import os
 
 import numpy as np
 
-from ..data.image_io import imwrite_png
+from ..data.image_io import imwrite_jpeg
 from ..data.imgops import fill_polygons
 from .synth_coco import _box_points, _ellipse_polygon
 
@@ -76,8 +77,8 @@ def make_dataset(out_dir, num_videos=6, frames=4, size=256, seed=0,
                 tr["segmentations"].append(
                     [pts.reshape(-1).astype(float).tolist()])
                 tr["areas"].append(int(mask.sum()))
-            fn = f"{vdir}/{fi:03d}.png"
-            imwrite_png(os.path.join(img_root, fn), img)
+            fn = f"{vdir}/{fi:03d}.jpg"
+            imwrite_jpeg(os.path.join(img_root, fn), img)
             file_names.append(fn)
         videos.append(dict(id=vi + 1, file_names=file_names, width=size,
                            height=size, length=frames))

@@ -1,7 +1,7 @@
 """The port's data pipeline (sipmask_tpu_torch/data) against cv2 and against
 the JAX package's, which reads and resizes with cv2: the resizes and the
-polygon fill of ``imgops``, the PNG reader, ``CocoDataset``, the train and
-test transforms and the loaders' batches, on small images."""
+polygon fill of ``imgops``, the PNG and JPEG readers, ``CocoDataset``, the
+train and test transforms and the loaders' batches, on small images."""
 
 import json
 import struct
@@ -193,11 +193,22 @@ def test_imread_undoes_average_and_paeth(tmp_path, filt):
     np.testing.assert_array_equal(cv2.imread(str(path)), img[..., ::-1])
 
 
-def test_imread_refuses_jpeg(tmp_path):
+def test_imread_reads_jpeg_as_cv2_does(tmp_path):
+    """cv2's JPEG file (quality 95, 4:2:0) reads as ``cv2.imread`` reads it,
+    pixel for pixel, and ``imdecode`` of its bytes as ``cv2.imdecode``; a
+    format the reader does not take (BMP) raises with the file's name."""
     path = str(tmp_path / "x.jpg")
     cv2.imwrite(path, _image((16, 16), 3))
-    with pytest.raises(ValueError, match="x.jpg.*PNG"):
-        image_io.imread(path)
+    np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))
+    with open(path, "rb") as f:
+        data = f.read()
+    np.testing.assert_array_equal(
+        image_io.imdecode(data),
+        cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+    bmp = str(tmp_path / "x.bmp")
+    cv2.imwrite(bmp, _image((16, 16), 3))
+    with pytest.raises(ValueError, match="x.bmp.*JPEG.*PNG"):
+        image_io.imread(bmp)
 
 
 # ------------------------------------------------- dataset and transforms
@@ -205,7 +216,7 @@ def test_imread_refuses_jpeg(tmp_path):
 @pytest.fixture(scope="module")
 def synth(tmp_path_factory):
     """A tiny COCO set written by the port's synth tool: landscape and
-    portrait PNGs, polygons and RLE."""
+    portrait JPEGs, polygons and RLE."""
     from sipmask_tpu_torch.tools.synth_coco import make_dataset
     out = str(tmp_path_factory.mktemp("synth"))
     ann, img_dir = make_dataset(out, sizes=((160, 120), (150, 100),
@@ -226,7 +237,9 @@ def test_synth_shapes_match_the_jax_tool(tmp_path, seed):
     categories; annotation boxes within 1 px; slab masks (the corner
     polygon, filled as cv2 fills it) exact; disc masks (cv2's ellipse
     polygon through the polygon fill instead of cv2's convex fill) at a
-    mask IoU of 0.98 or more with cv2's."""
+    mask IoU of 0.98 or more with cv2's. The port's ``CocoDataset`` over
+    the JAX tool's own JPEG set gives the JAX ``CocoDataset``'s images bit
+    for bit."""
     import importlib.util
     import os
     from sipmask_tpu.data.coco import CocoDataset as JDataset
@@ -254,6 +267,7 @@ def test_synth_shapes_match_the_jax_tool(tmp_path, seed):
         assert isinstance(a["segmentation"], list if a["category_id"] == 2
                           else dict)
     j_ds, p_ds = JDataset(*j_files), CocoDataset(*p_files)
+    p_on_j = CocoDataset(*j_files)
     ious = {1: [], 2: []}
     for i in range(8):
         (_, jl, jm), (_, pl, pm) = j_ds.get_ann(i), p_ds.get_ann(i)
@@ -261,10 +275,50 @@ def test_synth_shapes_match_the_jax_tool(tmp_path, seed):
         for label, a, b in zip(pl, pm, jm):
             ious[int(label)].append((a & b).sum() / (a | b).sum())
         assert p_ds.load_image(i).shape == (256, 256, 3)
+        np.testing.assert_array_equal(p_on_j.load_image(i),
+                                      j_ds.load_image(i))
     assert ious[1] and ious[2]
     assert min(ious[2]) == 1.0
     assert min(ious[1]) >= 0.98
 
+
+
+@pytest.mark.parametrize("tool,kwargs", [
+    ("synth_coco", dict(sizes=((61, 45), (40, 70)), repeat=1, min_objs=2,
+                        max_objs=3)),
+    ("synth_coco", dict(shapes=True, num_images=2, size=72)),
+    ("synth_ytvis", dict(num_videos=2, frames=2, size=56)),
+])
+def test_synth_files_are_the_files_cv2_writes(tmp_path, monkeypatch, tool,
+                                              kwargs):
+    """Each image the port's synth tools encode is written as the bytes of
+    ``cv2.imencode(".jpg", img)`` for the same array (the JAX tools'
+    ``cv2.imwrite``), and cv2 decodes the file to the array it decodes
+    from its own encoding; the port reads it as cv2 does."""
+    import importlib
+    module = importlib.import_module(f"sipmask_tpu_torch.tools.{tool}")
+    written = []
+    real = module.imwrite_jpeg
+
+    def recording(path, img, quality=95):
+        written.append((path, img.copy()))
+        real(path, img, quality)
+    monkeypatch.setattr(module, "imwrite_jpeg", recording)
+    make = (module.make_shapes_dataset if kwargs.pop("shapes", False)
+            else module.make_dataset)
+    make(str(tmp_path / "set"), seed=3, **kwargs)
+    assert len(written) >= 2
+    for path, img in written:
+        assert path.endswith(".jpg")
+        with open(path, "rb") as f:
+            data = f.read()
+        ok, want = cv2.imencode(".jpg", img)
+        assert ok and data == want.tobytes()
+        np.testing.assert_array_equal(
+            cv2.imread(path),
+            cv2.imdecode(want, cv2.IMREAD_COLOR))
+        np.testing.assert_array_equal(image_io.imread(path),
+                                      cv2.imread(path))
 
 
 @pytest.mark.parametrize("argv,kwargs", [

@@ -4,7 +4,7 @@ bridge, the initialisation, extract_center_feats and the match loss on
 fixed selections, tracker_step on the sequences of tests/test_vis.py and on
 a random stream, compute_losses with loss_match, whole-model gradients and
 a 2-step SGD trajectory with both frames, and run_video_inference on a tiny
-PNG video set. The model cases run the VIS preset shrunk (FPN and head 32
+JPEG video set. The model cases run the VIS preset shrunk (FPN and head 32
 wide, its own stacked_convs 3, sipmask_track 512 wide as the JAX head fixes
 it; videos at 128x160); one JAX compile per case, shared through module
 fixtures. The training cases run at 256x320, as tests/test_torch_train.py
@@ -541,32 +541,78 @@ def test_tracker_step_matches_jax(name):
 
 # ---------------------------------------------------------- video driver
 
-def test_run_video_inference_matches_jax(weights, tmp_path):
-    """A tiny PNG video set (3 videos of 3 frames, 96x96, written by the
+class _NotingFrames:
+    """A video dataset that notes (video id, frame) of the frame last
+    loaded, for the paste that follows it."""
+
+    def __init__(self, dataset):
+        self.dataset, self.at = dataset, None
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def load_frame(self, vid_idx, frame_id):
+        self.at = (self.dataset.videos[vid_idx]["id"], frame_id)
+        return self.dataset.load_frame(vid_idx, frame_id)
+
+
+def test_run_video_inference_matches_jax(weights, tmp_path, monkeypatch):
+    """A tiny JPEG video set (3 videos of 3 frames, 96x96, written by the
     port's synth_ytvis) through both packages' run_video_inference on the
     same weights: the same tracks in the same order, categories, scores to
-    1e-5 and the RLEs byte for byte; then finite YTVIS stats from both
-    evaluators, equal."""
+    1e-5 and the RLEs byte for byte, except at a pixel whose pasted value
+    lies within NEAR_THR of the mask threshold in both packages (the port's
+    device paste and JAX's cv2 resize round apart by a float32 ulp there);
+    then finite YTVIS stats from both evaluators, equal."""
+    import cv2
+    import sipmask_tpu.apis.test_video as j_test_video
     from sipmask_tpu.apis.test_video import (
         run_video_inference as j_run_video_inference)
     from sipmask_tpu.data.ytvos import YTVOSDataset as JDataset
     from sipmask_tpu.eval.ytvos_eval import YTVOSEvaluator as JEvaluator
+    from sipmask_tpu_torch.apis import test_video
     from sipmask_tpu_torch.apis.inference import Detector
     from sipmask_tpu_torch.apis.test_video import run_video_inference
     from sipmask_tpu_torch.data.ytvos import YTVOSDataset
+    from sipmask_tpu_torch.eval.rle import decode_mask
     from sipmask_tpu_torch.eval.ytvos_eval import YTVOSEvaluator
     from sipmask_tpu_torch.tools.synth_ytvis import make_dataset
+    NEAR_THR = 1e-6
     cfg, sd, variables = weights
     cfg = _r(cfg, "model.track", max_tracks=8)
+    thr = cfg.model.test.mask_thr
     ann, imgs = make_dataset(str(tmp_path), num_videos=3, frames=3, size=96,
                              seed=1, max_objects=3)
+    # each package's pixels within NEAR_THR of the threshold, by frame
+    j_near, near = {}, {}
+    j_frames = _NotingFrames(JDataset(ann, imgs, test_mode=True))
+    frames = _NotingFrames(YTVOSDataset(ann, imgs, test_mode=True))
+
+    class NotingCv2:
+        def __getattr__(self, name):
+            return getattr(cv2, name)
+
+        def resize(self, *args, **kwargs):
+            out = cv2.resize(*args, **kwargs)
+            tie = np.zeros((96, 96), bool)
+            m = np.abs(out[:96, :96] - thr) <= NEAR_THR
+            tie[:m.shape[0], :m.shape[1]] = m
+            j_near[j_frames.at] = j_near.get(j_frames.at, False) | tie
+            return out
+    monkeypatch.setattr(j_test_video, "cv2", NotingCv2())
+    paste = test_video.paste_masks
+
+    def noting_paste(masks, scale_factor, ori_shape, mask_thr):
+        tie = (paste(masks, scale_factor, ori_shape, mask_thr - NEAR_THR)
+               & ~paste(masks, scale_factor, ori_shape, mask_thr + NEAR_THR))
+        near[frames.at] = near.get(frames.at, False) | tie.any(0).numpy()
+        return paste(masks, scale_factor, ori_shape, mask_thr)
+    monkeypatch.setattr(test_video, "paste_masks", noting_paste)
     want = j_run_video_inference(j_build_model(cfg.model), variables, cfg,
-                                 JDataset(ann, imgs, test_mode=True),
-                                 progress=False)
+                                 j_frames, progress=False)
     model = build_model(cfg.model)
     model.load_state_dict(sd)
-    got = run_video_inference(Detector(cfg, model.eval(), "cpu"),
-                              YTVOSDataset(ann, imgs, test_mode=True),
+    got = run_video_inference(Detector(cfg, model.eval(), "cpu"), frames,
                               progress=False)
     assert len(got) == len(want) > 3
     for g, w in zip(got, want):
@@ -574,11 +620,15 @@ def test_run_video_inference_matches_jax(weights, tmp_path):
                                                      w["category_id"])
         np.testing.assert_allclose(g["score"], w["score"], rtol=0, atol=1e-5)
         assert len(g["segmentations"]) == len(w["segmentations"]) == 3
-        for a, b in zip(g["segmentations"], w["segmentations"]):
+        for fi, (a, b) in enumerate(zip(g["segmentations"],
+                                        w["segmentations"])):
             assert (a is None) == (b is None)
             if a is not None:
                 assert a["size"] == list(b["size"])
-                assert a["counts"] == b["counts"]
+                if a["counts"] != b["counts"]:
+                    apart = decode_mask(a) != decode_mask(b)
+                    key = (g["video_id"], fi)
+                    assert (apart <= (near[key] & j_near[key])).all(), key
     ev, jev = YTVOSEvaluator(ann), JEvaluator(ann)
     ev.update(got)
     jev.update(want)

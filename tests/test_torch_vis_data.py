@@ -28,11 +28,11 @@ from sipmask_tpu_torch.tools.synth_ytvis import make_dataset
 @pytest.fixture(scope="module")
 def synth(tmp_path_factory):
     """5 videos of 4 frames at 96x96, 1-3 moving objects each, written by
-    the port's tool as PNG; the first track of each video is absent from
+    the port's tool as JPEG; the first track of each video is absent from
     its second frame (None entries: gt_pids 0 for its other frames), and
-    the last video is portrait (its frames padded into 120x96), so the
-    loaders group two aspects."""
-    from sipmask_tpu_torch.data.image_io import imread, imwrite_png
+    the last video is portrait (its frames padded into 120x96 and written
+    again), so the loaders group two aspects."""
+    from sipmask_tpu_torch.data.image_io import imread, imwrite_jpeg
     out = tmp_path_factory.mktemp("vis")
     ann, imgs = make_dataset(str(out), num_videos=5, frames=4, size=96,
                              seed=2, max_objects=3)
@@ -43,7 +43,7 @@ def synth(tmp_path_factory):
         img = imread(f"{imgs}/{fn}")
         tall = np.zeros((120, 96, 3), np.uint8)
         tall[:96] = img
-        imwrite_png(f"{imgs}/{fn}", tall)
+        imwrite_jpeg(f"{imgs}/{fn}", tall)
     v["height"] = 120
     first = {}
     for a in data["annotations"]:
@@ -176,6 +176,29 @@ def test_synth_ytvis_follows_the_jax_tools_draws(synth, tmp_path):
     boxes, _, segs, _ = ds._frame_anns(0, 0)
     for m, a in zip(ds._masks(segs, 96, 96), got["annotations"]):
         assert int(m.sum()) == a["areas"][0]
+
+
+def test_ytvos_dataset_reads_the_jax_tools_set_as_jax_does(tmp_path):
+    """The JAX package's ``tools/synth_ytvis.py`` writes its frames with
+    ``cv2.imwrite``; the port's ``YTVOSDataset`` reads every frame of that
+    set as the JAX ``YTVOSDataset`` (``cv2.imread``) does, bit for bit."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "j_synth_ytvis", os.path.join(os.path.dirname(__file__), "..",
+                                      "tools", "synth_ytvis.py"))
+    jtool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtool)
+    files = jtool.make_dataset(str(tmp_path / "j"), 3, 3, 72, 5, 2)
+    jds, ds = JDataset(*files, True), YTVOSDataset(*files, True)
+    n = 0
+    for v, video in enumerate(ds.videos):
+        for f in range(len(video["file_names"])):
+            assert video["file_names"][f].endswith(".jpg")
+            np.testing.assert_array_equal(ds.load_frame(v, f),
+                                          jds.load_frame(v, f))
+            n += 1
+    assert n == 9
 
 
 # ------------------------------------------------------------ evaluation
