@@ -219,16 +219,48 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     gave (``digests.json``); the median ms of 20 decodes and of 20 encodes
     of a 640x480 quality-95 4:2:0 image, logged with ``lscpu``'s model
     name beside the card's name and power limit; the library loaded must
-    be this checkout's build under build/native.
+    be this checkout's build under build/native;
+32. (run after phase 13, on phase 12's set and checkpoint) data
+    parallelism on the one card, each rank a process that torchrun
+    (``python -m torch.distributed.run``) starts, every process the phase
+    started (torchrun's ranks too) killed when a rank fails, DIST_TIMEOUT
+    passes or the phase raises, and each spawned process's allocator held
+    to a share of the card's memory (DIST_SHARE_A, DIST_SHARE; the card's
+    most memory in use logged): (a) the flagship's train step at 800x1344
+    on 2 ranks of 4 images of a seeded global batch of 8 (gloo on CUDA
+    tensors, cuDNN's heuristic algorithms), launches counted, the ranks'
+    parameters and momentum equal, against one process on the global
+    batch: step 1's losses within LOSS_TOL, each tensor's update and
+    momentum after 2 steps within max(GRAD_TOL, DIST_NOISE x that tensor's
+    largest error between two of four runs of the one process: with
+    cuDNN's heuristics, again, with the batch's halves swapped, and in
+    cuDNN's benchmark mode); ms of a 2-rank step (the ranks alone on the
+    card), of its gradient all-reduce and of its normaliser reductions;
+    the one process's runs then alone on the card; then, all at once: (b)
+    ``tools/train.py --distributed`` under torchrun at world 1 (NCCL) for
+    2 steps from phase 12's ``load_from`` against ``tools/train.py``
+    without the flag, three times (TF32 off through
+    ``NVIDIA_TF32_OVERRIDE=0``, cuDNN deterministic), each step's metrics
+    recorded: every gradient all-reduce and normaliser reduction of
+    --distributed returns its inputs bit for bit, each step's batch bit
+    for bit (one loader thread), each step's metrics within LOSS_TOL of
+    each plain run's, the checkpoint's parameters and momentum within
+    max(DIST_FLOOR, DIST_NOISE x the largest spread of two plain runs) of
+    each plain run's in the 2-norm (float atomics in the backward make
+    them differ); (c) ``tools/test.py --dist`` on 2 gloo ranks, one group
+    collecting over the process group and one through part files: both
+    ranks the same list, rank 0 alone reporting, each image's results as
+    phase 13's, no part file left, images/s.
 
 Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20-22,
-24-29 and 30's soft-NMS serving) is driven with every launch count set to
-0 just before it and read just after;
+24-29, 30's soft-NMS serving, and 32's two ranks in training and in the
+test driver, their counts summed over the ranks) is driven with every
+launch count set to 0 just before it and read just after;
 a kernel of the path that did not launch fails the run, and so does an f32
 kernel variant on a bf16 path. Any failure raises (non-zero exit, no
 result). Each phase's seconds are logged. The second-to-last line is a JSON
 object of the kernels, the six bf16 variants as kernels of their own
-(launches summed over the thirty paths, with each path's count beside them;
+(launches summed over the thirty-two paths, with each path's count beside them;
 errors and times from phases 3, 6, 9, 19 and 23; each kernel's bound and a
 one-call PyTorch equivalent's time where there is one); the last is the
 device line.
@@ -502,6 +534,9 @@ for _p in ("x101", "hrnet", "fork"):
                 PATH_KERNELS[f"hi-acc bf16 {_kind}"]
 # phase 30: soft-NMS serving drives the hi-acc serving path's kernels
 PATH_KERNELS["hi-acc soft-nms serving"] = PATH_KERNELS["hi-acc serving"]
+# phase 32: the flagship's train step on two ranks, the test driver sharded
+PATH_KERNELS["hi-acc dist training"] = PATH_KERNELS["hi-acc training"]
+PATH_KERNELS["hi-acc dist test driver"] = PATH_KERNELS["hi-acc test driver"]
 # the f32 variants, none of which a bf16 path may launch
 F32_VARIANTS = ("deform_im2col", "deform_conv_backward", "gn_relu",
                 "gn_relu_backward", "deform_rows", "deform_rows_backward")
@@ -3230,7 +3265,6 @@ def phase_test_driver(dev, name, smi, ann, images, ckpt):
                                                   init_detector)
     from sipmask_tpu_torch.apis.test import evaluate_coco, run_inference
     from sipmask_tpu_torch.data.coco import CocoDataset
-    from sipmask_tpu_torch.eval.rle import decode_mask, rle_area
     from sipmask_tpu_torch.utils.checkpoint import load_weights
 
     det = init_detector(CONFIG, dev, seed=SEED)
@@ -3254,40 +3288,58 @@ def phase_test_driver(dev, name, smi, ann, images, ckpt):
     for it, s in stats.items():
         if not all(np.isfinite(v) and -1 <= v <= 1 for v in s.values()):
             raise AssertionError(f"{it} stats {s}")
-    cat2label = {c: lab - 1 for lab, c in ds.label2cat.items()}
     for i in range(len(ds)):
-        mine = [r for r in results if r["image_id"] == ds.image_id(i)]
-        ref = inference_detector(det, ds.load_image(i))
-        if not mine:
-            raise AssertionError(f"image {i}: no results")
-        masks = np.stack([decode_mask(r["segmentation"]) for r in mine])
-        oh, ow = ds.images[i]["height"], ds.images[i]["width"]
-        if masks.shape != (len(mine), oh, ow):
-            raise AssertionError(f"image {i}: masks {masks.shape}")
-        for r, m in zip(mine, masks):
-            if int(m.sum()) != rle_area(r["segmentation"]):
-                raise AssertionError(f"image {i}: an RLE does not decode")
-        boxes = torch.tensor([[x, y, x + w, y + h] for x, y, w, h in
-                              (r["bbox"] for r in mine)])
-        labels = torch.tensor([cat2label[r["category_id"]] for r in mine])
-        near = (((boxes[:, None] - torch.from_numpy(ref["boxes"])[None])
-                 .abs().amax(-1) <= 1e-3)
-                & (labels[:, None] == torch.from_numpy(ref["labels"])[None]))
-        share = min(float(near.any(1).float().mean()),
-                    float(near.any(0).float().mean()))
-        pairs = [(a, int(near[a].nonzero()[0])) for a in range(len(mine))
-                 if near[a].any()]
-        same = np.mean([(masks[a] == ref["masks"][b]).mean()
-                        for a, b in pairs])
-        log(f"image {i} ({oh}x{ow}): {len(mine)} results, "
-            f"{len(ref['labels'])} from inference_detector; matched "
-            f"(label, box within 1e-3) {share:.3f}, matched masks' pixels "
-            f"equal {same:.5f}")
-        if len(mine) != len(ref["labels"]) or share < MATCH_MIN \
-                or same < 0.99:
-            raise AssertionError(f"image {i}: run_inference and "
-                                 "inference_detector disagree")
+        same_detections(f"image {i}", "inference_detector", ds, i, results,
+                        inference_detector(det, ds.load_image(i)))
     return launches, results
+
+
+def coco_detections(ds, i, results):
+    """Image i's COCO results as ``inference_detector``'s dict (boxes,
+    0-based labels, decoded masks)."""
+    from sipmask_tpu_torch.eval.rle import decode_mask
+    cat2label = {c: lab - 1 for lab, c in ds.label2cat.items()}
+    mine = [r for r in results if r["image_id"] == ds.image_id(i)]
+    return dict(
+        boxes=np.asarray([[x, y, x + w, y + h] for x, y, w, h in
+                          (r["bbox"] for r in mine)], np.float32).reshape(
+                              -1, 4),
+        labels=np.asarray([cat2label[r["category_id"]] for r in mine]),
+        masks=np.stack([decode_mask(r["segmentation"]) for r in mine]))
+
+
+def same_detections(label, other, ds, i, results, ref):
+    """Phase 13's comparison of image i's COCO ``results`` with ``ref``
+    (``inference_detector``'s dict): as many detections, MATCH_MIN of
+    them matched by label and box within 1e-3 both ways, the matched
+    masks' pixels 0.99 equal, every RLE decodes to its area."""
+    from sipmask_tpu_torch.eval.rle import decode_mask, rle_area
+    mine = [r for r in results if r["image_id"] == ds.image_id(i)]
+    if not mine:
+        raise AssertionError(f"{label}: no results")
+    oh, ow = ds.images[i]["height"], ds.images[i]["width"]
+    for r in mine:
+        if int(decode_mask(r["segmentation"]).sum()) != rle_area(
+                r["segmentation"]):
+            raise AssertionError(f"{label}: an RLE does not decode")
+    got = coco_detections(ds, i, results)
+    if got["masks"].shape != (len(mine), oh, ow):
+        raise AssertionError(f"{label}: masks {got['masks'].shape}")
+    near = (((torch.from_numpy(got["boxes"])[:, None]
+              - torch.from_numpy(ref["boxes"])[None]).abs().amax(-1) <= 1e-3)
+            & (torch.from_numpy(got["labels"])[:, None]
+               == torch.from_numpy(ref["labels"])[None]))
+    share = min(float(near.any(1).float().mean()),
+                float(near.any(0).float().mean()))
+    pairs = [(a, int(near[a].nonzero()[0])) for a in range(len(mine))
+             if near[a].any()]
+    same = np.mean([(got["masks"][a] == ref["masks"][b]).mean()
+                    for a, b in pairs])
+    log(f"{label} ({oh}x{ow}): {len(mine)} results, {len(ref['labels'])} "
+        f"from {other}; matched (label, box within 1e-3) {share:.3f}, "
+        f"matched masks' pixels equal {same:.5f}")
+    if len(mine) != len(ref["labels"]) or share < MATCH_MIN or same < 0.99:
+        raise AssertionError(f"{label}: the results and {other} disagree")
 
 
 # ------------------------------------------------ the real-time preset
@@ -4738,6 +4790,767 @@ def phase_jpeg(smi):
     return dec, enc
 
 
+# ------------------------------------------------ data parallelism
+
+DIST_BATCH = 2 * BATCH   # 32a's global batch: 2 ranks of BATCH
+DIST_STEPS = 2           # 32a's and 32b's compared steps
+DIST_TIMEOUT = 300       # s: a spawned group's limit, then it is killed
+# 32a: two ranks against one process on the global batch, both with cuDNN's
+# heuristic algorithms. The global sums add the same terms in another order
+# and cuDNN picks other algorithms at batch 4 than at 8: the losses get the
+# kernel-vs-plain step's bound (LOSS_TOL); the momentum (which holds the
+# gradients) and the update of each tensor its gradient bound (GRAD_TOL,
+# of the tensor's max), or DIST_NOISE times that tensor's own yardstick,
+# where that is larger: its largest error between two of four runs of the
+# one process: with the heuristics, again (the backward's float atomics),
+# with the batch's halves swapped (each batch reduction in another order,
+# as the ranks' partial sums add) and in cuDNN's benchmark mode (other
+# algorithms). P7's FPN conv bias, whose gradient nearly cancels, moved by
+# 3.5e-3 of its max with the algorithms alone; a head GroupNorm bias's
+# momentum lay 1.2e-3 from one process with 2 ranks, at 0.92 of a bound
+# from reruns alone. 32b: at
+# world 1 each reduction is the identity, which the --distributed run
+# holds bit for bit on every call (every gradient, loss and normaliser),
+# and each step's batch equals plain's bit for bit (one loader thread). Two
+# runs of the plain train CLI on the same batches differ by a unit in the
+# last place in step 1's losses and more after it (float atomics in the
+# backward; a 1-element bias 3.5x its value, so no per-tensor bound on one
+# pair of runs holds): each step's metrics get LOSS_TOL, and the
+# checkpoint's parameters, and its momentum, DIST_NOISE times the largest
+# spread of two of the three plain runs in the 2-norm over all of their
+# tensors, or DIST_FLOOR where that is larger. The momentum's spread falls
+# in two groups, ~1.2e-5 and ~3.1e-5 (one run of several moves one head
+# tensor's momentum by ~1e-3 of its max), fewer in the larger with cuDNN's
+# deterministic algorithms, which the CLIs run; a run in the larger group
+# beside three in the smaller breaks any bound of 2x their spread, so the
+# momentum's floor is 3x the largest spread measured (3.3e-5 on an H100).
+DIST_NOISE = 2.0
+# 32b: the checkpoint's least bounds, relative 2-norms
+DIST_FLOOR = {"params": 1e-6, "momentum": 1e-4}
+# Each spawned process's allocator is held to a share of the card's memory
+# (torch.cuda.set_per_process_memory_fraction): alone, a process takes
+# what is free (cuDNN's heuristics try the algorithms with the largest
+# workspaces first, and the allocator keeps what they took), and a process
+# beside it then fails for lack of a few MiB. 32a's two ranks run alone
+# (each took 31.95 GiB unheld); 32b's three train CLIs and 32c's four test
+# ranks run at once, each held to DIST_SHARE, which leaves the contexts and
+# this process room.
+DIST_SHARE_A = 0.4
+DIST_SHARE = 0.105
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(nproc):
+    """torchrun's command line for ``nproc`` ranks on this host."""
+    return [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+            "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+            "--master_port", str(free_port())]
+
+
+def marked_pids(mark):
+    """The pids of the live processes whose environment holds ``mark``
+    (a ``NAME=value`` string), read from /proc."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as f:
+                if mark in f.read().split(b"\0"):
+                    pids.append(int(d))
+        except OSError:   # gone, or not ours
+            continue
+    return pids
+
+
+class Spawned:
+    """Commands started in sessions of their own, each with its output in a
+    log file and a mark in its environment that every process it starts
+    inherits. ``wait`` fails the phase on a non-zero exit or at
+    DIST_TIMEOUT; leaving the context kills every marked process that is
+    left, torchrun's ranks too (torchrun starts each in a session of its
+    own, so killing torchrun's session leaves them running), and waits
+    until none is."""
+
+    def __init__(self):
+        self.procs = {}
+        self.mark = f"SIPMASK_SMOKE_GROUP={os.getpid()}-{time.time_ns()}"
+
+    def __enter__(self):
+        return self
+
+    def start(self, label, cmd, logfile, env=None):
+        out = open(logfile, "w")
+        env = dict(os.environ if env is None else env)
+        key, value = self.mark.split("=")
+        env[key] = value
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True, env=env,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)))
+        out.close()
+        self.procs[label] = (proc, logfile, time.perf_counter())
+
+    def wait(self, label):
+        """The command's seconds, once it exited 0."""
+        proc, logfile, t0 = self.procs[label]
+        try:
+            rc = proc.wait(timeout=max(1.0, DIST_TIMEOUT
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(
+                f"{label}: " + ("timed out" if rc is None else f"exit {rc}")
+                + f" after {secs:.1f} s; the end of its output:\n"
+                + Path(logfile).read_text()[-6000:])
+        return secs
+
+    def __exit__(self, *exc):
+        import signal
+        mark = self.mark.encode()
+        deadline = time.perf_counter() + 60
+        while True:
+            pids = marked_pids(mark)
+            for pid in pids:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+            for proc, _, _ in self.procs.values():
+                with contextlib.suppress(subprocess.TimeoutExpired):
+                    proc.wait(timeout=0.1)
+            if not pids:
+                break
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"spawned processes still running: {pids}")
+            time.sleep(0.1)
+
+
+def rank_worker(spec_file):
+    """One process of phase 32: ``kind`` "train" (a rank of 32a), "test"
+    (a rank of 32c) or "cli" (a run of 32b's train CLI, with the CLI's own
+    backend flags)."""
+    with open(spec_file) as f:
+        spec = json.load(f)
+    torch.cuda.set_per_process_memory_fraction(spec["memory_share"], 0)
+    if spec["kind"] != "cli":
+        set_backend_flags()
+    {"train": dist_train_rank, "test": dist_test_rank,
+     "cli": cli_train_run}[spec["kind"]](spec)
+
+
+def peak_gib():
+    """This process's most device memory held by PyTorch's allocator and
+    the most in use in its tensors, GiB."""
+    return [round(torch.cuda.max_memory_reserved(0) / 2 ** 30, 2),
+            round(torch.cuda.max_memory_allocated(0) / 2 ** 30, 2)]
+
+
+class DevicePeak:
+    """The most device memory in use on the card, by every process on it,
+    sampled every 50 ms (cudaMemGetInfo) while the context is open."""
+
+    def __enter__(self):
+        self.gib, self.stop = 0.0, threading.Event()
+
+        def poll():
+            while not self.stop.wait(0.05):
+                free, total = torch.cuda.mem_get_info(0)
+                self.gib = max(self.gib, (total - free) / 2 ** 30)
+        self.thread = threading.Thread(target=poll, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+
+
+@contextlib.contextmanager
+def timed_reductions(timing):
+    """Within the context each call of the step's gradient all-reduce
+    (``all_reduce_sum_``) and of the losses' normaliser reductions
+    (``global_sum``) is synchronised before and after and its ms appended
+    to timing["allreduce"] or timing["normalisers"]."""
+    from sipmask_tpu_torch.models import loss, track
+    from sipmask_tpu_torch.train import step
+    saved = [(mod, attr, key, getattr(mod, attr)) for mod, attr, key in (
+        (step, "all_reduce_sum_", "allreduce"),
+        (loss, "global_sum", "normalisers"),
+        (track, "global_sum", "normalisers"))]
+
+    def wrap(fn, key):
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timing[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    for mod, attr, key, fn in saved:
+        setattr(mod, attr, wrap(fn, key))
+    try:
+        yield
+    finally:
+        for mod, attr, _, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def dist_train_rank(spec):
+    """32a on one rank: the flagship's train step on this rank's BATCH
+    rows of the global batch of DIST_BATCH, DIST_STEPS steps (launches
+    counted), the parameters and momentum held against rank 0's, then two
+    more steps with the reductions timed."""
+    import torch.distributed as dist
+    from sipmask_tpu_torch.config import get_config
+    from sipmask_tpu_torch.parallel import (destroy_distributed,
+                                            init_distributed,
+                                            process_shard_args)
+    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    from sipmask_tpu_torch.utils.demo_inputs import train_batch
+    dev = init_distributed(backend="gloo", device="cuda")
+    rank, world = process_shard_args()
+    cfg = get_config(CONFIG)
+    state = create_train_state(cfg, dev, state_dict=torch.load(
+        spec["weights"], map_location=dev, weights_only=False))
+    rows = slice(rank * BATCH, (rank + 1) * BATCH)
+    batch = {k: v[rows] for k, v in train_batch(
+        DIST_BATCH, 800, 1344, MAX_GTS, SEED, dev).items()}
+    step = make_train_step(state, cfg)
+    metrics, step_ms = [], []
+    timing = {"allreduce": [], "normalisers": []}
+    with cudnn_heuristics():
+        reset_launches()
+        for _ in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: v.item() for k, v in m.items()})
+        launches = read_launches()
+        snap = dict(
+            params={n: p.detach().clone()
+                    for n, p in state.model.named_parameters()},
+            momentum={n: state.optimizer.state[p]["momentum_buffer"].clone()
+                      for n, p in state.model.named_parameters()
+                      if p in state.optimizer.state})
+        flat = torch.cat([v.reshape(-1) for part in snap.values()
+                          for v in part.values()])
+        rank0 = flat.clone()
+        dist.broadcast(rank0, 0)
+        same = bool(torch.equal(rank0, flat))
+        with timed_reductions(timing):
+            for _ in range(2):
+                step(batch)
+    out = dict(metrics=metrics, step_ms=step_ms, launches=launches,
+               same_as_rank0=same, timing=timing, world=world,
+               peak_gib=peak_gib())
+    if rank == 0:
+        out.update(snap)
+    torch.save(out, f"{spec['out']}.{rank}")
+    destroy_distributed()
+
+
+def dist_test_rank(spec):
+    """32c on one rank: tools/test.py with --dist (it joins the group from
+    torchrun's environment), ``run_inference`` recorded: its results, its
+    seconds and the launches of its run."""
+    import pickle
+    from sipmask_tpu_torch.apis import test as test_api
+    from sipmask_tpu_torch.tools import test as test_cli
+    real, rec = test_api.run_inference, {}
+
+    def recorded(*args, **kwargs):
+        reset_launches()
+        t0 = time.perf_counter()
+        rec["results"] = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = read_launches()
+        return rec["results"]
+    test_api.run_inference = recorded
+    rec["stats"] = test_cli.main(spec["argv"])
+    rec["peak_gib"] = peak_gib()
+    with open(f"{spec['out']}.{os.environ['RANK']}.pkl", "wb") as f:
+        pickle.dump(rec, f)
+
+
+def cli_train_run(spec):
+    """32b: tools/train.py with ``spec["argv"]``, each step's metrics and a
+    SHA-256 of its batch recorded. With ``check``, every call of the
+    step's gradient all-reduce and of the losses' normaliser reductions
+    is held bit for bit against its inputs (at world 1 each is the
+    identity), and the group's rank, world and backend are recorded."""
+    import torch.distributed as dist
+    from sipmask_tpu_torch.apis import train as train_api
+    from sipmask_tpu_torch.models import loss, track
+    from sipmask_tpu_torch.parallel import process_shard_args
+    from sipmask_tpu_torch.tools import train as train_cli
+    from sipmask_tpu_torch.train import step as step_mod
+    import hashlib
+    rec = {"metrics": [], "batches": [], "allreduce": 0, "normalisers": 0,
+           "moved": [], "group": None}
+    real_step = train_api.make_train_step
+
+    def recording(state, cfg):
+        fn = real_step(state, cfg)
+
+        def step(batch):
+            digest = hashlib.sha256()
+            for k in sorted(batch):
+                if torch.is_tensor(batch[k]):
+                    digest.update(k.encode())
+                    digest.update(batch[k].cpu().numpy().tobytes())
+            rec["batches"].append(digest.hexdigest())
+            m = fn(batch)
+            rec["metrics"].append({k: v.item() for k, v in m.items()})
+            return m
+        return step
+
+    def same(a, b):
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    def note_group():
+        rec["group"] = [*process_shard_args(), dist.get_backend()]
+
+    def held_all_reduce(fn):
+        def call(params, scalars):
+            params = list(params)
+            grads = [None if p.grad is None else p.grad.clone()
+                     for p in params]
+            before = [s.detach().clone() for s in scalars]
+            out = fn(params, scalars)
+            note_group()
+            rec["allreduce"] += 1
+            rec["moved"] += [
+                f"step {rec['allreduce']} grad {i}"
+                for i, (p, g) in enumerate(zip(params, grads))
+                if (p.grad is None) != (g is None)
+                or (g is not None and not same(p.grad, g))]
+            rec["moved"] += [f"step {rec['allreduce']} scalar {i}"
+                             for i, (a, b) in enumerate(zip(out, before))
+                             if not same(a, b)]
+            return out
+        return call
+
+    def held_global_sum(fn):
+        def call(*scalars):
+            before = [s.detach().clone() for s in scalars]
+            out = fn(*scalars)
+            note_group()
+            rec["normalisers"] += 1
+            rec["moved"] += [f"normaliser call {rec['normalisers']} {i}"
+                             for i, (a, b) in enumerate(zip(out, before))
+                             if not same(a, b)]
+            return out
+        return call
+    train_api.make_train_step = recording
+    # cuDNN's algorithms without atomics, the same in every run
+    torch.backends.cudnn.deterministic = True
+    if spec["check"]:
+        step_mod.all_reduce_sum_ = held_all_reduce(step_mod.all_reduce_sum_)
+        loss.global_sum = held_global_sum(loss.global_sum)
+        track.global_sum = held_global_sum(track.global_sum)
+    train_cli.main(spec["argv"])
+    rec["peak_gib"] = peak_gib()
+    with open(spec["out"], "w") as f:
+        json.dump(rec, f)
+
+
+def write_spec(path, **spec):
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def rel_to_max(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def by_tensor(got, want, label):
+    """Each tensor's error relative to its max, by name."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: tensor names differ")
+    return {n: rel_to_max(got[n], want[n]) for n in want}
+
+
+def show_worst(errs):
+    return ", ".join(f"{e:.3e} {n}" for n, e in sorted(
+        errs.items(), key=lambda kv: -kv[1])[:3])
+
+
+def one_process_steps(dev, cfg, init, heuristics, swapped=False):
+    """DIST_STEPS steps of one process on the whole global batch from
+    ``init`` (``swapped``: its two halves in the other order): metrics, ms,
+    each tensor's update and momentum."""
+    from sipmask_tpu_torch.train import create_train_state, make_train_step
+    from sipmask_tpu_torch.utils.demo_inputs import train_batch
+    state = create_train_state(cfg, dev, state_dict=init)
+    step = make_train_step(state, cfg)
+    batch = train_batch(DIST_BATCH, 800, 1344, MAX_GTS, SEED, dev)
+    if swapped:
+        batch = {k: torch.cat([v[BATCH:], v[:BATCH]])
+                 for k, v in batch.items()}
+    metrics, ms = [], []
+    with cudnn_heuristics() if heuristics else contextlib.nullcontext():
+        for _ in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append({k: v.item() for k, v in step(batch).items()})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    named = dict(state.model.named_parameters())
+    return dict(metrics=metrics, ms=ms,
+                update={n: p.detach() - init[n] for n, p in named.items()},
+                momentum={n: state.optimizer.state[p]["momentum_buffer"]
+                          for n, p in named.items()
+                          if p in state.optimizer.state})
+
+
+def check_dist_train(dev, name, smi, cfg, init, out, secs):
+    """32a's comparison: rank 0's losses, updates and momentum against one
+    process on the global batch (cuDNN's heuristics), beside the one
+    process's own spread over four runs: with the heuristics, again, with
+    the batch's halves swapped, and in benchmark mode."""
+    ranks = [torch.load(f"{out}.{r}", map_location=dev, weights_only=False)
+             for r in range(2)]
+    parts = ("update", "momentum")
+    got = ranks[0]
+    got["update"] = {n: v - init[n] for n, v in got["params"].items()}
+    runs = {label: one_process_steps(dev, cfg, init, *how)
+            for label, how in (("one", (True,)), ("benchmark", (False,)),
+                               ("again", (True,)),
+                               ("swapped", (True, True)))}
+    one = runs["one"]
+    # each tensor's yardstick: its largest error between two of the one
+    # process's runs (the backward's float atomics; the batch reductions
+    # in another order, as 2 ranks sum them; other algorithms in benchmark
+    # mode)
+    labels = list(runs)
+    errs = {}
+    for part in parts:
+        yard = {}
+        for i, a in enumerate(labels):
+            for b in labels[i + 1:]:
+                for n, e in by_tensor(runs[a][part], runs[b][part],
+                                      "32a").items():
+                    yard[n] = max(yard.get(n, 0.0), e)
+        errs[part] = (by_tensor(got[part], one[part], "32a"), yard)
+    ms = {label: run["ms"] for label, run in runs.items()}
+    loss_err = max(abs(got["metrics"][0][k] - v) / max(abs(v), 1e-12)
+                   for k, v in one["metrics"][0].items())
+    rank1_ms = ranks[1]["step_ms"]
+    n_values = sum(v.numel() for v in got["params"].values())
+    one_metrics = one["metrics"][0]
+    del ranks, got["params"], got["update"], got["momentum"], runs, one
+    torch.cuda.empty_cache()
+    # each tensor's bound, and the tensor nearest its bound in each part
+    tight = {}
+    for part, (d, y) in errs.items():
+        tol = {n: max(GRAD_TOL, DIST_NOISE * y[n]) for n in d}
+        n = max(d, key=lambda n: d[n] / tol[n])
+        tight[part] = (d[n] / tol[n], n, d[n], tol[n])
+    timing = got["timing"]
+    log(f"32a: 2 ranks x {BATCH} images at 800x1344 (gloo on CUDA tensors, "
+        f"one card) against one process with {DIST_BATCH}, cuDNN's "
+        f"heuristic algorithms in both; step 1 losses {got['metrics'][0]}, "
+        f"one process {one_metrics}; max relative loss difference "
+        f"{loss_err:.3e} (tol {LOSS_TOL}); after {DIST_STEPS} steps, the "
+        f"largest errors relative to each tensor's max, 2 ranks against one "
+        f"process / the largest between two of the one process's "
+        f"{len(labels)} runs: " + "; ".join(
+            f"{part} {show_worst(d)} / {show_worst(y)}"
+            for part, (d, y) in errs.items())
+        + f" (each tensor's tol max(GRAD_TOL, {DIST_NOISE} x its "
+        f"yardstick)); nearest its tol: " + "; ".join(
+            f"{part} {n} {e:.3e} of tol {t:.3e} ({r:.2f})"
+            for part, (r, n, e, t) in tight.items()))
+    log(f"32a ms a step (host clock to a synchronise, the two ranks alone on "
+        f"the card): 2-rank steps {fmt(got['step_ms'])} (rank 0), "
+        f"{fmt(rank1_ms)} (rank 1); in two more steps, each "
+        f"synchronised on both sides: the gradient all-reduce (one flat f32 "
+        f"buffer of {n_values} "
+        f"parameter values, gloo) {fmt(timing['allreduce'])} ms, the "
+        f"normaliser reductions ({len(timing['normalisers']) // 2} a step) "
+        f"{fmt(timing['normalisers'])} ms; group {secs:.1f} s with start-up;"
+        f" one process with {DIST_BATCH} images "
+        + ", ".join(f"{fmt(v)} ({k})" for k, v in ms.items())
+        + f", alone on the card; on {name} ({smi})")
+    if not loss_err <= LOSS_TOL or not all(
+            t[0] <= 1.0 for t in tight.values()):
+        raise AssertionError(f"32a: 2 ranks and one process disagree: "
+                             f"losses {loss_err}, nearest their tol "
+                             f"{tight}")
+
+
+def check_dist_train_cli(name, smi, runs):
+    """32b's comparison. The --distributed run: NCCL at world 1, each of
+    its reductions the identity bit for bit; against each plain run: each
+    step's batch bit for bit, each step's metrics within LOSS_TOL, the
+    checkpoint's parameters, and its momentum, within max(DIST_FLOOR,
+    DIST_NOISE x the largest spread between two plain runs) in the 2-norm
+    over all tensors."""
+    def load(wd):
+        with open(wd + ".json") as f:
+            rec = json.load(f)
+        ckpt = torch.load(os.path.join(wd, "epoch_1.pth"), weights_only=False)
+        return rec, dict(
+            params=ckpt["state_dict"],
+            momentum={k: v["momentum_buffer"]
+                      for k, v in ckpt["optimizer"]["state"].items()})
+
+    def apart(a, b):
+        """(2-norm of the difference over the norm, tensors that differ,
+        the tensor that differs most relative to its max)."""
+        diff = sum(float((a[k].double() - b[k].double()).square().sum())
+                   for k in b)
+        norm = sum(float(b[k].double().square().sum()) for k in b)
+        worst = max(b, key=lambda k: rel_to_max(a[k], b[k]))
+        return ((diff / max(norm, 1e-300)) ** 0.5,
+                sum(not torch.equal(a[k], b[k]) for k in b),
+                f"{worst} {rel_to_max(a[worst], b[worst]):.2e}")
+
+    def loss_apart(a, b):
+        return max(abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items())
+    dist = load(runs["--distributed"][0])
+    plains = {k: load(v[0]) for k, v in runs.items() if k != "--distributed"}
+    held = dist[0]
+    pairs = [(a, b) for i, a in enumerate(plains)
+             for b in list(plains)[i + 1:]]
+    steps = {k: [loss_apart(d, p) for d, p in zip(
+        held["metrics"], run[0]["metrics"])] for k, run in plains.items()}
+    noise_steps = max(loss_apart(x, y) for a, b in pairs for x, y in zip(
+        plains[a][0]["metrics"], plains[b][0]["metrics"]))
+    step2 = {k: [held["metrics"][-1][k]] + [
+        run[0]["metrics"][-1][k] for run in plains.values()]
+        for k in held["metrics"][-1]}
+    batches = [r[0]["batches"] for r in (dist, *plains.values())]
+    parts = ("params", "momentum")
+    got = {part: {k: apart(dist[1][part], run[1][part])
+                  for k, run in plains.items()} for part in parts}
+    noise = {part: {f"{a} / {b}": apart(plains[a][1][part],
+                                        plains[b][1][part])
+                    for a, b in pairs} for part in parts}
+    tol = {part: max(DIST_FLOOR[part], DIST_NOISE * max(
+        v[0] for v in noise[part].values())) for part in parts}
+    log(f"32b: tools/train.py, {DIST_STEPS} steps from phase 12's load_from "
+        f"(TF32 off, cuDNN deterministic): --distributed under torchrun: "
+        f"(rank, world, backend) "
+        f"{held['group']}, {held['allreduce']} gradient all-reduces and "
+        f"{held['normalisers']} normaliser reductions, each its inputs bit "
+        f"for bit: {not held['moved']} {held['moved'][:5]}; each step's "
+        f"batch the same in the {len(batches)} runs: "
+        f"{len(set(map(tuple, batches))) == 1}; each step's metrics, max "
+        f"relative difference of --distributed from each plain run "
+        f"{steps}, of two plain runs {noise_steps} (tol {LOSS_TOL}); step "
+        f"{DIST_STEPS}'s metrics (--distributed, then the plain runs) "
+        f"{step2}; the checkpoint, relative 2-norms (tensors that differ, "
+        f"the tensor most apart relative to its max): " + "; ".join(
+            f"{part}: --distributed against each plain run "
+            + ", ".join(f"{k} {v[0]:.3e} ({v[1]} of "
+                        f"{len(dist[1][part])}, {v[2]})"
+                        for k, v in got[part].items())
+            + "; the plain runs' pairs " + ", ".join(
+                f"{k} {v[0]:.3e} ({v[1]}, {v[2]})"
+                for k, v in noise[part].items())
+            + f"; tol {tol[part]:.3e}" for part in parts)
+        + f" (max(floor {DIST_FLOOR}, {DIST_NOISE} x the plain pairs' "
+        f"largest)); "
+        f"each run's allocator at most (held, in use; --distributed, then "
+        f"the plain runs) "
+        f"{[r[0]['peak_gib'] for r in (dist, *plains.values())]} GiB; "
+        f"seconds " + ", ".join(f"{k} {v[1]:.1f}" for k, v in runs.items())
+        + f" (all at once); on {name} ({smi})")
+    if held["group"] != [0, 1, "nccl"] or held["moved"] \
+            or held["allreduce"] != DIST_STEPS \
+            or held["normalisers"] < DIST_STEPS:
+        raise AssertionError(f"32b: --distributed did not run NCCL at world "
+                             f"1, or a reduction moved its inputs: {held}")
+    if len(batches[0]) != DIST_STEPS or any(
+            b != batches[0] for b in batches) or any(
+            len(v) != DIST_STEPS or max(v) > LOSS_TOL
+            for v in steps.values()) or any(
+            v[0] > tol[part] for part in parts for v in got[part].values()):
+        raise AssertionError("32b: --distributed at world 1 took other "
+                             "batches, or moved a step's metrics or the "
+                             "weights past their bounds")
+
+
+def check_dist_test(name, smi, ds, results13, out, tmpdir, transport, secs):
+    """32c's comparison for one transport; returns the launches."""
+    import pickle
+    ranks = []
+    for r in range(2):
+        with open(f"{out}.{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    a, b = ranks[0]["results"], ranks[1]["results"]
+    same = len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k])
+                                     if isinstance(x[k], np.ndarray)
+                                     else x[k] == y[k] for k in x)
+        for x, y in zip(a, b))
+    stats = ranks[0]["stats"]
+    if not same or ranks[1]["stats"] is not None or not stats or not all(
+            np.isfinite(v) for s in stats.values() for v in s.values()):
+        raise AssertionError(f"32c {transport}: the ranks' lists differ or "
+                             f"rank 0 alone did not report")
+    if transport == "tmpdir" and os.listdir(tmpdir):
+        raise AssertionError(f"32c: part files left: {os.listdir(tmpdir)}")
+    for i in range(len(ds)):
+        same_detections(f"32c {transport} image {i}",
+                        "phase 13's run_inference", ds, i, a,
+                        coco_detections(ds, i, results13))
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                for k in ranks[0]["launches"]}
+    check_path_launches("hi-acc dist test driver", launches)
+    log(f"32c {transport}: tools/test.py --dist on 2 gloo ranks, {len(a)} "
+        f"results on each; rank 0's run_inference (its shard, then the "
+        f"collection) {ranks[0]['seconds']:.2f} s, "
+        f"{len(ds) / ranks[0]['seconds']:.2f} images/s of the set, rank "
+        f"1's {ranks[1]['seconds']:.2f} s (beside 32b's processes and the "
+        f"other transport's); each rank's allocator at most (held, in use) "
+        f"{[r['peak_gib'] for r in ranks]} GiB; group "
+        f"{secs:.1f} s with start-up; bbox AP "
+        f"{stats['bbox']['AP']:.4f} on {name} ({smi})")
+    return launches
+
+
+def phase_dist(dev, name, smi, work, ann, images, ckpt, results13):
+    """Phase 32: data parallelism on the one card. 32a's ranks run alone
+    (their ms are its record), then this process runs 32a's one-process
+    references alone, then 32b's three train CLIs and 32c's two test
+    groups run together, each process held to its DIST_SHARE of the card's
+    memory. The most memory in use on the card in each part is logged."""
+    from sipmask_tpu_torch.config import get_config
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.train import create_train_state
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights
+    root = os.path.join(work, "dist")
+    os.makedirs(root)
+    me = os.path.abspath(__file__)
+    cfg = get_config(CONFIG)
+    state = create_train_state(cfg, dev, seed=SEED)
+    bump_weights(state.model, torch.Generator().manual_seed(SEED))
+    init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    weights = os.path.join(root, "weights_32a.pth")
+    torch.save(init, weights)
+    del state
+    torch.cuda.empty_cache()
+    with Spawned() as groups:
+        # ---- 32a. the train step on two ranks, alone on the card
+        out_a = os.path.join(root, "train_32a")
+        with DevicePeak() as peak_a:
+            groups.start("32a", torchrun(2) + [
+                me, "--rank-worker", write_spec(
+                    out_a + ".json", kind="train", weights=weights,
+                    out=out_a, memory_share=DIST_SHARE_A)], out_a + ".log")
+            secs_a = groups.wait("32a")
+        ranks = [torch.load(f"{out_a}.{r}", weights_only=False)
+                 for r in range(2)]
+        if not all(r["same_as_rank0"] for r in ranks) or \
+                ranks[0]["metrics"] != ranks[1]["metrics"]:
+            raise AssertionError("32a: the ranks' parameters, momentum or "
+                                 "metrics differ")
+        paths = {"hi-acc dist training": {
+            k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+            for k in ranks[0]["launches"]}}
+        check_path_launches("hi-acc dist training",
+                            paths["hi-acc dist training"])
+        log(f"32a memory: the card's most in use {peak_a.gib:.2f} GiB; "
+            f"each rank's allocator at most (held, in use) "
+            f"{[r['peak_gib'] for r in ranks]} GiB, held to "
+            f"{DIST_SHARE_A} of the card")
+        del ranks
+
+        # ---- 32a's one-process references, alone on the card
+        torch.cuda.reset_peak_memory_stats(0)
+        with DevicePeak() as peak_ref:
+            check_dist_train(dev, name, smi, cfg, init, out_a, secs_a)
+        log(f"32a's one-process references: the card's most in use "
+            f"{peak_ref.gib:.2f} GiB; this process's allocator at most "
+            f"(held, in use) {peak_gib()} GiB")
+        del init
+        torch.cuda.empty_cache()
+        log(f"this process holds {torch.cuda.memory_reserved(0) / 2 ** 30:.2f}"
+            f" GiB, {torch.cuda.memory_allocated(0) / 2 ** 30:.2f} GiB in "
+            f"use, while 32b and 32c run")
+
+        # ---- 32b and 32c start together (32b with one loader thread:
+        # threads share the transform's rng, so with more the draws follow
+        # the threads' schedule)
+        share = dict(memory_share=DIST_SHARE)
+        base = [CONFIG, "--ann", ann, "--img-prefix", images,
+                "--max-steps", str(DIST_STEPS),
+                "--load-from", os.path.join(work, "weights", "bumped.pth"),
+                "--cfg-options", "data.num_workers=1"]
+        runs = {}
+        # f32 as this script runs it: the CLIs leave cuDNN's TF32 on
+        env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+        with DevicePeak() as peak_bc:
+            for label, launch, argv in (
+                    ("plain", [sys.executable], base),
+                    ("plain again", [sys.executable], base),
+                    ("plain third", [sys.executable], base),
+                    ("--distributed", torchrun(1),
+                     base + ["--distributed"])):
+                wd = os.path.join(
+                    root, "wd_" + label.strip("-").replace(" ", "_"))
+                spec = write_spec(wd + ".spec", kind="cli",
+                                  out=wd + ".json",
+                                  check=label == "--distributed",
+                                  argv=argv + ["--work-dir", wd], **share)
+                groups.start(f"32b {label}",
+                             launch + [me, "--rank-worker", spec],
+                             wd + ".log", env)
+                runs[label] = [wd]
+            tmpdir = os.path.join(root, "parts")
+            tests = {}
+            for transport in ("gather", "tmpdir"):
+                out = os.path.join(root, f"test_{transport}")
+                argv = [CONFIG, ckpt, "--ann", ann, "--img-prefix",
+                        images, "--batch-size", str(BATCH), "--dist",
+                        "--backend", "gloo"]
+                if transport == "tmpdir":
+                    argv += ["--tmpdir", tmpdir]
+                groups.start(f"32c {transport}", torchrun(2) + [
+                    me, "--rank-worker",
+                    write_spec(out + ".json", kind="test", argv=argv,
+                               out=out, **share)],
+                    out + ".log")
+                tests[transport] = out
+            for label in runs:
+                runs[label].append(groups.wait(f"32b {label}"))
+            secs_c = {t: groups.wait(f"32c {t}") for t in tests}
+        log(f"32b and 32c memory ({len(runs) + 2 * len(tests)} processes "
+            f"at once, each held to "
+            f"{DIST_SHARE} of the card): the card's most in use "
+            f"{peak_bc.gib:.2f} GiB of "
+            f"{torch.cuda.mem_get_info(0)[1] / 2 ** 30:.2f}")
+
+        # ---- 32b. --distributed at world 1 against the plain CLI
+        check_dist_train_cli(name, smi, runs)
+
+        # ---- 32c. the test CLI sharded over two ranks
+        ds = CocoDataset(ann, images, test_mode=True)
+        paths["hi-acc dist test driver"] = {}
+        for transport, out in tests.items():
+            for k, v in check_dist_test(name, smi, ds, results13, out,
+                                        tmpdir, transport,
+                                        secs_c[transport]).items():
+                total = paths["hi-acc dist test driver"]
+                total[k] = total.get(k, 0) + v
+    return paths
+
+
 def build_kernels():
     """Phase 2: one nvcc per source of KERNELS and g++ for the mask codec
     (``native/maskops.cpp``) and the JPEG codec (``native/jpeg.cpp``), all
@@ -4798,7 +5611,11 @@ def set_backend_flags():
 
 
 def main():
+    import signal
     t_start = time.perf_counter()
+    # a SIGTERM ends the run through SystemExit, so that leaving phase 32's
+    # Spawned context kills the processes it started
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     # ---- 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -4866,6 +5683,13 @@ def main():
         paths["hi-acc test driver"], results13 = timed(
             "13", phase_test_driver, dev, name, smi, drv["ann"],
             drv["images"], drv["last"])
+
+        # ---- 32. data parallelism on the one card: the train step on two
+        # ranks, tools/train.py --distributed at world 1, tools/test.py
+        # --dist on two ranks, on phase 12's set and checkpoint
+        paths.update(timed("32", phase_dist, dev, name, smi, work,
+                           drv["ann"], drv["images"], drv["last"],
+                           results13))
 
         # ---- 14 and 15. the real-time preset: serving, then training
         # through the driver on phase 12's set
@@ -4940,4 +5764,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:   # a rank of phase 32
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,16 +1,19 @@
-"""Inference and evaluation driver, the port of ``sipmask_tpu/apis/test.py``
-on one device: aspect-grouped test batches through ``Detector.infer``, the
+"""Inference and evaluation driver, the port of ``sipmask_tpu/apis/test.py``:
+aspect-grouped test batches through ``Detector.infer``, the
 masks pasted on the device (cv2's map at fx = 2 / scale factor), one copy
 of the batch's thresholded masks to the host and each image's detections
 RLE-encoded by the C++ codec (``eval/results.postprocess_batch``); then
 the COCOeval protocol for bbox and segm and the proposal recall
-(``proposal_fast``).
+(``proposal_fast``). With ``distributed`` each rank of the process group
+infers its shard of the set and the ranks' results are collected on every
+rank (the reference's ``multi_gpu_test``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..data.coco import CocoDataset
@@ -19,18 +22,30 @@ from ..data.transforms import TestTransform
 from ..eval.coco_eval import COCOEvaluator
 from ..eval.recall import fast_eval_recall
 from ..eval.results import postprocess_batch
+from ..parallel import (collect_results_cpu, collect_results_gather,
+                        process_shard_args)
 
 
 def run_inference(det, dataset, batch_size: int = 4,
-                  progress: bool = True, timings: Optional[dict] = None):
+                  progress: bool = True, timings: Optional[dict] = None,
+                  distributed: bool = False, tmpdir: Optional[str] = None):
     """The flat COCO-format result list of ``dataset`` (a test-mode
     ``CocoDataset``) through ``det`` (an ``apis.inference.Detector``), in
-    the loader's order (landscape images, then portrait). The last batch of
-    each group is padded by repeating its final image; the repeats' results
-    are dropped. ``timings``: a dict that collects each batch's paste and
-    encode ms and the MB copied to the host (``postprocess_batch``)."""
+    the loader's order (landscape images, then portrait, each in dataset
+    order). The last batch of each group is padded by repeating its final
+    image; the repeats' results are dropped. ``timings``: a dict that
+    collects each batch's paste and encode ms and the MB copied to the host
+    (``postprocess_batch``).
+
+    ``distributed``: rank r of the process group infers every world-th
+    image of each group from the r-th, and the ranks' lists are collected
+    over the process group, or through part files in ``tmpdir`` when one is
+    given (a directory every rank can read); every rank returns the whole
+    list, in the single-process order."""
+    shard_id, num_shards = process_shard_args() if distributed else (0, 1)
     loader = build_test_loader(dataset, TestTransform(det.cfg.data),
-                               batch_size=batch_size)
+                               batch_size=batch_size, shard_id=shard_id,
+                               num_shards=num_shards)
     results, n_done = [], 0
     for batch, n_valid in loader:
         images = torch.from_numpy(batch["images"]).to(det.device)
@@ -45,7 +60,18 @@ def run_inference(det, dataset, batch_size: int = 4,
         n_done += n_valid
         if progress and n_done % 200 < batch_size:
             print(f"  inference {n_done}/{len(dataset)}", flush=True)
-    return results
+    if not distributed:
+        return results
+    parts = (collect_results_gather(results) if tmpdir is None
+             else collect_results_cpu(results, tmpdir))
+    per_image = {}
+    for part in parts:
+        for r in part:
+            per_image.setdefault(r["image_id"], []).append(r)
+    flags = np.asarray([dataset.aspect_flag(i) for i in range(len(dataset))])
+    order = np.concatenate([np.where(flags)[0], np.where(~flags)[0]])
+    return [r for i in order
+            for r in per_image.get(dataset.image_id(int(i)), [])]
 
 
 def evaluate_coco(results, ann_file: str, metrics=("bbox", "segm"),

@@ -1,11 +1,18 @@
-"""Training driver, the port of ``sipmask_tpu/apis/train.py`` on one device
-(the mmcv Runner / benchmark ``do_train`` equivalent): an epoch loop over
-the aspect-grouped loader around ``make_train_step``, smoothed metric logs
+"""Training driver, the port of ``sipmask_tpu/apis/train.py`` (the mmcv
+Runner / benchmark ``do_train`` equivalent): an epoch loop over the
+aspect-grouped loader around ``make_train_step``, smoothed metric logs
 every ``log_interval`` steps, a checkpoint each
 ``checkpoint_interval_epochs`` and at the last step, auto-resume from
 ``work_dir``, ``load_from``, and an optional eval hook that keeps the best
 checkpoint's record. A tracking preset (SipMask-VIS, ``head.track``)
 trains on frame pairs of a YouTube-VIS-format set.
+
+Under a process group (``sipmask_tpu_torch.parallel.init_distributed``)
+each rank loads its shard of the batches (``imgs_per_device`` images a
+rank: the global batch is that times the world size) and the step sums the
+ranks' gradients; rank 0 logs and writes the checkpoints, the COCO eval
+hook infers on every rank's shard and scores on rank 0, and the VIS hook
+tracks and scores on rank 0 while the others wait.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from ..data.coco import CocoDataset
 from ..data.loader import build_train_loader, build_vis_train_loader
 from ..data.transforms import TrainTransform, VISPairTransform
 from ..data.ytvos import YTVOSDataset
+from ..parallel import barrier, process_shard_args
 from ..train import create_train_state, make_train_step
 from ..utils.checkpoint import (latest_checkpoint, load_weights,
                                 restore_checkpoint, save_checkpoint)
@@ -34,7 +42,9 @@ def make_coco_eval_hook(cfg, ann_file: str, img_prefix: str,
     """Eval during training (the reference's EvalHook): every
     ``interval_epochs``, COCO inference over ``ann_file`` with the model in
     eval mode, then ``evaluate_coco``. ``hook(state, epoch)`` returns the
-    stats, or None between intervals."""
+    stats, or None between intervals. Under a process group each rank
+    infers its shard, every rank collects the results, and rank 0 scores
+    them (the others return None)."""
     from .test import evaluate_coco, run_inference
 
     dataset = CocoDataset(ann_file, img_prefix, test_mode=True)
@@ -47,9 +57,12 @@ def make_coco_eval_hook(cfg, ann_file: str, img_prefix: str,
         model.eval()
         try:
             results = run_inference(Detector(cfg, model, device), dataset,
-                                    batch_size=batch_size, progress=False)
+                                    batch_size=batch_size, progress=False,
+                                    distributed=process_shard_args()[1] > 1)
         finally:
             model.train()
+        if process_shard_args()[0] != 0:
+            return None
         print(f"== eval @ epoch {epoch} ==")
         return evaluate_coco(results, ann_file, metrics=metrics)
 
@@ -62,7 +75,9 @@ def make_ytvos_eval_hook(cfg, ann_file: str, img_prefix: str,
     ``run_video_inference`` over ``ann_file``'s videos with the model in
     eval mode, then ``YTVOSEvaluator`` (the set needs annotations).
     ``hook(state, epoch)`` returns {"segm": track-level mask AP stats}, or
-    None between intervals."""
+    None between intervals. Under a process group rank 0 tracks and scores
+    the whole set while the other ranks wait for it at a barrier of the
+    host group, whose timeout covers an evaluation; they return None."""
     from ..eval.ytvos_eval import YTVOSEvaluator
     from .test_video import run_video_inference
 
@@ -71,18 +86,23 @@ def make_ytvos_eval_hook(cfg, ann_file: str, img_prefix: str,
     def hook(state, epoch):
         if epoch % interval_epochs:
             return None
+        if process_shard_args()[0] != 0:
+            barrier()
+            return None
         model = state.model
         model.eval()
         try:
             results = run_video_inference(
                 Detector(cfg, model, next(model.parameters()).device),
                 dataset, progress=False)
+            print(f"== VIS eval @ epoch {epoch} ==")
+            ev = YTVOSEvaluator(ann_file)
+            ev.update(results)
+            stats = {"segm": ev.summarize()}
         finally:
             model.train()
-        print(f"== VIS eval @ epoch {epoch} ==")
-        ev = YTVOSEvaluator(ann_file)
-        ev.update(results)
-        return {"segm": ev.summarize()}
+            barrier()
+        return stats
 
     return hook
 
@@ -105,23 +125,35 @@ def train_detector(cfg, ann_file: str, img_prefix: str, work_dir: str,
     Each step's next batch is fetched and sent to the device while the
     step runs; the step's losses stay on the device until the next log or
     checkpoint, which reads them back in one transfer.
+
+    Under a process group ``device`` is this rank's
+    (``parallel.rank_device``), every rank starts from the same weights
+    (the same seed, ``load_from`` and checkpoint), loads every world-th
+    batch of each epoch's shuffled batches (steps_per_epoch is that
+    shard's), and runs the same number of steps.
     """
     os.makedirs(work_dir, exist_ok=True)
     seed, d = cfg.train.seed, cfg.data
+    rank, world = process_shard_args()
     if cfg.model.head.track:   # SipMask-VIS: current + reference frames
         if dataset is None:
             dataset = YTVOSDataset(ann_file, img_prefix, seed=seed)
         loader, steps_per_epoch = build_vis_train_loader(
             dataset, VISPairTransform(d, seed=seed),
-            cfg.train.imgs_per_device, seed=seed,
-            num_workers=d.num_workers, num_worker_procs=d.num_worker_procs)
+            cfg.train.imgs_per_device, seed=seed, shard_id=rank,
+            num_shards=world, num_workers=d.num_workers,
+            num_worker_procs=d.num_worker_procs)
     else:
         if dataset is None:
             dataset = CocoDataset(ann_file, img_prefix)
         loader, steps_per_epoch = build_train_loader(
             dataset, TrainTransform(d, seed=seed), cfg.train.imgs_per_device,
-            seed=seed, repeat_times=d.repeat_times,
-            num_workers=d.num_workers, num_worker_procs=d.num_worker_procs)
+            seed=seed, repeat_times=d.repeat_times, shard_id=rank,
+            num_shards=world, num_workers=d.num_workers,
+            num_worker_procs=d.num_worker_procs)
+    if steps_per_epoch < 1:
+        raise ValueError(f"{len(dataset)} images make fewer batches of "
+                         f"{cfg.train.imgs_per_device} than the {world} ranks")
     state = create_train_state(cfg, device, seed=seed,
                                steps_per_epoch=steps_per_epoch)
     if load_from:

@@ -8,6 +8,12 @@ of each image's positives, ranked by the no-grad weighting sigmoid(cls
 score) x IoU(gt/2, det box), SipMask++'s rescoring MSE (``loss_iou``) and
 SipMask-VIS's match loss (``loss_match``, with ``match_acc`` as a metric).
 The VIS fork decodes the box loss's boxes without the stride division.
+Under a process group (``sipmask_tpu_torch.parallel``) every normaliser is
+the global batch's: num_pos, the image count, the centerness weights' sum,
+the rescoring weights' sum and the match loss's counts are summed over the
+ranks without gradient, so each rank's losses are its share of the global
+batch's and their sum over the ranks is what one process computes on the
+global batch (the JAX package's global-batch SPMD).
 ``benchmark_loss_extras`` gives the SipMask-benchmark fork's deltas: the
 cls normaliser max(num_pos, 1), fcos_core's ltrb-GIoU on relu'd
 stride-normalised distances, det boxes from the relu'd regression, no
@@ -29,6 +35,7 @@ from ..core.targets import centerness_target, fcos_targets
 from ..ops import mask_loss
 from ..ops.crop_split import assemble_masks
 from ..ops.nms import NEG, hard_nms
+from ..parallel import global_sum, process_shard_args
 from .track import track_match_loss
 
 
@@ -90,23 +97,26 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
     pos = labels > 0
     num_pos = pos.sum()
     extras = cfg.benchmark_loss_extras
+    ctr_targets = centerness_target(bbox_targets.clamp(min=0.0))
+    posf = pos.float()
+    w_ctr = ctr_targets * posf
+    # the global batch's normalisers (this batch's without a process group)
+    num_pos, w_ctr_sum = global_sum(num_pos, w_ctr.sum())
+    num_imgs = b * process_shard_args()[1]
 
     # classification, avg factor num_pos + num_imgs (the benchmark fork:
     # max(num_pos, 1))
     loss_cls = L.sigmoid_focal_loss(
         cls_logits, labels, nc, cfg.focal_gamma, cfg.focal_alpha,
-        avg_factor=num_pos.clamp(min=1) if extras else num_pos + b
+        avg_factor=num_pos.clamp(min=1) if extras else num_pos + num_imgs
     ) * cfg.loss_cls_weight
 
     # box and centerness on stride-normalised decoded boxes; the VIS fork
     # decodes them unnormalised (with the +1 IoU convention the per-level
     # magnitudes differ, so each fork is followed)
-    ctr_targets = centerness_target(bbox_targets.clamp(min=0.0))
-    posf = pos.float()
-    w_ctr = ctr_targets * posf
     pts = points[None].expand(b, p, 2)
     strd = strides[None, :, None]
-    avg_ctr = w_ctr.sum().clamp(min=1e-6)
+    avg_ctr = w_ctr_sum.clamp(min=1e-6)
     if extras:
         # fcos_core's GIoU on relu'd stride-normalised ltrb distances
         loss_bbox = L.giou_loss_ltrb(
@@ -179,9 +189,12 @@ def compute_losses(outputs, batch, cfg, max_pos: int = 256,
     bh = torch.where(final_valid, csz[..., 3], ones)
     pre = pre / bw / bh / n_final[:, None]
     loss_mask = torch.where(final_valid, pre * w_norm,
-                            torch.zeros_like(pre)).sum() / b
-    if extras:   # the benchmark fork caps a runaway mask loss
-        loss_mask = torch.where(loss_mask > 1.0, loss_mask * 0.5, loss_mask)
+                            torch.zeros_like(pre)).sum() / num_imgs
+    if extras:   # the benchmark fork caps a runaway mask loss (the global
+        # batch's: a rank's share is halved where the sum of the shares is
+        # over 1)
+        whole, = global_sum(loss_mask)
+        loss_mask = torch.where(whole > 1.0, loss_mask * 0.5, loss_mask)
     out = dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
                loss_centerness=loss_centerness, loss_mask=loss_mask)
     if cfg.rescoring:
@@ -223,6 +236,7 @@ def _rescoring_loss(feat_masks, gt_masks, cof_sel, box_sel, gtidx_sel,
     # a bf16 pred_iou (the bf16 graph) minus the f32 targets is f32, as in
     # JAX
     mse = ((pred_iou - iou_t.reshape(b * k)) ** 2 * w.reshape(b * k)).sum()
-    # the reference divides by the count exactly; max(., 0.1) only guards
-    # the empty case
-    return mse * 10.0 / w.sum().clamp(min=0.1)
+    # the reference divides by the count exactly (the global batch's);
+    # max(., 0.1) only guards the empty case
+    w_sum, = global_sum(w.sum())
+    return mse * 10.0 / w_sum.clamp(min=0.1)

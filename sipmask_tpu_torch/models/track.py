@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.boxes import bbox_overlaps
+from ..parallel import global_sum, process_shard_args
 
 NEG = -1.0e4
 FAR_FUTURE = 2 ** 30   # an eviction key no slot reaches
@@ -117,8 +118,10 @@ def track_match_loss(outputs, batch, box_sel, sel_valid, gtidx_sel):
         outputs["track_feats"], outputs["track_feats_ref"],
         box_sel, sel_valid, gtidx_sel, batch["gt_pids"],
         batch["ref_bboxes_jit"].float(), batch["ref_labels"] > 0)
-    loss_match = ce.sum() / ce.shape[0]
-    match_acc = (acc * n).sum() / n.sum().clamp(min=1.0)
+    # under a process group: the global batch's image count and accuracy
+    hits, count = global_sum((acc * n).sum(), n.sum())
+    loss_match = ce.sum() / (ce.shape[0] * process_shard_args()[1])
+    match_acc = hits / count.clamp(min=1.0)
     return loss_match, match_acc
 
 

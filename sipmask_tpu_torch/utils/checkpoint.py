@@ -8,7 +8,11 @@ since it is a function of the step. ``load_weights`` takes the weights
 alone, from such a file or from a bare ``state_dict`` file (the reference's
 released ``.pth`` files). ``save_checkpoint`` records the path in
 ``<dir>/last_checkpoint``, which ``latest_checkpoint`` reads back for
-auto-resume.
+auto-resume. Under a process group rank 0 writes the file and
+``last_checkpoint`` and every rank waits at a barrier until they are there,
+so any rank may read them back; the model is never wrapped, so the file
+holds the same mmdet names whatever the world size, and restores at any
+other.
 """
 
 from __future__ import annotations
@@ -18,22 +22,28 @@ from typing import Optional
 
 import torch
 
+from ..parallel import barrier, process_shard_args
+
 LAST = "last_checkpoint"
 
 
 def save_checkpoint(path: str, state, meta: Optional[dict] = None) -> None:
     """Write ``state`` (a ``TrainState``) to ``path`` through a temporary
-    file, then point ``last_checkpoint`` beside it at ``path``."""
+    file, then point ``last_checkpoint`` beside it at ``path``; under a
+    process group, on rank 0, and every rank returns once both are
+    written."""
     path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = dict(state_dict=state.model.state_dict(),
-                   optimizer=state.optimizer.state_dict(),
-                   step=int(state.step), meta=meta or {})
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    with open(os.path.join(os.path.dirname(path), LAST), "w") as f:
-        f.write(path)
+    if process_shard_args()[0] == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = dict(state_dict=state.model.state_dict(),
+                       optimizer=state.optimizer.state_dict(),
+                       step=int(state.step), meta=meta or {})
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        with open(os.path.join(os.path.dirname(path), LAST), "w") as f:
+            f.write(path)
+    barrier()
 
 
 def restore_checkpoint(path: str, state):

@@ -1,6 +1,7 @@
 """Smoothed metric logging, the port of ``sipmask_tpu/utils/logging.py``
 (the benchmark fork's MetricLogger) with the same JSON lines, which the
-reference's analyze_logs tooling reads."""
+reference's analyze_logs tooling reads. Under a process group only rank 0
+prints and writes the log (each rank's metrics are the global batch's)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import json
 import os
 import time
 from typing import Optional
+
+from ..parallel import process_shard_args
 
 
 class SmoothedValue:
@@ -40,7 +43,8 @@ class MetricLogger:
     def __init__(self, log_file: Optional[str] = None, delimiter: str = "  "):
         self.meters = collections.defaultdict(SmoothedValue)
         self.delimiter = delimiter
-        self.log_file = log_file
+        self.quiet = process_shard_args()[0] != 0
+        self.log_file = None if self.quiet else log_file
         self._t0 = time.time()
         if log_file:
             os.makedirs(os.path.dirname(os.path.abspath(log_file)),
@@ -52,6 +56,8 @@ class MetricLogger:
 
     def log(self, step: int, total_steps: Optional[int] = None,
             lr: Optional[float] = None, prefix: str = ""):
+        if self.quiet:
+            return
         parts = [f"{prefix}step {step}"]
         if total_steps:
             rate = (time.time() - self._t0) / max(step, 1)
