@@ -239,9 +239,10 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     the one process's runs then alone on the card; then, all at once: (b)
     ``tools/train.py --distributed`` under torchrun at world 1 (NCCL) for
     2 steps from phase 12's ``load_from`` against ``tools/train.py``
-    without the flag, three times (TF32 off through
-    ``NVIDIA_TF32_OVERRIDE=0``, cuDNN deterministic), each step's metrics
-    recorded: every gradient all-reduce and normaliser reduction of
+    without the flag, three times (TF32 off by the CLIs themselves, the
+    third run also under ``NVIDIA_TF32_OVERRIDE=0``: the first's step-1
+    loss_total within LOSS_TOL of it; cuDNN deterministic), each step's
+    metrics recorded: every gradient all-reduce and normaliser reduction of
     --distributed returns its inputs bit for bit, each step's batch bit
     for bit (one loader thread), each step's metrics within LOSS_TOL of
     each plain run's, the checkpoint's parameters and momentum within
@@ -252,15 +253,34 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     ranks the same list, rank 0 alone reporting, each image's results as
     phase 13's, no part file left, images/s.
 
+33. runs ``tools/test_robustness.py`` with the flagship on phase 12's 8
+    JPEGs from its last checkpoint, clean and under gaussian_noise,
+    motion_blur and fog at severities 1 and 5 (the table's layout; fog at
+    5 again through ``run_inference`` over a ``CorruptedDataset``: the same
+    APs; mPC, rPC, images/s, each corruption's host ms at 640x480);
+34. exports (``tools/export.py``) the real-time preset at 544x544 with
+    its decode and the flagship's forward at 800x1344, batch 1, in f32 and
+    bf16, saves and loads each program, and runs it against the eager
+    graph under cuDNN's heuristics: the same bits, the same kernel
+    launches, the kernels' names in its profile, ms of each;
+35. runs ``async_inference_detector`` on 8 requests at once against the
+    same in turn, then the CLIs: ``demo``, ``video_demo`` (SipMask-VIS
+    tracking a 6-frame JPEG sequence, launches counted; the flagship on
+    it), ``get_flops``, ``profile_step`` (the flagship's f32 train step),
+    ``coco_error_analysis`` (phase 13's results), ``analyze_logs``,
+    ``publish_model`` (the published weights detect the same) and
+    ``browse_dataset``.
+
 Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20-22,
-24-29, 30's soft-NMS serving, and 32's two ranks in training and in the
-test driver, their counts summed over the ranks) is driven with every
+24-29, 30's soft-NMS serving, 32's two ranks in training and in the
+test driver, their counts summed over the ranks, 33, 34's four programs
+and 35's VIS video demo) is driven with every
 launch count set to 0 just before it and read just after;
 a kernel of the path that did not launch fails the run, and so does an f32
 kernel variant on a bf16 path. Any failure raises (non-zero exit, no
 result). Each phase's seconds are logged. The second-to-last line is a JSON
 object of the kernels, the six bf16 variants as kernels of their own
-(launches summed over the thirty-two paths, with each path's count beside them;
+(launches summed over the thirty-eight paths, with each path's count beside them;
 errors and times from phases 3, 6, 9, 19 and 23; each kernel's bound and a
 one-call PyTorch equivalent's time where there is one); the last is the
 device line.
@@ -537,6 +557,15 @@ PATH_KERNELS["hi-acc soft-nms serving"] = PATH_KERNELS["hi-acc serving"]
 # phase 32: the flagship's train step on two ranks, the test driver sharded
 PATH_KERNELS["hi-acc dist training"] = PATH_KERNELS["hi-acc training"]
 PATH_KERNELS["hi-acc dist test driver"] = PATH_KERNELS["hi-acc test driver"]
+# phases 33-35: the robustness CLI and the exported programs on the card,
+# the VIS video demo
+PATH_KERNELS["hi-acc robustness"] = PATH_KERNELS["hi-acc test driver"]
+PATH_KERNELS["rt exported"] = PATH_KERNELS["rt serving"]
+PATH_KERNELS["hi-acc exported forward"] = ("deform_im2col", "gn_relu")
+PATH_KERNELS["rt bf16 exported"] = PATH_KERNELS["rt bf16 serving"]
+PATH_KERNELS["hi-acc bf16 exported forward"] = ("deform_im2col_bf16",
+                                                "gn_relu_bf16")
+PATH_KERNELS["vis video demo"] = PATH_KERNELS["vis serving"]
 # the f32 variants, none of which a bf16 path may launch
 F32_VARIANTS = ("deform_im2col", "deform_conv_backward", "gn_relu",
                 "gn_relu_backward", "deform_rows", "deform_rows_backward")
@@ -5323,6 +5352,16 @@ def check_dist_train_cli(name, smi, runs):
         return max(abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items())
     dist = load(runs["--distributed"][0])
     plains = {k: load(v[0]) for k, v in runs.items() if k != "--distributed"}
+    # TF32: the plain run without NVIDIA_TF32_OVERRIDE=0 against the one
+    # with it, step 1's loss_total
+    tf32 = [plains[k][0]["metrics"][0]["loss_total"]
+            for k in ("plain", "plain third")]
+    tf32_apart = abs(tf32[0] - tf32[1]) / max(abs(tf32[1]), 1e-12)
+    log(f"32b: step 1's loss_total without NVIDIA_TF32_OVERRIDE {tf32[0]!r}, "
+        f"with it {tf32[1]!r}: {tf32_apart:.3e} apart (tol {LOSS_TOL})")
+    if tf32_apart > LOSS_TOL:
+        raise AssertionError("32b: the train CLI without the TF32 override "
+                             "moved step 1's loss_total past LOSS_TOL")
     held = dist[0]
     pairs = [(a, b) for i, a in enumerate(plains)
              for b in list(plains)[i + 1:]]
@@ -5493,15 +5532,17 @@ def phase_dist(dev, name, smi, work, ann, images, ckpt, results13):
                 "--load-from", os.path.join(work, "weights", "bumped.pth"),
                 "--cfg-options", "data.num_workers=1"]
         runs = {}
-        # f32 as this script runs it: the CLIs leave cuDNN's TF32 on
-        env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+        # the CLIs turn TF32 off themselves (utils/precision.no_tf32); the
+        # third plain run also has NVIDIA_TF32_OVERRIDE=0, against which
+        # check_dist_train_cli holds the first's step-1 loss_total
+        override = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
         with DevicePeak() as peak_bc:
-            for label, launch, argv in (
-                    ("plain", [sys.executable], base),
-                    ("plain again", [sys.executable], base),
-                    ("plain third", [sys.executable], base),
+            for label, launch, argv, env in (
+                    ("plain", [sys.executable], base, None),
+                    ("plain again", [sys.executable], base, None),
+                    ("plain third", [sys.executable], base, override),
                     ("--distributed", torchrun(1),
-                     base + ["--distributed"])):
+                     base + ["--distributed"], None)):
                 wd = os.path.join(
                     root, "wd_" + label.strip("-").replace(" ", "_"))
                 spec = write_spec(wd + ".spec", kind="cli",
@@ -5549,6 +5590,324 @@ def phase_dist(dev, name, smi, work, ann, images, ckpt, results13):
                 total = paths["hi-acc dist test driver"]
                 total[k] = total.get(k, 0) + v
     return paths
+
+
+# ------------------------------------------------- phases 33-35: the tools
+
+ROBUST_CORRUPTIONS = ("gaussian_noise", "motion_blur", "fog")
+ROBUST_SEVERITIES = (1, 5)
+EXPORTS = (   # (label, preset, dtype, (h, w)); batch 1
+    ("rt", RT_CONFIG, "float32", (544, 544)),
+    ("hi-acc", CONFIG, "float32", (800, 1344)),
+    ("rt bf16", RT_CONFIG, "bfloat16", (544, 544)),
+    ("hi-acc bf16", CONFIG, "bfloat16", (800, 1344)))
+# device kernels by name fragment: K1, K4a (either design), K6
+EXPORT_KERNELS = {"deform_im2col": ("deform_im2col",),
+                  "gn_relu": ("gn_stats", "gn_apply", "gn_fwd_cluster"),
+                  "assemble_masks": ("assemble_masks",)}
+
+
+def phase_robustness(dev, name, smi, work, ann, images, ckpt):
+    """Phase 33: ``tools/test_robustness.py`` with the flagship on phase
+    12's 8 JPEGs from phase 12's last checkpoint, clean and under
+    ROBUST_CORRUPTIONS at ROBUST_SEVERITIES (launches counted); the last
+    (corruption, severity) again through the Python API (``run_inference``
+    over a ``CorruptedDataset``, ``evaluate_coco``): the same APs. Logs
+    mPC / rPC, images/s and each of the 18 corruptions' host ms on a
+    640x480 image at severity 3."""
+    from sipmask_tpu_torch.apis.inference import init_detector
+    from sipmask_tpu_torch.apis.test import evaluate_coco, run_inference
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.data.corruptions import (CORRUPTIONS,
+                                                    EXTRA_CORRUPTIONS,
+                                                    corrupt)
+    from sipmask_tpu_torch.tools import test_robustness as tr
+    from sipmask_tpu_torch.utils.checkpoint import load_weights
+    out = os.path.join(work, "robustness.json")
+    n_runs = 1 + len(ROBUST_CORRUPTIONS) * len(ROBUST_SEVERITIES)
+    reset_launches()
+    t0 = time.perf_counter()
+    table = tr.main([CONFIG, ckpt, "--ann", ann, "--img-prefix", images,
+                     "--corruptions", *ROBUST_CORRUPTIONS, "--severities",
+                     *map(str, ROBUST_SEVERITIES), "--batch-size",
+                     str(BATCH), "--out", out, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_path_launches("hi-acc robustness", launches)
+    ds = CocoDataset(ann, images, test_mode=True)
+    with open(out) as f:
+        saved = json.load(f)
+    if list(saved) != ["clean", *ROBUST_CORRUPTIONS] or any(
+            sorted(v) != ["bbox", "segm"] for k in saved
+            for v in saved[k].values()):
+        raise AssertionError(f"33: the table's layout: {saved}")
+    c, sev = ROBUST_CORRUPTIONS[-1], ROBUST_SEVERITIES[-1]
+    det = init_detector(CONFIG, dev)
+    load_weights(ckpt, det.model)
+    res = run_inference(det, tr.CorruptedDataset(ds, c, sev),
+                        batch_size=BATCH, progress=False)
+    api = {k: v["AP"] for k, v in evaluate_coco(res, ann).items()}
+    if api != table[c][sev]:
+        raise AssertionError(f"33: {c} {sev} through the API {api}, the "
+                             f"CLI {table[c][sev]}")
+    summary = tr.summarize(table, ROBUST_CORRUPTIONS, ROBUST_SEVERITIES)
+    img = (np.random.RandomState(SEED).rand(480, 640, 3) * 255).astype(
+        np.uint8)
+    host = {}
+    for k in sorted(CORRUPTIONS) + sorted(EXTRA_CORRUPTIONS):
+        t = time.perf_counter()
+        corrupt(img, k, 3)
+        host[k] = round((time.perf_counter() - t) * 1e3, 1)
+    log(f"33: tools/test_robustness.py, {len(ds)} images x {n_runs} runs "
+        f"(clean, {list(ROBUST_CORRUPTIONS)} at severities "
+        f"{list(ROBUST_SEVERITIES)}) in {wall:.2f} s, "
+        f"{len(ds) * n_runs / wall:.2f} images/s (corruption, inference, "
+        f"paste, codec and evaluation included); (clean AP, mPC, rPC) "
+        + ", ".join(f"{m} ({a:.4f}, {b:.4f}, {r:.4f})"
+                    for m, (a, b, r) in summary.items())
+        + f"; {c} at {sev} through the API: the same APs {api}; host ms of "
+        f"each corruption on a 640x480 image at severity 3 "
+        f"(lscpu: {cpu_model()}): {host}; on {name} ({smi})")
+    return launches
+
+
+def _exported_run_kernels(fn):
+    """Device kernel names of one call of fn() under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    return {kernel_name(e.name) for e in prof.events()
+            if e.device_type == DeviceType.CUDA}
+
+
+def phase_export(dev, name, smi, work):
+    """Phase 34: ``tools/export.py``'s ``export_inference`` for EXPORTS
+    (the real-time preset with its decode, the flagship's forward), saved
+    with ``torch.export.save`` and loaded with ``torch.export.load``; the
+    loaded program and the eager graph, both under cuDNN's heuristic,
+    deterministic algorithms, give the same bits; the loaded program's
+    run launches each kernel as often as the eager run (a plain route
+    counts no launch) and their names show in its profile; ms of each
+    (CUDA events). Returns {path: launches}."""
+    from sipmask_tpu_torch.config import _r, get_config
+    from sipmask_tpu_torch.tools import export as ex
+    paths = {}
+    for label, preset, dtype, hw in EXPORTS:
+        cfg = _r(get_config(preset), "model", compute_dtype=dtype)
+        t0 = time.perf_counter()
+        exported, infer, args = ex.export_inference(cfg, shape=hw, batch=1,
+                                                    device="cuda")
+        trace_s = time.perf_counter() - t0
+        path = os.path.join(work, f"export_{label.replace(' ', '_')}.pt2")
+        t0 = time.perf_counter()
+        torch.export.save(exported, path)
+        loaded = torch.export.load(path)
+        io_s = time.perf_counter() - t0
+        decode = ex.exports_decode(cfg)
+        program = loaded.module()
+
+        def run_loaded():
+            with torch.no_grad():
+                return program(*args)
+
+        def run_eager():
+            with torch.no_grad():
+                return ex.InferenceGraph(infer.model, cfg, decode)(*args)
+        with cudnn_heuristics():
+            reset_launches()
+            want = run_eager()
+            torch.cuda.synchronize()
+            eager_launches = read_launches()
+            reset_launches()
+            got = run_loaded()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            kinds = ("loaded", "eager")
+            names = {k: _exported_run_kernels(f) for k, f in
+                     zip(kinds, (run_loaded, run_eager))}
+            ms = {k: cuda_ms(f, iters=10) for k, f in
+                  zip(kinds, (run_loaded, run_eager))}
+        flat_g = torch.utils._pytree.tree_leaves(got)
+        flat_w = torch.utils._pytree.tree_leaves(want)
+        same = len(flat_g) == len(flat_w) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(flat_g, flat_w))
+        path_name = f"{label} exported" + ("" if decode else " forward")
+        check_path_launches(path_name, launches)
+        if dtype == "bfloat16":
+            check_no_f32_variant(path_name, launches)
+        want_k = ["deform_im2col"] + (["assemble_masks"] if decode else []) \
+            + ([] if cfg.model.head.norm is None else ["gn_relu"])
+        seen = {k: sorted(n for n in names["loaded"]
+                          if any(f in n for f in EXPORT_KERNELS[k]))
+                for k in want_k}
+        log(f"34: {label} ({preset}, {dtype}, 1x{hw[0]}x{hw[1]}): traced "
+            f"in {trace_s:.1f} s, saved and loaded in {io_s:.1f} s "
+            f"({os.path.getsize(path)} bytes); the program holds the "
+            f"forward{' and the decode' if decode else ''}; loaded vs eager "
+            f"(cuDNN heuristics): the same bits {same} over {len(flat_w)} "
+            f"outputs; kernel launches of the loaded run "
+            f"{ {k: v for k, v in launches.items() if v} }, of the eager "
+            f"run { {k: v for k, v in eager_launches.items() if v} }; the "
+            f"loaded run's kernels {seen}; kernels only in the loaded run "
+            f"{sorted(names['loaded'] - names['eager'])[:8]}, only in the "
+            f"eager run {sorted(names['eager'] - names['loaded'])[:8]}; ms "
+            f"loaded {ms['loaded']:.3f}, eager {ms['eager']:.3f}; on {name} "
+            f"({smi})")
+        if not same:
+            raise AssertionError(f"34: {label}: the loaded program's "
+                                 f"outputs differ from the eager graph's")
+        # each kernel call counts in its wrapper; a plain route counts none
+        if launches != eager_launches or not all(seen.values()):
+            raise AssertionError(f"34: {label}: the loaded run launched "
+                                 f"{launches}, the eager run "
+                                 f"{eager_launches}; kernels seen {seen}")
+        paths[path_name] = launches
+        del exported, loaded, program, infer
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_tools(dev, name, smi, work, ann, images, ckpt, results13):
+    """Phase 35: ``async_inference_detector`` (8 requests gathered at once
+    against the same 8 in turn), then the CLIs on the card: ``demo``,
+    ``video_demo`` (SipMask-VIS tracking a 6-frame JPEG sequence of
+    ``tools/synth_ytvis.py`` from bumped seed-0 weights, launches counted;
+    the flagship on the same frames), ``get_flops`` (flagship, real-time), ``profile_step`` (the
+    flagship's f32 train step, 3 steps), ``coco_error_analysis`` (phase
+    13's results), ``analyze_logs cal_train_time`` (phase 12's log),
+    ``publish_model`` (phase 12's checkpoint: the published weights give
+    the same detections) and ``browse_dataset`` (2 images). Returns the
+    VIS video demo's launches."""
+    import asyncio
+    import contextlib as ctx
+    import io
+    from sipmask_tpu_torch.apis.inference import (async_inference_detector,
+                                                  inference_detector,
+                                                  init_detector)
+    from sipmask_tpu_torch.apis.test import results_to_json
+    from sipmask_tpu_torch.data.coco import CocoDataset
+    from sipmask_tpu_torch.tools import (analyze_logs, browse_dataset,
+                                         coco_error_analysis, demo,
+                                         get_flops, profile_step,
+                                         publish_model, video_demo)
+    from sipmask_tpu_torch.tools.synth_ytvis import make_dataset
+    from sipmask_tpu_torch.utils.checkpoint import load_weights
+    ds = CocoDataset(ann, images, test_mode=True)
+    det = init_detector(CONFIG, dev)
+    load_weights(ckpt, det.model)
+    imgs = [ds.load_image(i) for i in range(len(ds))]
+    inference_detector(det, imgs[0])   # cuDNN's search at the shapes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [inference_detector(det, im) for im in imgs]
+    sync_s = time.perf_counter() - t0
+
+    async def gathered():
+        return await asyncio.gather(*[async_inference_detector(det, im)
+                                      for im in imgs])
+    t0 = time.perf_counter()
+    got = asyncio.run(gathered())
+    async_s = time.perf_counter() - t0
+    same = all(g.keys() == w.keys() and all(np.array_equal(g[k], w[k])
+                                             for k in w)
+               for g, w in zip(got, want))
+    log(f"35: async_inference_detector, {len(imgs)} requests gathered at "
+        f"once: {async_s * 1e3:.1f} ms, in turn {sync_s * 1e3:.1f} ms; "
+        f"the same results {same}")
+    if not same:
+        raise AssertionError("35: the gathered requests' results differ")
+    walls = {}
+
+    def cli(label, fn, argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with ctx.redirect_stdout(buf):
+            out = fn(argv)
+        walls[label] = round(time.perf_counter() - t, 2)
+        text = buf.getvalue().strip().splitlines()
+        log(f"35: {label}: " + " | ".join(text[-4:]))
+        return out, "\n".join(text)
+    demo_out = os.path.join(work, "demo_out.jpg")
+    res, _ = cli("demo", demo.main, [CONFIG, os.path.join(
+        images, ds.images[0]["file_name"]), "--checkpoint", ckpt, "--out",
+        demo_out, "--device", "cuda"])
+    if not (os.path.getsize(demo_out) > 0 and len(res["boxes"])):
+        raise AssertionError("35: demo wrote nothing, or no detection")
+    vis_ann, vis_imgs = make_dataset(os.path.join(work, "ytvis_demo"),
+                                     num_videos=1, frames=6, size=360,
+                                     seed=SEED)
+    frames = os.path.join(vis_imgs, "v000")
+    # seed-0 weights bumped so that the tracker has detections to follow
+    from sipmask_tpu_torch.utils.demo_inputs import bump_weights
+    vis = init_detector(VIS_CONFIG, dev)
+    bump_weights(vis.model, torch.Generator().manual_seed(SEED))
+    vis_ckpt = os.path.join(work, "vis_bumped.pth")
+    torch.save(vis.model.state_dict(), vis_ckpt)
+    del vis
+    reset_launches()
+    tracked, _ = cli("video_demo vis", video_demo.main, [
+        VIS_CONFIG, frames, "--checkpoint", vis_ckpt, "--out",
+        os.path.join(work, "vis_out", "%05d.jpg"), "--score-thr", "0.05",
+        "--device", "cuda"])
+    vis_launches = read_launches()
+    check_path_launches("vis video demo", vis_launches)
+    per_frame, _ = cli("video_demo flagship", video_demo.main, [
+        CONFIG, frames, "--checkpoint", ckpt, "--out",
+        os.path.join(work, "img_out", "%05d.jpg"), "--device", "cuda"])
+    if len(tracked) != 6 or len(per_frame) != 6 or not os.path.exists(
+            os.path.join(work, "vis_out", "00005.jpg")):
+        raise AssertionError("35: video_demo did not write 6 frames")
+    ids = [sorted({oid for oid, _, _ in f["drawn"]}) for f in tracked]
+    log(f"35: video_demo vis: the ids drawn a frame {ids}")
+    if not any(ids):
+        raise AssertionError("35: video_demo tracked nothing")
+    for label, preset, shape in (("get_flops flagship", CONFIG,
+                                  ("800", "1344")),
+                                 ("get_flops rt", RT_CONFIG, ("544", "544"))):
+        (n_params, flops), _ = cli(label, get_flops.main, [
+            preset, "--shape", *shape, "--device", "cuda"])
+        if not (n_params > 1e7 and flops > 1e10):
+            raise AssertionError(f"35: {label}: {n_params}, {flops}")
+    prof, _ = cli("profile_step", profile_step.main, [
+        CONFIG, "--mode", "train", "--dtype", "float32", "--steps", "3",
+        "--top", "12", "--json-out", os.path.join(work, "profile.json"),
+        "--device", "cuda"])
+    if not any("deform" in r["op"] for r in prof["ops"]):
+        raise AssertionError("35: profile_step saw no K1 or K2 kernel")
+    res_file = os.path.join(work, "results13.json")
+    with open(res_file, "w") as f:
+        json.dump(results_to_json(results13), f)
+    _, text = cli("coco_error_analysis", coco_error_analysis.main,
+                  [res_file, "--ann", ann])
+    if "error shares" not in text:
+        raise AssertionError("35: coco_error_analysis printed no shares")
+    _, text = cli("analyze_logs", analyze_logs.main, [
+        "cal_train_time", os.path.join(os.path.dirname(ckpt),
+                                       "train.log.json")])
+    if "final loss_total" not in text:
+        raise AssertionError("35: analyze_logs printed no final loss")
+    pub, _ = cli("publish_model", publish_model.main, [
+        ckpt, os.path.join(work, "published", "sipmask_r50")])
+    det2 = init_detector(CONFIG, dev)
+    load_weights(os.path.join(pub, "model.pth"), det2.model)
+    a, b = inference_detector(det, imgs[1]), inference_detector(det2,
+                                                                imgs[1])
+    if not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("35: the published weights detect otherwise")
+    paths, _ = cli("browse_dataset", browse_dataset.main, [
+        CONFIG, "--ann", ann, "--img-prefix", images, "--out-dir",
+        os.path.join(work, "browse"), "--num", "2"])
+    if len(paths) != 2:
+        raise AssertionError("35: browse_dataset wrote no 2 samples")
+    log(f"35: seconds by CLI {walls}; TF32 off after them: "
+        f"{not torch.backends.cudnn.allow_tf32}; on {name} ({smi})")
+    return vis_launches
 
 
 def build_kernels():
@@ -5714,6 +6073,17 @@ def main():
         # host path, evaluate_coco with proposal_fast, soft-NMS serving
         paths["hi-acc soft-nms serving"] = timed(
             "30", phase_test_path, dev, name, smi, drv["ann"],
+            drv["images"], drv["last"], results13)
+
+        # ---- 33-35. the tools: corruption robustness, torch.export of
+        # the real-time preset and the flagship's forward, the serving
+        # helpers and the CLIs
+        paths["hi-acc robustness"] = timed(
+            "33", phase_robustness, dev, name, smi, work, drv["ann"],
+            drv["images"], drv["last"])
+        paths.update(timed("34", phase_export, dev, name, smi, work))
+        paths["vis video demo"] = timed(
+            "35", phase_tools, dev, name, smi, work, drv["ann"],
             drv["images"], drv["last"], results13)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import mask_assembly
+from . import custom, mask_assembly
 from .mask_assembly import _colmix_logits
 
 
@@ -32,8 +32,9 @@ def assemble_masks(basis, cofs, boxes):
       (h, w, N) sigmoid probabilities, 0 outside the boxes, or (B, h, w, N).
     """
     if basis.dim() == 3:
-        return mask_assembly.assemble_masks(basis[None], cofs[None],
-                                            boxes[None])[0]
+        return assemble_masks(basis[None], cofs[None], boxes[None])[0]
+    if custom.routed():   # torch.export: K6 as a custom op
+        return torch.ops.sipmask.assemble_masks(basis, cofs, boxes)
     return mask_assembly.assemble_masks(basis, cofs, boxes)
 
 

@@ -65,7 +65,7 @@ import ctypes
 
 import torch
 
-from . import deform_sample, native
+from . import custom, deform_sample, native
 
 
 def _w2(weight, deform_groups: int):
@@ -420,6 +420,14 @@ def deform_conv2d(x, offsets, weight, *, stride: int = 1, padding: int = 1,
     Returns:
       (B, O, Ho, Wo) in x's dtype.
     """
+    if custom.routed():   # torch.export: the K1 custom op, then the GEMM
+        _check_weight(x, weight)
+        kh, kw = weight.shape[2:]
+        cols = torch.ops.sipmask.deform_im2col(
+            x.contiguous(), offsets.contiguous(), kh, kw, stride, padding,
+            dilation, deform_groups)
+        out = torch.matmul(_w2(weight, deform_groups), cols)
+        return out.reshape(x.shape[0], weight.shape[0], *offsets.shape[2:])
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offsets, weight, stride=stride,
                                    padding=padding, dilation=dilation,
@@ -554,6 +562,16 @@ def deform_conv2d_rows(x, offsets, weight, *, stride: int = 1,
     Returns:
       (B, O, Ho, Wo) in x's dtype.
     """
+    if custom.routed():   # torch.export: the K5 custom op, then the GEMM
+        x_rows, pyx, w2g, m = _rows_inputs(x, offsets, weight, stride,
+                                           padding, dilation, deform_groups,
+                                           mask)
+        s = torch.ops.sipmask.deform_rows(x_rows.contiguous(),
+                                          pyx.contiguous(), *x.shape[2:])
+        if m is not None:
+            s = _modulate(s, m)
+        return _to_nchw(_contract(s, w2g, x.shape[0]), x.shape[0],
+                        *offsets.shape[2:])
     if x.device.type == "cpu":
         return deform_conv2d_rows_plain(
             x, offsets, weight, stride=stride, padding=padding,

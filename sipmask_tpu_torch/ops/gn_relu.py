@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from . import native
+from . import custom, native
 
 
 def _check(x, weight, bias, groups):
@@ -420,6 +420,9 @@ def gn_relu(x, weight, bias, groups: int = 32, eps: float = 1e-5,
     their plain versions on CPU tensors."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no K4 kernel for device {x.device}")
+    if custom.routed():   # torch.export: K4a as a custom op
+        return torch.ops.sipmask.gn_relu(x.contiguous(), weight, bias,
+                                         groups, eps, act)
     # the statistics are kept, and the autograd Function entered, only for
     # a backward that can happen
     if torch.is_grad_enabled() and (

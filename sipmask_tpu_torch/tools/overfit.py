@@ -126,6 +126,8 @@ def main(argv=None):
                     default=["flagship", "rescoring", "vis"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    from ..utils.precision import no_tf32
+    no_tf32()   # each leg's CLIs turn TF32 off in their own processes too
     out = args.out_dir
     os.makedirs(out, exist_ok=True)
     if args.device == "cuda":

@@ -52,7 +52,9 @@ def main(argv=None):
     from ..parallel import (destroy_distributed, init_distributed,
                             process_shard_args)
     from ..utils.checkpoint import load_weights
+    from ..utils.precision import no_tf32
 
+    no_tf32()
     cfg = apply_overrides(get_config(args.config), args.cfg_options)
     device = args.device
     if args.dist:

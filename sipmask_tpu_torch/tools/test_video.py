@@ -37,7 +37,9 @@ def main(argv=None):
     from ..data.ytvos import YTVOSDataset
     from ..eval.ytvos_eval import YTVOSEvaluator
     from ..utils.checkpoint import load_weights
+    from ..utils.precision import no_tf32
 
+    no_tf32()
     cfg = apply_overrides(get_config(args.config), args.cfg_options)
     if not cfg.model.head.track:
         raise SystemExit(f"{args.config} is not a VIS preset")

@@ -54,7 +54,9 @@ def main(argv=None):
                               train_detector)
     from ..config import _r, apply_overrides, get_config
     from ..parallel import destroy_distributed, init_distributed
+    from ..utils.precision import no_tf32
 
+    no_tf32()
     cfg = apply_overrides(get_config(args.config), args.cfg_options)
     if args.seed is not None:
         cfg = _r(cfg, "train", seed=args.seed)

@@ -25,6 +25,16 @@ SHRINK = ["model.fpn.out_channels=32", "model.head.in_channels=32",
           "train.max_pos=16", "train.log_interval=1"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: under ``-n 6`` every worker's OpenMP pool would
+    take a thread a core, and the pools spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg():
     return apply_overrides(get_config("sipmask_r50_fpn_gn_1x"), SHRINK)
 
