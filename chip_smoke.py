@@ -11,7 +11,8 @@ high-accuracy ``sipmask_r50_fpn_gn_1x``, SipMask++
 SipMask-VIS ``sipmask_vis_r50``, then all four again with
 ``compute_dtype="bfloat16"``; then ResNeXt-101 ``sipmask_x101_fpn_gn_ms_2x``
 and HRNet-W32 ``sipmask_hrnet_w32_fpn_gn_1x`` in f32 and bf16, and the
-SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
+SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``; last (phase 36) it
+holds the modules no preset uses against float64 at deployment sizes.
 
 1. finds the card (no CUDA is an error), prints ``nvidia-smi``'s name and
    power limit and the backend flags it sets (TF32 off: plain f32; bf16
@@ -270,6 +271,21 @@ SipMask-benchmark fork ``sipmask_benchmark_r50_fpn_1x``.
     ``coco_error_analysis`` (phase 13's results), ``analyze_logs``,
     ``publish_model`` (the published weights detect the same) and
     ``browse_dataset``.
+36. (run last) the library modules at deployment sizes
+    (``tools/library_check.py``), each forward and backward in f32 on the
+    card against the same module and weights in float64 on the card, every
+    output and gradient a CUDA tensor, each output within 1e-4 and each
+    gradient within 1e-3 of the float64 one's largest absolute value, the
+    ReLUs and max pools pinned to the float64 run's choices: SSD300 and SSD512 at batch 8 (also in bf16, within
+    5e-2), BFP with NonLocal2D and with the conv refine (256 channels, 5
+    levels at strides 4-64 of 2 images at 768x1280), ``roi_align`` and
+    ``roi_pool`` (1024 RoIs, out 7, on the stride-4 level
+    2x256x192x320), ``ModulatedDeformRoIPoolingPack`` (512 RoIs, out 7,
+    256 channels, sample_per_part 4, trans_std 0.1), ``carafe`` (up 2, k
+    5) and ``masked_conv2d`` (3x3, half the mask set) at 2x256x96x160,
+    ``grid_sample`` at 8x256x100x168; then ``max_iou_assign`` on 120,000
+    boxes x 100 gts against float64 and ``random_sample(512)``; each
+    module's ms (CUDA events, warm) and peak memory.
 
 Each path (phases 4, 7, 10, 11, 12, 13, 14, 15, 16, 17, 18's two, 20-22,
 24-29, 30's soft-NMS serving, 32's two ranks in training and in the
@@ -5910,6 +5926,40 @@ def phase_tools(dev, name, smi, work, ann, images, ckpt, results13):
     return vis_launches
 
 
+def run_library_cases(lc, dev, rows):
+    """Phase 36's module cases, each compared, timed and logged into
+    ``rows``."""
+    for case in lc.cases(lc.DEPLOYMENT, dev):
+        t0 = time.perf_counter()
+        res = lc.compare(case, dev, log)
+        for label, r in res.items():
+            rows[f"{case.name} {label}"] = r
+            log(f"36: {case.name} {label}: forward + backward "
+                f"{r['ms']:.3f} ms, peak {r['peak_gib']:.2f} GiB; largest "
+                f"error of float64's max {r['err']:.2e}, outputs "
+                f"{r['out_err']:.2e} ({time.perf_counter() - t0:.1f} s with "
+                f"the checks)")
+        torch.cuda.empty_cache()
+
+
+def phase_library(dev, name, smi):
+    """Phase 36: the modules outside the presets at deployment sizes
+    (``tools/library_check.py``), f32 (and SSD-VGG bf16) against float64
+    on the card; logs each one's ms and peak memory."""
+    from sipmask_tpu_torch.tools import library_check as lc
+    rows = {}
+    # cuDNN's heuristic picks: benchmark mode would time every algorithm of
+    # every layer in f32, bf16 and float64 (55 s of the phase's 73)
+    with cudnn_heuristics():
+        run_library_cases(lc, dev, rows)
+    res = lc.check_assign(lc.DEPLOYMENT, dev, log=log)
+    rows["max_iou_assign + random_sample"] = res
+    log(f"36: max_iou_assign + random_sample(512): {res['ms']:.3f} ms, peak "
+        f"{res['peak_gib']:.2f} GiB")
+    log("36: " + json.dumps({"library_modules": rows, "card": smi}))
+    log(f"36: on {name} ({smi})")
+
+
 def build_kernels():
     """Phase 2: one nvcc per source of KERNELS and g++ for the mask codec
     (``native/maskops.cpp``) and the JPEG codec (``native/jpeg.cpp``), all
@@ -6114,6 +6164,9 @@ def main():
     # ---- 27-29. ResNeXt-101 32x4d, HRNet-W32 with HRFPN, and the
     # SipMask-benchmark fork's loss
     paths.update(last_presets(dev, name, smi, timed))
+
+    # ---- 36. the library modules at deployment sizes against float64
+    timed("36", phase_library, dev, name, smi)
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

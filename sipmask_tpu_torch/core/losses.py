@@ -1,5 +1,7 @@
-"""Loss functions, the port of ``sipmask_tpu/core/losses.py`` (the ones the
-image training path uses). All take mmdet's ``weight`` / ``avg_factor``."""
+"""Loss functions, the port of ``sipmask_tpu/core/losses.py``: the ones the
+training paths use, and the rest of the reference's loss surface
+(``bounded_iou_loss``, ``binary_cross_entropy``, ``mse_sum``). The reduced
+ones take mmdet's ``weight`` / ``avg_factor``."""
 
 from __future__ import annotations
 
@@ -72,6 +74,45 @@ def giou_loss_ltrb(pred, target, weight=None, avg_factor=None):
     ious = (inter + 1.0) / (union + 1.0)
     gious = ious - (ac_union - union) / ac_union
     return _reduce(1 - gious, weight, avg_factor)
+
+
+def binary_cross_entropy(probs, targets, eps_log: float = -100.0):
+    """Elementwise BCE on probabilities, as ``F.binary_cross_entropy``: each
+    log taken of the probability clamped at 1e-45, then clamped at -100."""
+    log_p = torch.log(probs.clamp(min=1e-45)).clamp(min=eps_log)
+    log_1p = torch.log((1 - probs).clamp(min=1e-45)).clamp(min=eps_log)
+    return -(targets * log_p + (1 - targets) * log_1p)
+
+
+def bounded_iou_loss(pred, target, weight=None, avg_factor=None,
+                     beta: float = 0.2, eps: float = 1e-3):
+    """mmdet's BoundedIoULoss on xyxy boxes (..., 4): the four bounded-IoU
+    deltas (centre x, y with the +1 widths, clipped from below at 0; width,
+    height) through a smooth-L1 of knee ``beta``, summed over the four."""
+    px = (pred[..., 0] + pred[..., 2]) * 0.5
+    py = (pred[..., 1] + pred[..., 3]) * 0.5
+    pw = pred[..., 2] - pred[..., 0] + 1
+    ph = pred[..., 3] - pred[..., 1] + 1
+    tx = (target[..., 0] + target[..., 2]) * 0.5
+    ty = (target[..., 1] + target[..., 3]) * 0.5
+    tw = target[..., 2] - target[..., 0] + 1
+    th = target[..., 3] - target[..., 1] + 1
+    ax, ay = (px - tx).abs(), (py - ty).abs()
+    dx = 1 - ((tw - 2 * ax) / (tw + 2 * ax + eps)).clamp(min=0)
+    dy = 1 - ((th - 2 * ay) / (th + 2 * ay + eps)).clamp(min=0)
+    dw = 1 - torch.minimum(tw / (pw + eps), pw / (tw + eps))
+    dh = 1 - torch.minimum(th / (ph + eps), ph / (th + eps))
+    d = torch.stack([dx, dy, dw, dh], -1)
+    loss = torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta).sum(-1)
+    return _reduce(loss, weight, avg_factor)
+
+
+def mse_sum(pred, target, weight=None):
+    """Squared error summed (the re-scoring loss's reduction)."""
+    loss = (pred - target) ** 2
+    if weight is not None:
+        loss = loss * weight
+    return loss.sum()
 
 
 def bce_with_logits(logits, targets, weight=None, avg_factor=None):

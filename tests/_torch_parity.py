@@ -177,13 +177,14 @@ def pin_port_relus(backbone, masks):
 
 
 @contextlib.contextmanager
-def pin_jax_relus(masks):
+def pin_jax_relus(masks, jmodule=None):
     """The same pins for the JAX package's ResNet (NHWC), whose blocks call
-    ``sipmask_tpu.models.resnet.relu`` in the port's order. Traces made
-    inside the context keep the pins. Yields the list holding the call
-    count."""
+    ``sipmask_tpu.models.resnet.relu`` in the port's order (or for the
+    module ``jmodule`` whose ``relu`` is called so). Traces made inside the
+    context keep the pins. Yields the list holding the call count."""
     import jax.numpy as jnp
     import sipmask_tpu.models.resnet as jresnet
+    jresnet = jmodule or jresnet
     real, calls = jresnet.relu, [0]
     nhwc_masks = [None if m is None else np.ascontiguousarray(
         m.transpose(0, 2, 3, 1)) for m in masks]

@@ -1207,3 +1207,27 @@ def test_bf16_rows_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ds.deform_rows_backward(xb, pyx, g, 6, 5)
     with pytest.raises(TypeError):    # bf16 dsampled with f32 x_rows
         ds.deform_rows_backward(x, pyx, gb, 6, 5)
+
+
+# ------------------------------------- the modules outside the presets
+
+LIBRARY_CASES = ("ssd300", "bfp_non_local", "bfp_conv", "roi_align",
+                 "roi_pool", "modulated_deform_roi_pooling_pack", "carafe",
+                 "masked_conv2d", "grid_sample")
+
+
+@pytest.mark.parametrize("name", LIBRARY_CASES)
+def test_library_module_on_the_card_matches_float64(dev, name):
+    """chip_smoke.py's phase 36 at small sizes: the module forward and
+    backward in f32 (and SSD-VGG in bf16) on CUDA tensors against the same
+    module and weights in float64 on the card."""
+    from sipmask_tpu_torch.tools import library_check as lc
+    case = {c.name: c for c in lc.cases(lc.SMALL, dev)}[name]
+    res = lc.compare(case, dev)
+    assert res["f32"]["err"] <= lc.F32_TOL and res["f32"]["ms"] > 0
+
+
+def test_max_iou_assign_and_random_sample_on_the_card(dev):
+    from sipmask_tpu_torch.tools import library_check as lc
+    res = lc.check_assign(lc.SMALL, dev)
+    assert res["positives"] > 0 and res["ms"] > 0

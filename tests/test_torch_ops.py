@@ -893,7 +893,8 @@ def test_import_leaves_jax_flax_cv2_and_the_jax_package_out():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "vis = ('models.track', 'data.ytvos', 'eval.ytvos_eval',\n"
-        "       'apis.test_video', 'tools.synth_ytvis', 'tools.test_video')\n"
+        "       'apis.test_video', 'tools.synth_ytvis', 'tools.test_video',\n"
+        "       'ops.roi', 'models.ssd_vgg', 'models.bfp', 'core.assigners')\n"
         "assert all('sipmask_tpu_torch.' + m in sys.modules for m in vis)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'cv2', 'PIL', 'sipmask_tpu')]\n"
