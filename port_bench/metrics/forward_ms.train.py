@@ -1,0 +1,11 @@
+"""Device ms a training step spends on the operations that the program
+enqueued inside its span ``sipmask.step.forward`` (the model's forward),
+read by ``port_bench/spans.py`` from the profiled stretch."""
+
+from port_bench import spans
+
+
+def read(t):
+    if t.path != "train":
+        return None
+    return spans.device_ms(t.stretch, {"sipmask.step.forward"})

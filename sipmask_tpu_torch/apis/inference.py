@@ -24,6 +24,7 @@ from ..data.transforms import TestTransform
 from ..models.decode import decode_batch
 from ..models.detector import build_model
 from ..utils.convert import init_weights
+from ..utils.trace import span
 
 
 class Detector:
@@ -41,11 +42,13 @@ class Detector:
         img_shapes (B, 2) (h, w) before padding; scale_factors (B, 4).
         Returns ``decode_batch``'s dict of device tensors (with
         ``mask_scores`` when the model rescores, SipMask++)."""
-        out = self.model(images)
-        rescore = (self.model.rescore if self.cfg.model.head.rescoring
-                   else None)
-        return decode_batch(out, img_shapes, scale_factors, self.cfg.model,
-                            rescore_fn=rescore)
+        with span("sipmask.infer.forward"):
+            out = self.model(images)
+        with span("sipmask.infer.decode"):
+            rescore = (self.model.rescore if self.cfg.model.head.rescoring
+                       else None)
+            return decode_batch(out, img_shapes, scale_factors,
+                                self.cfg.model, rescore_fn=rescore)
 
 
 def init_detector(config: Union[str, SipMaskConfig], device="cuda",

@@ -11,7 +11,6 @@ majority category and its per-frame RLEs (None where absent).
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -21,13 +20,8 @@ from ..data.transforms import TestTransform
 from ..eval.maskops import encode_masks_t
 from ..models.decode import decode_batch
 from ..models.track import extract_center_feats, tracker_init, tracker_step
+from ..utils.trace import span
 from .inference import paste_masks
-
-
-def _sync_ms(dev, t0):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return (time.perf_counter() - t0) * 1e3
 
 
 @torch.no_grad()
@@ -39,7 +33,8 @@ def run_video_inference(det, dataset, progress: bool = True,
     score, category_id (1-based label) and segmentations (per frame an RLE
     dict, or None). ``timings``: a dict that collects the host ms of each
     frame's sections (``model`` with the decode and the embeddings,
-    ``track``, ``paste`` with the RLEs), each ended by a synchronise."""
+    ``track``, ``paste`` with the RLEs: the spans ``sipmask.video.model``,
+    ``.track`` and ``.paste``), each ended by a synchronise."""
     cfg, dev = det.cfg, det.device
     transform = TestTransform(cfg.data)
     max_tracks = cfg.model.track.max_tracks
@@ -50,47 +45,44 @@ def run_video_inference(det, dataset, progress: bool = True,
         vid_objs = {}
         for fi in range(n_frames):
             s = transform(dataset.load_frame(vid_idx, fi))
-            t0 = time.perf_counter()
-            images = torch.from_numpy(s.image).permute(2, 0, 1)[None].to(dev)
-            sf = torch.from_numpy(s.scale_factor)
-            out = det.model(images)
-            dets = decode_batch(out, torch.from_numpy(s.img_shape)[None],
-                                sf[None], cfg.model)
-            # embeddings at the detections' centres, input coordinates
-            feats = extract_center_feats(
-                out["track_feats"][0], dets["boxes"][0] * sf.to(dev)[None])
-            if timings is not None:
-                timings.setdefault("model", []).append(_sync_ms(dev, t0))
-                t0 = time.perf_counter()
-            state, obj_ids = tracker_step(
-                state, dets["boxes"][0], dets["scores"][0],
-                dets["labels"][0], dets["valid"][0], feats, fi == 0,
-                match_coeff=cfg.model.track.match_coeff)
-            # the frame's one read-back: ids, validity, scores, labels
-            host = torch.stack([obj_ids.double(), dets["valid"][0].double(),
-                                dets["scores"][0].double(),
-                                dets["labels"][0].double()]).cpu().numpy()
-            if timings is not None:
-                timings.setdefault("track", []).append(_sync_ms(dev, t0))
-                t0 = time.perf_counter()
-            keep = [i for i in range(host.shape[1])
-                    if host[0, i] >= 0 and host[1, i]]
-            if keep:
-                # transposed on the device: COCO's runs are column-major
-                segs = encode_masks_t(paste_masks(
-                    dets["masks"][0][torch.tensor(keep, device=dev)],
-                    s.scale_factor, s.ori_shape, thr).transpose(1, 2)
-                    .contiguous().cpu().numpy())
-            for j, i in enumerate(keep):
-                o = vid_objs.setdefault(int(host[0, i]), dict(
-                    scores=[], cats=[], segms={}))
-                o["scores"].append(float(np.float32(host[2, i])))
-                o["cats"].append(int(host[3, i]))
-                # detection order: a later detection of an object
-                # overwrites an earlier one's mask
-                o["segms"][fi] = segs[j]
-            if timings is not None:
-                timings.setdefault("paste", []).append(_sync_ms(dev, t0))
+            with span("sipmask.video.model", timings, dev):
+                images = torch.from_numpy(s.image).permute(2, 0, 1)[None].to(
+                    dev)
+                sf = torch.from_numpy(s.scale_factor)
+                out = det.model(images)
+                dets = decode_batch(out, torch.from_numpy(s.img_shape)[None],
+                                    sf[None], cfg.model)
+                # embeddings at the detections' centres, input coordinates
+                feats = extract_center_feats(
+                    out["track_feats"][0],
+                    dets["boxes"][0] * sf.to(dev)[None])
+            with span("sipmask.video.track", timings, dev):
+                state, obj_ids = tracker_step(
+                    state, dets["boxes"][0], dets["scores"][0],
+                    dets["labels"][0], dets["valid"][0], feats, fi == 0,
+                    match_coeff=cfg.model.track.match_coeff)
+                # the frame's one read-back: ids, validity, scores, labels
+                host = torch.stack([
+                    obj_ids.double(), dets["valid"][0].double(),
+                    dets["scores"][0].double(),
+                    dets["labels"][0].double()]).cpu().numpy()
+            with span("sipmask.video.paste", timings, dev):
+                keep = [i for i in range(host.shape[1])
+                        if host[0, i] >= 0 and host[1, i]]
+                if keep:
+                    # transposed on the device: COCO's runs are column-major
+                    segs = encode_masks_t(paste_masks(
+                        dets["masks"][0][torch.tensor(keep, device=dev)],
+                        s.scale_factor, s.ori_shape, thr).transpose(1, 2)
+                        .contiguous().cpu().numpy())
+                for j, i in enumerate(keep):
+                    o = vid_objs.setdefault(int(host[0, i]), dict(
+                        scores=[], cats=[], segms={}))
+                    o["scores"].append(float(np.float32(host[2, i])))
+                    o["cats"].append(int(host[3, i]))
+                    # detection order: a later detection of an object
+                    # overwrites an earlier one's mask
+                    o["segms"][fi] = segs[j]
         for o in vid_objs.values():
             results.append(dict(
                 video_id=video_id, score=float(np.mean(o["scores"])),

@@ -13,7 +13,6 @@ same map) and encoded by the numpy codec.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -21,6 +20,7 @@ import torch
 
 from ..apis.inference import paste_masks
 from ..data.imgops import resize_bilinear_f32
+from ..utils.trace import span
 from . import rle
 from .maskops import encode_masks_t
 
@@ -56,41 +56,39 @@ def postprocess_batch(dets: Dict, image_ids, ori_shapes, label2cat,
       ori_shapes: (B, 2) original (h, w).
       label2cat: contiguous label (1-based) -> COCO category id.
       timings: a dict that collects the host ms of the batch's ``paste``
-        (the device paste and the copy to the host), its ``encode`` and the
-        MB copied (``copied_mb``).
+        (the device paste and the copy to the host) and its ``encode``
+        (the spans ``sipmask.test.paste`` and ``.encode``), and the MB
+        copied (``copied_mb``).
     Returns a flat list of COCO result dicts (bbox xywh, score, det_score,
     segmentation RLE) for the first ``n_valid`` images.
     """
-    t0 = time.perf_counter()
-    n = dets["boxes"].shape[0] if n_valid is None else n_valid
-    masks = torch.as_tensor(dets["masks"])
-    host = {k: _host(v) for k, v in dets.items() if k != "masks"}
-    sf = host.get("scale_factors", np.ones((n, 4), np.float32))
-    results, pasted = [], []
-    for i in range(n):
-        valid = host["valid"][i].astype(bool)
-        if not valid.any():
-            continue
-        results.append(_results(host, i, valid, int(image_ids[i]),
-                                label2cat))
-        oh, ow = int(ori_shapes[i][0]), int(ori_shapes[i][1])
-        rows = torch.from_numpy(np.nonzero(valid)[0]).to(masks.device)
-        pasted.append(paste_masks(masks[i][rows], sf[i], (oh, ow),
-                                  mask_thr).transpose(1, 2))
-    flat = (torch.cat([p.reshape(-1) for p in pasted]).cpu().numpy()
-            if pasted else np.zeros(0, bool))
-    t1 = time.perf_counter()
-    start = 0
-    for res, p in zip(results, pasted):
-        size = p.numel()
-        segs = encode_masks_t(flat[start:start + size].reshape(p.shape))
-        start += size
-        for r, seg in zip(res, segs):
-            r["segmentation"] = seg
+    with span("sipmask.test.paste", timings):
+        n = dets["boxes"].shape[0] if n_valid is None else n_valid
+        masks = torch.as_tensor(dets["masks"])
+        host = {k: _host(v) for k, v in dets.items() if k != "masks"}
+        sf = host.get("scale_factors", np.ones((n, 4), np.float32))
+        results, pasted = [], []
+        for i in range(n):
+            valid = host["valid"][i].astype(bool)
+            if not valid.any():
+                continue
+            results.append(_results(host, i, valid, int(image_ids[i]),
+                                    label2cat))
+            oh, ow = int(ori_shapes[i][0]), int(ori_shapes[i][1])
+            rows = torch.from_numpy(np.nonzero(valid)[0]).to(masks.device)
+            pasted.append(paste_masks(masks[i][rows], sf[i], (oh, ow),
+                                      mask_thr).transpose(1, 2))
+        flat = (torch.cat([p.reshape(-1) for p in pasted]).cpu().numpy()
+                if pasted else np.zeros(0, bool))
+    with span("sipmask.test.encode", timings):
+        start = 0
+        for res, p in zip(results, pasted):
+            size = p.numel()
+            segs = encode_masks_t(flat[start:start + size].reshape(p.shape))
+            start += size
+            for r, seg in zip(res, segs):
+                r["segmentation"] = seg
     if timings is not None:
-        t2 = time.perf_counter()
-        timings.setdefault("paste", []).append((t1 - t0) * 1e3)
-        timings.setdefault("encode", []).append((t2 - t1) * 1e3)
         timings.setdefault("copied_mb", []).append(flat.nbytes / 2 ** 20)
     return [r for res in results for r in res]
 

@@ -65,6 +65,7 @@ import ctypes
 
 import torch
 
+from ..utils.trace import spanned
 from . import custom, deform_sample, native
 
 
@@ -314,6 +315,7 @@ def _lib():
     return lib
 
 
+@spanned("sipmask.K2")
 def deform_conv_backward(x, offsets, cols, w2, dy, kernel_size=(3, 3),
                          stride: int = 1, padding: int = 1,
                          dilation: int = 1, deform_groups: int = 1):

@@ -38,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.trace import spanned
 from . import native
 
 # (x, offsets) dtypes K1's and K5's plain versions take (K5: x_rows and
@@ -391,6 +392,7 @@ def _smem_bytes(k: int, cg: int, bf16: bool) -> int:
     return _lib().deform_im2col_smem_bytes(k, cg, int(bf16))
 
 
+@spanned("sipmask.K1")
 def deform_im2col(x, offsets, kernel_size=(3, 3), stride: int = 1,
                   padding: int = 1, dilation: int = 1,
                   deform_groups: int = 1):
@@ -713,6 +715,7 @@ def _rows_launch_args(x_rows, pyx, tensors):
         t.data_ptr() % align == 0 for t in tensors))
 
 
+@spanned("sipmask.K5")
 def deform_rows(x_rows, pyx, h: int, w: int):
     """K5: bilinear sampling of ``x_rows`` (N, h*w, Cg) at ``pyx``
     (N, K, P, 2) -> (N, P, K, Cg), the layout of
@@ -756,6 +759,7 @@ deform_rows.launches = 0
 deform_rows.bf16_launches = 0
 
 
+@spanned("sipmask.K5c")
 def deform_rows_backward(x_rows, pyx, dsampled, h: int, w: int):
     """K5c: (dx_rows (N, h*w, Cg), dpyx (N, K, P, 2)) of :func:`deform_rows`
     for the cotangent ``dsampled`` (N, P, K, Cg). The position derivative is

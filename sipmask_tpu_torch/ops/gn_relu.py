@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from ..utils.trace import spanned
 from . import custom, native
 
 
@@ -288,6 +289,7 @@ def _cuda_check(x, weight, bias, groups):
 _CHUNK = 256 * 16
 
 
+@spanned("sipmask.K4a")
 def gn_relu_forward(x, weight, bias, groups: int = 32, eps: float = 1e-5,
                     act: bool = True, keep_stats: bool = True):
     """K4a: (y, stats), stats None unless ``keep_stats``. CPU tensors take
@@ -349,6 +351,7 @@ def _arrivals(device, stream: int, groups: int):
     return buf
 
 
+@spanned("sipmask.K4b")
 def gn_relu_backward(x, weight, bias, stats, dy, groups: int, act: bool):
     """K4b: (dx, d weight, d bias) from the forward's ``stats``. CPU
     tensors take :func:`gn_relu_backward_plain`; CUDA tensors launch the

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..utils.trace import spanned
 from . import native
 
 
@@ -141,6 +142,7 @@ def _lib():
     return lib
 
 
+@spanned("sipmask.K6")
 def assemble_masks(basis, cofs, boxes):
     """K6: SP mask assembly, (B, h, w, nb), (B, N, 4*nb), (B, N, 4) ->
     (B, h, w, N) sigmoid probabilities, 0 outside the boxes.

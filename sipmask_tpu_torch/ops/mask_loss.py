@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..utils.trace import spanned
 from . import native
 from .crop_split import mask_bce_loss_indexed
 from .mask_assembly import _colmix_logits, _quadrant_bounds
@@ -242,6 +243,7 @@ def _cuda_operands(basis, cofs, boxes, gt_masks, gt_idx, valid):
             else valid.to(torch.uint8).contiguous())
 
 
+@spanned("sipmask.K3a")
 def mask_bce_forward(basis, cofs, boxes, gt_masks, gt_idx, valid):
     """K3a: (B, K) pixel-summed BCE per positive. CPU tensors take
     :func:`mask_bce_loss_plain`; CUDA tensors launch the kernel, which does
@@ -287,6 +289,7 @@ def mask_bce_backward_plain(basis, cofs, boxes, gt_masks, gt_idx, valid,
         return torch.autograd.grad(pre, (bs, cf), grad)
 
 
+@spanned("sipmask.K3b")
 def mask_bce_backward(basis, cofs, boxes, gt_masks, gt_idx, valid, grad):
     """K3b: (d basis (B, NB, H, W), d cofs (B, K, 4*NB)) for the cotangent
     ``grad`` (B, K) of :func:`mask_bce_forward`. CPU tensors take

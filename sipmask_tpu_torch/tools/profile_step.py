@@ -13,9 +13,13 @@ that detect (``utils/demo_inputs.bump_weights``); two warm runs, then
 ``--steps`` under the profiler. It prints the device time a step (the
 union of the kernels' intervals), the wall a step and the device's idle
 share, then the top ``--top`` device kernels aggregated by name: ms a
-step, share of the device time, calls a step. On the CPU the ops' own
-CPU time takes the kernels' place. TF32 off; bf16 products summed in f32;
-cuDNN's benchmark mode on.
+step, share of the device time, calls a step, and then each of the
+program's spans (``utils/trace.py``: ``sipmask.step.*``,
+``sipmask.infer.*``, ``sipmask.K*``) with its host ms and calls a step.
+On the CPU the ops' own CPU time takes the kernels' place. TF32 off; bf16
+products summed in f32; cuDNN's heuristics pick the convolutions'
+algorithms, as every entry point of the port leaves them (its benchmark
+mode, which none sets, times other algorithms).
 """
 
 from __future__ import annotations
@@ -67,7 +71,6 @@ def main(argv=None):
     if cuda:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
             = False
-        torch.backends.cudnn.benchmark = True
     cfg = _r(apply_overrides(get_config(args.config), args.cfg_options),
              "model", compute_dtype=args.dtype)
     h, w = args.shape or default_shape(cfg, args.mode)
@@ -135,9 +138,20 @@ def main(argv=None):
               f"{r['op']}")
     rest = sum(r["ms"] for r in rows[args.top:])
     print(f"{rest:9.3f} ms          (+{max(len(rows) - args.top, 0)} more)")
+    span_us, span_calls = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.name.startswith("sipmask."):
+            span_us[e.name] += e.time_range.end - e.time_range.start
+            span_calls[e.name] += 1
+    spans = [dict(span=k, host_ms=round(us / 1e3 / n, 4),
+                  calls=span_calls[k] / n) for k, us in sorted(span_us.items())]
+    print("## spans (host ms a step | calls a step)")
+    for r in spans:
+        print(f"{r['host_ms']:9.3f} ms  x{r['calls']:<7g} {r['span']}")
     out = dict(config=args.config, mode=args.mode, batch=b, dtype=args.dtype,
                hw=[h, w], device=args.device, steps=n,
-               device_ms=round(total, 4), wall_ms=round(wall, 4), ops=rows)
+               device_ms=round(total, 4), wall_ms=round(wall, 4), ops=rows,
+               spans=spans)
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(out, f, indent=1)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from ..models.loss import compute_losses
 from ..parallel import all_reduce_sum_
+from ..utils.trace import span
 from .optim import clip_gradients, set_lr
 from .state import TrainState
 
@@ -35,24 +36,29 @@ def make_train_step(state: TrainState, cfg):
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
 
     def train_step(batch):
-        set_lr(state.optimizer, state.schedule(state.step))
-        out = state.model(batch["images"], batch["ref_images"]
-                          if head_cfg.track else None)
-        losses = compute_losses(
-            out, batch, head_cfg, max_pos=cfg.train.max_pos,
-            rescore_fn=state.model.rescore if head_cfg.rescoring else None)
-        total = sum(v for k, v in losses.items() if k.startswith("loss"))
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss_total"] = total.detach()
-        summed = [k for k in metrics if k.startswith("loss")]
-        metrics.update(zip(summed, all_reduce_sum_(
-            params, [metrics[k] for k in summed])))
-        if clip is not None:
-            clip_gradients(state.optimizer, clip)
-        state.optimizer.step()
-        state.step += 1
+        with span("sipmask.step.forward"):
+            out = state.model(batch["images"], batch["ref_images"]
+                              if head_cfg.track else None)
+        with span("sipmask.step.loss"):
+            losses = compute_losses(
+                out, batch, head_cfg, max_pos=cfg.train.max_pos,
+                rescore_fn=state.model.rescore if head_cfg.rescoring
+                else None)
+            total = sum(v for k, v in losses.items() if k.startswith("loss"))
+        with span("sipmask.step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with span("sipmask.step.update"):
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["loss_total"] = total.detach()
+            summed = [k for k in metrics if k.startswith("loss")]
+            metrics.update(zip(summed, all_reduce_sum_(
+                params, [metrics[k] for k in summed])))
+            if clip is not None:
+                clip_gradients(state.optimizer, clip)
+            set_lr(state.optimizer, state.schedule(state.step))
+            state.optimizer.step()
+            state.step += 1
         return metrics
 
     return train_step

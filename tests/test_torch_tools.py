@@ -359,6 +359,10 @@ def test_profile_step_on_the_cpu(tmp_path):
         saved = json.load(f)
     assert saved["ops"] and saved["hw"] == [64, 96]
     assert res["ops"][0]["ms"] >= res["ops"][-1]["ms"]
+    calls = {r["span"]: r["calls"] for r in saved["spans"]}
+    assert calls["sipmask.infer.forward"] == calls["sipmask.infer.decode"] \
+        == 1
+    assert calls["sipmask.K4a"] > 0 and calls["sipmask.K6"] == 1
 
 
 @pytest.mark.parametrize("cli", ["train", "test", "test_video", "overfit"])
